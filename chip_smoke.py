@@ -11,15 +11,29 @@ Phases, each printing one JSON line:
           exactly one false) and on the committed pedersen-bls-chained
           segment (rounds 2-65 against anchor round 1), with the launches
           of every kernel during the 16384-round batch, in total and by
-          call (shape, and k for sqr_chain_mul)
+          call (the key each wrapper in ops/kernels.py documents).  Every
+          kernel but mont_reduce and fp2_sqr5_mul must have launched;
+          those two must not have (mont_reduce's callers on the GPU were
+          the composite Fp2 and flat Fp12 products, now kernels of their
+          own; both of the path's Fp2 powers take the addition chain of
+          fp2_sqr_chain_mul steps, not the window of fp2_sqr5_mul), and
+          the limb convolution `_poly_mul_var` must not have run
   parity  every kernel against its plain PyTorch version on the card, bit
-          for bit, at every call the 16384-round batch made and at 16384
-          rows for Fp and Fr (sqr_chain_mul also at k = 1, 4, 5, 9, 63 with
-          and without t), on random values plus 0, 1, m-1 (mont_reduce:
-          wide values up to the top of its input contract, in limbs up to
-          2^14 - 1); then the device time of kernel and plain version: the
-          summed durations of the device kernels a call launches
-          (torch.profiler), so host time between launches does not count
+          for bit, at every call the 16384-round batch made and at fixed
+          cases: 16384 rows for Fp and Fr (sqr_chain_mul also at k = 1, 4,
+          5, 9, 63 with and without t; mont_reduce also at the stacks
+          [2, 16384, 64] and [16, 2, 16384, 64] the composite products
+          gave it), fp2_products and fp2_sqrs at n = 9, flat_mul dense and
+          sparse on all-(p-1) coefficients, cyclo_sqr on unitary rows,
+          fp2_sqr_chain_mul at k = 1, 5, 13, fp2_sqr5_mul, the G2 point
+          kernels with doubling, cancelling and infinite rows, the Miller
+          iterations with every active/inactive pair mask, flat_conj and
+          flat_frob at n = 1, 2, 3; on random values plus 0, 1, m-1
+          (mont_reduce: wide values up to the top of its input contract,
+          in limbs up to 2^14 - 1); then the device time of kernel and
+          plain version at the path's most common call: the summed
+          durations of the device kernels a call launches (torch.profiler),
+          so host time between launches does not count
 
 then a {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 Any mismatch or error exits non-zero before the last line.  It imports
@@ -50,6 +64,30 @@ PEAK_MULADDS = 64 * 132 * 1.98e9
 MULADDS_MUL = 8 * (36 + 36) + 4 * 6      # K1: CIOS product and REDC
 MULADDS_SQR = 8 * (21 + 36) + 4 * 6      # K2: triangular square and REDC
 MULADDS_REDC = 8 * 36 + 4 * 6            # K3
+MULADDS_WIDE = 8 * 36                    # a 6x6-word product
+MULADDS_FP2_MUL = 4 * MULADDS_WIDE + 2 * MULADDS_REDC           # K5
+MULADDS_FP2_SQR = 8 * (21 + 21 + 36) + 2 * MULADDS_REDC        # K6
+# K9/K10 and the Miller steps: (Fp2 squares, Fp2 products, Fp products)
+G2_DBL = (5, 2, 0)
+G2_ADD = (5, 11, 0)
+MILLER_DBL_STEP = (6, 5, 4)
+MILLER_ADD_STEP = (4, 10, 4)
+# kernels the verify path does not launch: K3 (its callers were the
+# composite products, now K5, K6, K13, K14) and K8 (fp2_pow_const takes
+# the addition chain of K7 steps on both of the path's exponents, as
+# drand_tpu does on its chip)
+OFF_PATH = ("mont_reduce", "fp2_sqr5_mul")
+
+
+def muladds_fp2(sqrs: int, muls: int, fp_muls: int) -> int:
+    return (sqrs * MULADDS_FP2_SQR + muls * MULADDS_FP2_MUL
+            + fp_muls * MULADDS_MUL)
+
+
+def muladds_flat(b_idx) -> int:
+    """A flat Fp12 product with b on the w-powers b_idx (K13's work)."""
+    coeffs = len({i + j for i in range(12) for j in b_idx})
+    return 12 * len(b_idx) * MULADDS_WIDE + coeffs * MULADDS_REDC
 
 
 def emit(obj) -> None:
@@ -92,7 +130,50 @@ def device_ms(fn, reps: int) -> float:
 
 def work(name: str, call: tuple):
     """(bytes moved, 32-bit multiply-adds) of one launch for `call`, a key
-    of `Kernel.calls`: (field, shape) or, for K4, (field, shape, k, t?)."""
+    of `Kernel.calls` (the key each wrapper in ops/kernels.py documents)."""
+    line_idx = (0, 2, 3, 6, 8, 9)
+    if name == "fp2_sqr_chain_mul":
+        (shape, k, with_t), rows = call, math.prod(call[0][1:-1])
+        return ((768 if with_t else 512) * rows,
+                muladds_fp2(k, int(with_t), 0) * rows)
+    if name == "fp2_sqr5_mul":
+        rows = math.prod(call[1:-1])
+        return 768 * rows, muladds_fp2(5, 1, 0) * rows
+    if name == "g2_point_dbl":
+        rows = math.prod(call[1:-1])
+        return 12 * 128 * rows, muladds_fp2(*G2_DBL) * rows
+    if name == "g2_point_add":
+        (shape, with_double), rows = call, math.prod(call[0][1:-1])
+        ops = muladds_fp2(*G2_ADD) + (muladds_fp2(*G2_DBL) if with_double
+                                      else 0)
+        return 18 * 128 * rows, ops * rows
+    if name in ("miller_dbl_iter", "miller_add_iter"):
+        rows = math.prod(call[:-2])
+        if name == "miller_dbl_iter":
+            nbytes = (12 + 12 + 4 + 12 + 12) * 128 + 8
+            ops = (muladds_flat(tuple(range(12))) + 2 * muladds_flat(line_idx)
+                   + 2 * muladds_fp2(*MILLER_DBL_STEP))
+        else:
+            nbytes = (12 + 12 + 8 + 4 + 12 + 12) * 128 + 8
+            ops = (2 * muladds_flat(line_idx)
+                   + 2 * muladds_fp2(*MILLER_ADD_STEP))
+        return nbytes * rows, ops * rows
+    if name == "flat_conj":
+        return 24 * 128 * math.prod(call[:-2]), 0
+    if name == "flat_frob":
+        rows = math.prod(call[0][:-2])
+        return 24 * 128 * rows, 24 * MULADDS_MUL * rows
+    if name in ("fp2_products", "fp2_sqrs"):
+        items = call[1] * math.prod(call[0][:-1])
+        if name == "fp2_products":
+            return 768 * items, MULADDS_FP2_MUL * items
+        return 512 * items, MULADDS_FP2_SQR * items
+    if name == "flat_mul":
+        rows, b_idx = math.prod(call[0][:-2]), call[1]
+        return (24 + len(b_idx)) * 128 * rows, muladds_flat(b_idx) * rows
+    if name == "cyclo_sqr":
+        rows = math.prod(call[:-2])
+        return 24 * 128 * rows, 9 * MULADDS_FP2_SQR * rows
     n = math.prod(call[1][:-1])
     if name == "mont_mul":
         return 384 * n, MULADDS_MUL * n
@@ -123,8 +204,15 @@ def main() -> int:
     from drand_tpu_torch import fixtures as FX
     from drand_tpu_torch import verify as V
     from drand_tpu_torch.crypto.bls12381 import curve as GC
+    from drand_tpu_torch.crypto.bls12381.constants import P
+    from drand_tpu_torch.ops import field as FLD
+    from drand_tpu_torch.ops import flat12 as FL
+    from drand_tpu_torch.ops import curve as DC
     from drand_tpu_torch.ops import kernels as K
+    from drand_tpu_torch.ops import pairing as PR
+    from drand_tpu_torch.ops import towers as TW
     from drand_tpu_torch.ops.field import FP, FR, int_to_limbs
+    from drand_tpu_torch.ops.pairing import LINE_IDX
 
     report = {}
     dev = torch.device("cuda", 0)
@@ -157,7 +245,17 @@ def main() -> int:
         fail(f"unexpected fixture shape {sigs.shape}")
     rounds = np.arange(1, BATCH + 1, dtype=np.uint64)
 
+    # the plain limb convolution, counted wherever the port calls it
+    conv_calls = [0]
+    poly_mul_var = FLD._poly_mul_var
+
+    def counted_poly_mul_var(a, b):
+        conv_calls[0] += 1
+        return poly_mul_var(a, b)
+
     torch.cuda.synchronize()
+    for mod in (FLD, TW, FL):
+        mod._poly_mul_var = counted_poly_mul_var
     K.reset_launches()
     t0 = time.perf_counter()
     resolve = verifier.verify_batch_async(rounds, sigs)
@@ -166,10 +264,16 @@ def main() -> int:
     t_batch = time.perf_counter() - t0
     launches = K.launch_counts()
     path_calls = {name: dict(k.calls) for name, k in K.KERNELS.items()}
+    for mod in (FLD, TW, FL):
+        mod._poly_mul_var = poly_mul_var
     if not ok.all():
         fail(f"valid 16384-round segment: {int(ok.sum())}/{BATCH} true")
-    if min(launches.values()) == 0:
+    if min(n for name, n in launches.items() if name not in OFF_PATH) == 0:
         fail(f"a kernel of the path was not launched: {launches}")
+    if any(launches[name] for name in OFF_PATH) or conv_calls[0]:
+        fail(f"the batch launched a kernel off its path or ran the plain "
+             f"limb convolution: {launches}, _poly_mul_var {conv_calls[0]} "
+             f"calls")
 
     bad = sigs.copy()
     flip_at = 4321
@@ -194,6 +298,13 @@ def main() -> int:
         "batch_wall_s": t_batch, "dispatch_s": t_dispatch,
         "flipped_batch_wall_s": t_bad, "chained_64_wall_s": t_chain,
         "launches": launches,
+        "off_path": {"mont_reduce": "0 launches: the composite products "
+                                    "that reduced through it are K5, K6, "
+                                    "K13, K14",
+                     "fp2_sqr5_mul": "0 launches: both of the path's Fp2 "
+                                     "exponents take the addition chain "
+                                     "(K7 steps)"},
+        "poly_mul_var_calls": conv_calls[0],
         "calls": {name: sorted(c.items()) for name, c in path_calls.items()},
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
     emit(report["slice"])
@@ -245,13 +356,135 @@ def main() -> int:
             fail("wide_rows built limbs outside [0, 2^14)")
         return torch.from_numpy(np.ascontiguousarray(w.reshape(shape))).to(dev)
 
-    def inputs(name, call):
+    def max_flat(shape):
+        """Flat Fp12 rows whose every stored coefficient is p - 1: the
+        largest convolution values (drand_tpu's round-4 offset bug)."""
+        row = torch.tensor([((P - 1) >> (12 * i)) & 0xFFF for i in range(32)],
+                           dtype=torch.int32, device=dev)
+        return row.expand(shape).contiguous()
+
+    def unitary_rows(shape):
+        """Unitary flat Fp12 rows, f^((p^6 - 1)(p^2 + 1)) of random f,
+        made on the card by the port's own flat ops."""
+        f = field_rows(FP, shape)
+        f = FL.flat_mul(FL.flat_conj(f), FL.flat_inv(f))
+        return FL.flat_mul(FL.flat_frob(f, 2), f)
+
+    def g2_pair(shape):
+        """[6, ..., 32] point pairs over random coordinates, with p2 = p1
+        (the doubling case), p2 = -p1 (cancels), p1 infinite, p2 infinite
+        among the rows."""
+        p1, p2 = field_rows(FP, shape), field_rows(FP, shape)
+        p2[:, 0] = p1[:, 0]
+        p2[:, 1] = p1[:, 1]
+        p2[2:4, 1] = FP.neg(p1[2:4, 1])
+        p1[4:, 2] = 0
+        p2[4:, 3] = 0
+        return p1, p2
+
+    def miller_state(shape, add):
+        """f, T (Z = 1 in the first rows, as at the loop's start), (Q,) P
+        and masks with every active/inactive combination."""
+        lead = shape[:-2]
+        f = field_rows(FP, shape)
+        T = field_rows(FP, lead + (2, 6, 32))
+        T[:8, :, 4] = FP.one_mont.to(dev)
+        T[:8, :, 5] = 0
+        P_ = field_rows(FP, lead + (2, 2, 32))
+        masks = torch.from_numpy(rng.integers(0, 2, size=lead + (2,),
+                                              dtype=np.int32)).to(dev)
+        masks[:4] = torch.tensor([[1, 1], [1, 0], [0, 1], [0, 0]],
+                                 dtype=torch.int32, device=dev)
+        if add:
+            return f, T, field_rows(FP, lead + (2, 4, 32)), P_, masks
+        return f, T, P_, masks
+
+    def inputs(name, call, kind="random"):
+        """Kernel arguments for `call`: random canonical values (with 0, 1,
+        m-1 first), all-(p-1) flat rows ("max") or unitary ones."""
+        if name == "fp2_sqr_chain_mul":
+            shape, _k, with_t = call
+            x = field_rows(FP, shape)
+            return (x, field_rows(FP, shape).flip(1).contiguous()
+                    if with_t else None)
+        if name == "fp2_sqr5_mul":
+            return field_rows(FP, call), field_rows(FP, call)
+        if name == "g2_point_dbl":
+            return (field_rows(FP, call),)
+        if name == "g2_point_add":
+            return g2_pair(call[0])
+        if name in ("miller_dbl_iter", "miller_add_iter"):
+            return miller_state(call, name == "miller_add_iter")
+        if name == "flat_conj":
+            return (field_rows(FP, call),)
+        if name == "flat_frob":
+            return (field_rows(FP, call[0]),)
+        if name in ("fp2_products", "fp2_sqrs"):
+            shape, n = call
+            x = field_rows(FP, (n, 2) + shape)
+            return (x,) if name == "fp2_sqrs" else (
+                x, field_rows(FP, (n, 2) + shape).flip(2).contiguous())
+        if name == "flat_mul":
+            shape, b_idx = call
+            bshape = shape[:-2] + (len(b_idx), 32)
+            if kind == "max":
+                return max_flat(shape), max_flat(bshape)
+            return field_rows(FP, shape), field_rows(FP, bshape)
+        if name == "cyclo_sqr":
+            return (unitary_rows(call) if kind == "unitary"
+                    else field_rows(FP, call),)
         F, shape = fields[call[0]], call[1]
         if name == "mont_reduce":
             return (wide_rows(F, shape),)
         return (field_rows(F, shape), field_rows(F, shape))
 
     def run(name, call, args, kernel: bool):
+        """The kernel's or the plain version's output for `call`; the
+        Miller iterations' two outputs as one flat tensor."""
+        if name == "fp2_sqr_chain_mul":
+            return (K.fp2_sqr_chain_mul(args[0], call[1], args[1], FP)
+                    if kernel else
+                    TW._fp2_sqr_chain_mul_plain(args[0], call[1], args[1]))
+        if name == "fp2_sqr5_mul":
+            return (K.fp2_sqr5_mul(*args, FP) if kernel
+                    else TW._fp2_sqr_chain_mul_plain(args[0], 5, args[1]))
+        if name == "g2_point_dbl":
+            return (K.g2_point_dbl(args[0], FP) if kernel
+                    else DC.g2_pack(DC._point_double_formula(
+                        DC.g2_unpack(args[0]), DC.Fp2PlainOps)))
+        if name == "g2_point_add":
+            return (K.g2_point_add(*args, call[1], FP) if kernel
+                    else DC.g2_pack(DC._point_add_formula(
+                        DC.g2_unpack(args[0]), DC.g2_unpack(args[1]),
+                        DC.Fp2PlainOps, call[1])))
+        if name in ("miller_dbl_iter", "miller_add_iter"):
+            if kernel:
+                fn = getattr(K, name)
+                out = fn(*args, FP)
+            else:
+                fn = getattr(PR, f"_{name}_plain")
+                out = fn(*args)
+            return torch.cat([o.reshape(-1) for o in out])
+        if name == "flat_conj":
+            return (K.flat_conj(args[0], FP) if kernel
+                    else FL._flat_conj_plain(args[0]))
+        if name == "flat_frob":
+            return (K.flat_frob(args[0], call[1], FL._FROB_WORDS[call[1]], FP)
+                    if kernel else FL._flat_frob_plain(args[0], call[1]))
+        if name == "fp2_products":
+            return (K.fp2_products(*args, FP) if kernel
+                    else TW._fp2_stack(TW._fp2_products_plain(list(zip(
+                        TW._fp2_unstack(args[0]), TW._fp2_unstack(args[1]))))))
+        if name == "fp2_sqrs":
+            return (K.fp2_sqrs(args[0], FP) if kernel
+                    else TW._fp2_stack(TW._fp2_sqrs_plain(
+                        TW._fp2_unstack(args[0]))))
+        if name == "flat_mul":
+            return (K.flat_mul(*args, call[1], FP) if kernel
+                    else FL._flat_mul_plain(*args, call[1]))
+        if name == "cyclo_sqr":
+            return (K.cyclo_sqr(args[0], FP) if kernel
+                    else FL._flat_cyclo_sqr_plain(args[0]))
         F = fields[call[0]]
         if name == "mont_mul":
             return (K.mont_mul(*args, F) if kernel
@@ -267,43 +500,77 @@ def main() -> int:
                 else F._sqr_chain_mul_plain(args[0], k, t))
 
     flat32, flat64 = (BATCH, 32), (BATCH, 64)
-    cases = {name: set(calls) for name, calls in path_calls.items()}
+    flat12 = (BATCH, 12, 32)
+    cases = {name: {(call, "random") for call in calls}
+             for name, calls in path_calls.items()}
     for f in fields:
-        cases["mont_mul"].add((f, flat32))
-        cases["mont_sqr"].add((f, flat32))
-        cases["mont_reduce"].add((f, flat64))
+        cases["mont_mul"].add(((f, flat32), "random"))
+        cases["mont_sqr"].add(((f, flat32), "random"))
+        cases["mont_reduce"].add(((f, flat64), "random"))
         for k in (1, 4, 5, 9, 63):
             for with_t in (False, True):
-                cases["sqr_chain_mul"].add((f, flat32, k, with_t))
+                cases["sqr_chain_mul"].add(((f, flat32, k, with_t), "random"))
+    # the stacks the composite Fp2 and flat Fp12 products gave K3
+    for stack in ((2, BATCH, 64), (16, 2, BATCH, 64)):
+        cases["mont_reduce"].add((("fp", stack), "random"))
+    cases["fp2_products"].add((((BATCH, 32), 9), "random"))
+    cases["fp2_sqrs"].add((((BATCH, 32), 9), "random"))
+    for b_idx in (tuple(range(12)), LINE_IDX):
+        cases["flat_mul"].add(((flat12, b_idx), "max"))
+    cases["cyclo_sqr"].add((flat12, "random"))
+    cases["cyclo_sqr"].add((flat12, "unitary"))
+    fp2_rows = (2, BATCH, 32)
+    for k in (1, 5, 13):
+        for with_t in (False, True):
+            cases["fp2_sqr_chain_mul"].add(((fp2_rows, k, with_t), "random"))
+    cases["fp2_sqr5_mul"].add((fp2_rows, "random"))
+    cases["g2_point_dbl"].add(((6, BATCH, 32), "random"))
+    for with_double in (False, True):
+        cases["g2_point_add"].add((((6, BATCH, 32), with_double), "random"))
+    cases["miller_dbl_iter"].add((flat12, "random"))
+    cases["miller_add_iter"].add((flat12, "random"))
+    cases["flat_conj"].add((flat12, "random"))
+    for n in (1, 2, 3):
+        cases["flat_frob"].add(((flat12, n), "random"))
 
     rows = []
     for name in K.KERNELS:
-        for call in sorted(cases[name]):
-            args = inputs(name, call)
+        for call, kind in sorted(cases[name], key=repr):
+            args = inputs(name, call, kind)
             got = run(name, call, args, True)
             want = run(name, call, args, False)
             eq = bool(torch.equal(got, want))
             err = int((got.long() - want.long()).abs().max().item())
-            rows.append({"kernel": name, "call": call, "on_path":
-                         call in path_calls[name], "bit_equal": eq,
-                         "max_abs_err": err})
+            rows.append({"kernel": name, "call": call, "inputs": kind,
+                         "on_path": call in path_calls[name],
+                         "bit_equal": eq, "max_abs_err": err})
             if not eq:
-                fail(f"{name} {call}: kernel != plain (max err {err})")
+                fail(f"{name} {call} {kind}: kernel != plain "
+                     f"(max err {err})")
             del args, got, want
         torch.cuda.synchronize()
 
     # times: K1, K2 and the window step (K4, k = 4, the sqr4_mul call) at
-    # [16384, 32], K3 at the [2, 16384, 64] stack of one Fp2 product; then
-    # K3 at the path's largest stack and K4 at the path's longest chain
-    # and at k = 63
+    # [16384, 32], K3 at the [2, 16384, 64] stack of one Fp2 product and
+    # at [16, 2, 16384, 64], K4 at the path's longest chain and at k = 63;
+    # K5, K6, K13 and K14 at the path's most common call, and K13 also at
+    # its most common dense call
+    def most_common(name, pick=lambda c: True):
+        calls = {c: n for c, n in path_calls[name].items() if pick(c)}
+        return max(sorted(calls, key=repr), key=calls.get)
+
     main_calls = {"mont_mul": ("fp", flat32), "mont_sqr": ("fp", flat32),
                   "mont_reduce": ("fp", (2, BATCH, 64)),
                   "sqr_chain_mul": ("fp", flat32, 4, True)}
+    main_calls["fp2_sqr5_mul"] = fp2_rows
+    main_calls.update({name: most_common(name) for name in K.KERNELS
+                       if name not in main_calls})
     longest = max(path_calls["sqr_chain_mul"], key=lambda c: (c[2], c[3]))
-    largest = max(path_calls["mont_reduce"], key=lambda c: math.prod(c[1]))
     timed = [(name, call) for name, call in main_calls.items()] + [
-        ("mont_reduce", largest), ("sqr_chain_mul", longest),
-        ("sqr_chain_mul", ("fp", flat32, 63, True))]
+        ("mont_reduce", ("fp", (16, 2, BATCH, 64))),
+        ("sqr_chain_mul", longest),
+        ("sqr_chain_mul", ("fp", flat32, 63, True)),
+        ("flat_mul", most_common("flat_mul", lambda c: len(c[1]) == 12))]
     timings, per_kernel = [], {}
     for name, call in timed:
         args = inputs(name, call)

@@ -1,6 +1,7 @@
 // Montgomery arithmetic for one element, shared by the CUDA kernels
-// (field_kernels.cu) and the host harness (field_host.cpp, built with g++
-// by tests/test_torch_kernel_harness.py).
+// (field_kernels.cu, and tower_kernels.cu through tower_arith.cuh) and the
+// host harness (field_host.cpp, built with g++ by
+// tests/test_torch_kernel_harness.py).
 //
 // Layout at the boundary: 32 little-endian limbs of 12 bits in int32, the
 // layout of drand_tpu_torch/ops/field.py.  Inside, a value is 6 (or 13)
@@ -34,6 +35,14 @@ struct Mod {
   uint64_t m[N_WORDS];
   uint64_t ninv;
 };
+
+// The C entry points' modulus argument, 6 words of m then -m^-1 mod 2^64.
+inline Mod mod_from_words(const uint64_t *mod7) {
+  Mod M;
+  for (int i = 0; i < N_WORDS; i++) M.m[i] = mod7[i];
+  M.ninv = mod7[N_WORDS];
+  return M;
+}
 
 DT_HD uint64_t mulhi(uint64_t a, uint64_t b) {
 #if defined(__CUDA_ARCH__)
@@ -77,6 +86,40 @@ DT_HD void words_to_limbs(const uint64_t *w, int32_t *l) {
     if (off > 52) v |= w[wi + 1] << (64 - off);
     l[i] = (int32_t)(v & 0xFFF);
   }
+}
+
+// One element's 32 limbs (128 bytes, 16-byte aligned) -> 6 words; on the
+// card through eight 16-byte loads.
+DT_HD void load_words(const int32_t *src, uint64_t *w) {
+#if defined(__CUDA_ARCH__)
+  int32_t l[N_LIMBS];
+  const int4 *s = reinterpret_cast<const int4 *>(src);
+  DT_UNROLL
+  for (int i = 0; i < N_LIMBS / 4; i++) {
+    const int4 v = s[i];
+    l[4 * i] = v.x;
+    l[4 * i + 1] = v.y;
+    l[4 * i + 2] = v.z;
+    l[4 * i + 3] = v.w;
+  }
+  limbs_to_words(l, w);
+#else
+  limbs_to_words(src, w);
+#endif
+}
+
+// 6 words -> one element's 32 limbs; on the card eight 16-byte stores.
+DT_HD void store_words(const uint64_t *w, int32_t *dst) {
+#if defined(__CUDA_ARCH__)
+  int32_t l[N_LIMBS];
+  words_to_limbs(w, l);
+  int4 *d = reinterpret_cast<int4 *>(dst);
+  DT_UNROLL
+  for (int i = 0; i < N_LIMBS / 4; i++)
+    d[i] = make_int4(l[4 * i], l[4 * i + 1], l[4 * i + 2], l[4 * i + 3]);
+#else
+  words_to_limbs(w, dst);
+#endif
 }
 
 // t (+ hi * 2^384) -> t - m when that is >= 0, else t.  Requires
@@ -145,13 +188,10 @@ DT_HD void redc_wide(uint64_t *w, const Mod &M) {
   }
 }
 
-// r = a^2 * 2^-384 mod m for a in [0, m): the triangular square (15
-// off-diagonal products, doubled, plus 6 diagonal ones, against 36 for a
-// general product) into 12 words, then REDC.  a^2 < m^2 < 2^384 m, so the
-// REDC value is < 2m and one conditional subtract makes it canonical.  r
-// may alias a.
-DT_HD void mont_sqr_words(const uint64_t *a, uint64_t *r, const Mod &M) {
-  uint64_t w[W_WORDS];
+// w = a^2 over 13 words (w[12] = 0) for a in [0, m): the triangular
+// square, 15 off-diagonal products, doubled, plus 6 diagonal ones, against
+// 36 for a general product.
+DT_HD void sqr_wide(const uint64_t *a, uint64_t *w) {
   DT_UNROLL
   for (int i = 0; i < W_WORDS; i++) w[i] = 0;
   DT_UNROLL
@@ -175,6 +215,14 @@ DT_HD void mont_sqr_words(const uint64_t *a, uint64_t *r, const Mod &M) {
     c = s < c;
     w[2 * i + 1] = s;
   }
+}
+
+// r = a^2 * 2^-384 mod m for a in [0, m): the triangular square into 12
+// words, then REDC.  a^2 < m^2 < 2^384 m, so the REDC value is < 2m and
+// one conditional subtract makes it canonical.  r may alias a.
+DT_HD void mont_sqr_words(const uint64_t *a, uint64_t *r, const Mod &M) {
+  uint64_t w[W_WORDS];
+  sqr_wide(a, w);
   redc_wide(w, M);
   DT_UNROLL
   for (int j = 0; j < N_WORDS; j++) r[j] = w[N_WORDS + j];

@@ -1,28 +1,19 @@
-// Host build of the kernels' arithmetic (field_arith.cuh), one loop per
-// kernel over n elements, with the C interface of field_kernels.cu minus
-// the stream.  tests/test_torch_kernel_harness.py compiles it with g++ and
-// holds it against the plain PyTorch versions on a machine with no CUDA:
+// Host build of the kernels' arithmetic (field_arith.cuh, tower_arith.cuh,
+// curve_arith.cuh), one loop per kernel over its elements or rows, with
+// the C interface of field_kernels.cu, tower_kernels.cu, curve_kernels.cu
+// and miller_kernels.cu minus the stream.
+// tests/test_torch_kernel_harness.py compiles it with g++ and holds it
+// against the plain PyTorch versions on a machine with no CUDA:
 //
 //   g++ -std=c++17 -O2 -shared -fPIC -o libfield_host.so field_host.cpp
 
-#include "field_arith.cuh"
-
-namespace {
-
-dt::Mod to_mod(const uint64_t *mod7) {
-  dt::Mod M;
-  for (int i = 0; i < dt::N_WORDS; i++) M.m[i] = mod7[i];
-  M.ninv = mod7[dt::N_WORDS];
-  return M;
-}
-
-}  // namespace
+#include "curve_arith.cuh"
 
 extern "C" {
 
 void dth_mont_mul(const int32_t *a, const int32_t *b, int32_t *o, long long n,
                   const uint64_t *mod7) {
-  const dt::Mod M = to_mod(mod7);
+  const dt::Mod M = dt::mod_from_words(mod7);
   for (long long e = 0; e < n; e++)
     dt::mont_mul_limbs(a + e * dt::N_LIMBS, b + e * dt::N_LIMBS,
                        o + e * dt::N_LIMBS, M);
@@ -30,25 +21,203 @@ void dth_mont_mul(const int32_t *a, const int32_t *b, int32_t *o, long long n,
 
 void dth_mont_sqr(const int32_t *a, int32_t *o, long long n,
                   const uint64_t *mod7) {
-  const dt::Mod M = to_mod(mod7);
+  const dt::Mod M = dt::mod_from_words(mod7);
   for (long long e = 0; e < n; e++)
     dt::mont_sqr_limbs(a + e * dt::N_LIMBS, o + e * dt::N_LIMBS, M);
 }
 
 void dth_mont_reduce(const int32_t *t, int32_t *o, long long n,
                      const uint64_t *mod7) {
-  const dt::Mod M = to_mod(mod7);
+  const dt::Mod M = dt::mod_from_words(mod7);
   for (long long e = 0; e < n; e++)
     dt::mont_reduce_limbs(t + e * dt::W_LIMBS, o + e * dt::N_LIMBS, M);
 }
 
 void dth_sqr_chain_mul(const int32_t *a, const int32_t *t, int32_t *o,
                        long long n, int k, const uint64_t *mod7) {
-  const dt::Mod M = to_mod(mod7);
+  const dt::Mod M = dt::mod_from_words(mod7);
   for (long long e = 0; e < n; e++)
     dt::sqr_chain_mul_limbs(a + e * dt::N_LIMBS,
                             t != nullptr ? t + e * dt::N_LIMBS : nullptr,
                             o + e * dt::N_LIMBS, k, M);
+}
+
+void dth_fp2_products(const int32_t *x, const int32_t *y, int32_t *o,
+                      long long rows, int n, const uint64_t *mod7) {
+  const dt::Mod M = dt::mod_from_words(mod7);
+  for (long long p = 0; p < n; p++)
+    for (long long r = 0; r < rows; r++) {
+      const long long c0 = (2 * p * rows + r) * dt::N_LIMBS;
+      const long long c1 = c0 + rows * dt::N_LIMBS;
+      dt::fp2_mul_limbs(x + c0, x + c1, y + c0, y + c1, o + c0, o + c1, M);
+    }
+}
+
+void dth_fp2_sqrs(const int32_t *x, int32_t *o, long long rows, int n,
+                  const uint64_t *mod7) {
+  const dt::Mod M = dt::mod_from_words(mod7);
+  for (long long p = 0; p < n; p++)
+    for (long long r = 0; r < rows; r++) {
+      const long long c0 = (2 * p * rows + r) * dt::N_LIMBS;
+      const long long c1 = c0 + rows * dt::N_LIMBS;
+      dt::fp2_sqr_limbs(x + c0, x + c1, o + c0, o + c1, M);
+    }
+}
+
+// The six classes of K13 in turn, on one row's words laid out with
+// stride 1 (the kernel stages them in shared memory with stride 32).
+void dth_flat_mul(const int32_t *a, const int32_t *b, int32_t *o,
+                  long long rows, const int *b_idx, int J,
+                  const uint64_t *mod7) {
+  const dt::Mod M = dt::mod_from_words(mod7);
+  const dt::FlatIdx idx = dt::flat_idx(b_idx, J);
+  uint64_t wa[dt::FLAT * dt::N_WORDS], wb[dt::FLAT * dt::N_WORDS];
+  for (long long r = 0; r < rows; r++) {
+    for (int i = 0; i < dt::FLAT; i++)
+      dt::load_words(a + (r * dt::FLAT + i) * dt::N_LIMBS,
+                     wa + i * dt::N_WORDS);
+    for (int i = 0; i < J; i++)
+      dt::load_words(b + (r * J + i) * dt::N_LIMBS, wb + i * dt::N_WORDS);
+    int32_t *out = o + r * dt::FLAT * dt::N_LIMBS;
+    for (int j = 0; j < 6; j++) {
+      uint64_t lo[dt::N_WORDS], hi[dt::N_WORDS];
+      dt::flat_mul_class(j, wa, wb, 1, idx, lo, hi, M);
+      dt::store_words(lo, out + j * dt::N_LIMBS);
+      dt::store_words(hi, out + (j + 6) * dt::N_LIMBS);
+    }
+  }
+}
+
+void dth_cyclo_sqr(const int32_t *a, int32_t *o, long long rows,
+                   const uint64_t *mod7) {
+  const dt::Mod M = dt::mod_from_words(mod7);
+  for (int g = 0; g < 3; g++)
+    for (long long r = 0; r < rows; r++)
+      dt::cyclo_sqr_group(g, a + r * dt::FLAT * dt::N_LIMBS,
+                          o + r * dt::FLAT * dt::N_LIMBS, M);
+}
+
+void dth_fp2_sqr_chain_mul(const int32_t *x, const int32_t *t, int32_t *o,
+                           long long rows, int k, const uint64_t *mod7) {
+  const dt::Mod M = dt::mod_from_words(mod7);
+  for (long long r = 0; r < rows; r++) {
+    const long long c0 = r * dt::N_LIMBS, c1 = c0 + rows * dt::N_LIMBS;
+    dt::F2 tt;
+    if (t != nullptr) tt = dt::f2_load(t + c0, t + c1);
+    dt::f2_store(dt::fp2_sqr_chain_mul(dt::f2_load(x + c0, x + c1),
+                                       t != nullptr ? &tt : nullptr, k, M),
+                 o + c0, o + c1);
+  }
+}
+
+void dth_fp2_sqr5_mul(const int32_t *x, const int32_t *t, int32_t *o,
+                      long long rows, const uint64_t *mod7) {
+  dth_fp2_sqr_chain_mul(x, t, o, rows, 5, mod7);
+}
+
+void dth_flat_conj(const int32_t *a, int32_t *o, long long rows,
+                   const uint64_t *mod7) {
+  const dt::Mod M = dt::mod_from_words(mod7);
+  for (long long e = 0; e < dt::FLAT * rows; e++)
+    dt::flat_conj_coeff(a + e * dt::N_LIMBS, o + e * dt::N_LIMBS,
+                        (int)(e % dt::FLAT), M);
+}
+
+void dth_flat_frob(const int32_t *a, int32_t *o, long long rows,
+                   const uint64_t *consts, const uint64_t *mod7) {
+  const dt::Mod M = dt::mod_from_words(mod7);
+  const dt::FrobConsts F = dt::frob_from_words(consts);
+  for (long long r = 0; r < rows; r++)
+    for (int s = 0; s < 6; s++)
+      dt::flat_frob_pair(a + r * dt::FLAT * dt::N_LIMBS,
+                         o + r * dt::FLAT * dt::N_LIMBS, s, F, M);
+}
+
+void dth_g2_point_dbl(const int32_t *p, int32_t *o, long long rows,
+                      const uint64_t *mod7) {
+  const dt::Mod M = dt::mod_from_words(mod7);
+  const long long cs = rows * dt::N_LIMBS;
+  for (long long r = 0; r < rows; r++)
+    dt::g2_store6(dt::g2_dbl(dt::g2_load6(p + r * dt::N_LIMBS, cs), M),
+                  o + r * dt::N_LIMBS, cs);
+}
+
+void dth_g2_point_add(const int32_t *p1, const int32_t *p2, int32_t *o,
+                      long long rows, int with_double, const uint64_t *one6,
+                      const uint64_t *mod7) {
+  const dt::Mod M = dt::mod_from_words(mod7);
+  const dt::One one = dt::one_from_words(one6);
+  const long long cs = rows * dt::N_LIMBS;
+  for (long long r = 0; r < rows; r++) {
+    const long long at = r * dt::N_LIMBS;
+    dt::g2_store6(dt::g2_add(dt::g2_load6(p1 + at, cs),
+                             dt::g2_load6(p2 + at, cs), with_double != 0,
+                             one, M),
+                  o + at, cs);
+  }
+}
+
+// K11 (q == nullptr) and K12 row by row, the phases of the kernel in its
+// order on one row's words laid out with stride 1.
+static void miller_iter(const int32_t *f, const int32_t *T, const int32_t *Q,
+                        const int32_t *P, const int32_t *mask, int32_t *fo,
+                        int32_t *To, long long rows, const uint64_t *one6,
+                        const uint64_t *mod7) {
+  const dt::Mod M = dt::mod_from_words(mod7);
+  const dt::One one = dt::one_from_words(one6);
+  int all[dt::FLAT];
+  for (int p = 0; p < dt::FLAT; p++) all[p] = p;
+  const int line_idx[6] = {0, 2, 3, 6, 8, 9};
+  const dt::FlatIdx dense = dt::flat_idx(all, dt::FLAT);
+  const dt::FlatIdx line = dt::flat_idx(line_idx, 6);
+  const int W = dt::FLAT * dt::N_WORDS;
+  uint64_t buf[2][W], sl[2][6 * dt::N_WORDS], lo[dt::N_WORDS],
+      hi[dt::N_WORDS];
+  for (long long r = 0; r < rows; r++) {
+    for (int i = 0; i < dt::FLAT; i++)
+      dt::flat_stage_coeff(f + (r * dt::FLAT + i) * dt::N_LIMBS,
+                           buf[0] + i * dt::N_WORDS, 1);
+    for (int k = 0; k < 2; k++) {
+      const long long pk = r * 2 + k;
+      const dt::Line l = dt::miller_pair_step(
+          T + pk * 6 * dt::N_LIMBS, P + pk * 2 * dt::N_LIMBS,
+          Q != nullptr ? Q + pk * 4 * dt::N_LIMBS : nullptr, mask[pk],
+          To + pk * 6 * dt::N_LIMBS, one, M);
+      dt::line_stage(l, sl[k], 1);
+    }
+    int cur = 0;
+    if (Q == nullptr) {
+      for (int j = 0; j < 6; j++) {
+        dt::flat_mul_class(j, buf[0], buf[0], 1, dense, lo, hi, M);
+        dt::flat_unstage(lo, hi, j, buf[1], 1);
+      }
+      cur = 1;
+    }
+    for (int j = 0; j < 6; j++) {
+      dt::flat_mul_class(j, buf[cur], sl[0], 1, line, lo, hi, M);
+      dt::flat_unstage(lo, hi, j, buf[1 - cur], 1);
+    }
+    int32_t *out = fo + r * dt::FLAT * dt::N_LIMBS;
+    for (int j = 0; j < 6; j++) {
+      dt::flat_mul_class(j, buf[1 - cur], sl[1], 1, line, lo, hi, M);
+      dt::store_words(lo, out + j * dt::N_LIMBS);
+      dt::store_words(hi, out + (j + 6) * dt::N_LIMBS);
+    }
+  }
+}
+
+void dth_miller_dbl_iter(const int32_t *f, const int32_t *T, const int32_t *P,
+                         const int32_t *mask, int32_t *fo, int32_t *To,
+                         long long rows, const uint64_t *one6,
+                         const uint64_t *mod7) {
+  miller_iter(f, T, nullptr, P, mask, fo, To, rows, one6, mod7);
+}
+
+void dth_miller_add_iter(const int32_t *f, const int32_t *T, const int32_t *Q,
+                         const int32_t *P, const int32_t *mask, int32_t *fo,
+                         int32_t *To, long long rows, const uint64_t *one6,
+                         const uint64_t *mod7) {
+  miller_iter(f, T, Q, P, mask, fo, To, rows, one6, mod7);
 }
 
 }  // extern "C"

@@ -121,13 +121,6 @@ __global__ void k_sqr_chain_mul(const int32_t *__restrict__ a,
   store_limbs(lo, o + e * dt::N_LIMBS);
 }
 
-dt::Mod to_mod(const uint64_t *mod7) {
-  dt::Mod M;
-  for (int i = 0; i < dt::N_WORDS; i++) M.m[i] = mod7[i];
-  M.ninv = mod7[dt::N_WORDS];
-  return M;
-}
-
 unsigned blocks(long long n) { return (unsigned)((n + THREADS - 1) / THREADS); }
 
 }  // namespace
@@ -137,16 +130,16 @@ extern "C" {
 int dt_mont_mul(const int32_t *a, const int32_t *b, int32_t *o, long long n,
                 const uint64_t *mod7, void *stream) {
   if (n <= 0) return 0;
-  k_mont_mul<<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>(a, b, o, n,
-                                                             to_mod(mod7));
+  k_mont_mul<<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>(
+      a, b, o, n, dt::mod_from_words(mod7));
   return (int)cudaGetLastError();
 }
 
 int dt_mont_sqr(const int32_t *a, int32_t *o, long long n,
                 const uint64_t *mod7, void *stream) {
   if (n <= 0) return 0;
-  k_mont_sqr<<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>(a, o, n,
-                                                             to_mod(mod7));
+  k_mont_sqr<<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>(
+      a, o, n, dt::mod_from_words(mod7));
   return (int)cudaGetLastError();
 }
 
@@ -154,7 +147,7 @@ int dt_mont_reduce(const int32_t *t, int32_t *o, long long n,
                    const uint64_t *mod7, void *stream) {
   if (n <= 0) return 0;
   k_mont_reduce<<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>(
-      t, o, n, to_mod(mod7));
+      t, o, n, dt::mod_from_words(mod7));
   return (int)cudaGetLastError();
 }
 
@@ -162,7 +155,7 @@ int dt_sqr_chain_mul(const int32_t *a, const int32_t *t, int32_t *o,
                      long long n, int k, const uint64_t *mod7, void *stream) {
   if (n <= 0) return 0;
   k_sqr_chain_mul<<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>(
-      a, t, o, n, k, to_mod(mod7));
+      a, t, o, n, k, dt::mod_from_words(mod7));
   return (int)cudaGetLastError();
 }
 

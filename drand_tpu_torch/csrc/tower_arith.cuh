@@ -1,0 +1,489 @@
+// Fp2 and flat Fp12 arithmetic over the Montgomery words of
+// field_arith.cuh, shared by the CUDA kernels (tower_kernels.cu) and the
+// host harness (field_host.cpp, built with g++ by
+// tests/test_torch_kernel_harness.py).
+//
+// Every value is canonical (in [0, p)) on entry and on exit, so each
+// function's output equals the plain PyTorch version's bit for bit: both
+// return the unique canonical residue of the same quantity.
+//
+//   Fp2        : c0 + c1*u, u^2 = -1
+//   flat Fp12  : 12 coefficients over 1, w, ..., w^11, w^12 = 2w^6 - 2;
+//                the tower cell x + y*u at slot s is (x - y)*w^s +
+//                y*w^(s+6) (drand_tpu_torch/ops/flat12.py)
+#pragma once
+
+#include "field_arith.cuh"
+
+namespace dt {
+
+constexpr int FLAT = 12;      // coefficients of a flat Fp12 element
+
+// r = a + b mod m; a, b in [0, m).  r may alias a or b.
+DT_HD void add_mod(const uint64_t *a, const uint64_t *b, uint64_t *r,
+                   const Mod &M) {
+  uint64_t c = 0;
+  DT_UNROLL
+  for (int j = 0; j < N_WORDS; j++) {
+    const uint64_t s = a[j] + b[j];
+    const uint64_t c1 = s < a[j];
+    r[j] = s + c;
+    c = c1 | (r[j] < s);
+  }
+  cond_sub(r, c, M);
+}
+
+// r = a - b mod m; a, b in [0, m).  r may alias a or b.
+DT_HD void sub_mod(const uint64_t *a, const uint64_t *b, uint64_t *r,
+                   const Mod &M) {
+  uint64_t borrow = 0;
+  DT_UNROLL
+  for (int j = 0; j < N_WORDS; j++) {
+    const uint64_t x = a[j] - b[j];
+    const uint64_t b1 = a[j] < b[j];
+    r[j] = x - borrow;
+    borrow = b1 | (x < borrow);
+  }
+  const uint64_t mask = 0 - borrow;       // add m back where a < b
+  uint64_t c = 0;
+  DT_UNROLL
+  for (int j = 0; j < N_WORDS; j++) {
+    const uint64_t mj = M.m[j] & mask;
+    const uint64_t s = r[j] + mj;
+    const uint64_t c1 = s < mj;
+    r[j] = s + c;
+    c = c1 | (r[j] < s);
+  }
+}
+
+// w += a * b over 13 words (the caller keeps the sum below 2^832).
+DT_HD void mul_acc(const uint64_t *a, const uint64_t *b, uint64_t *w) {
+  DT_UNROLL
+  for (int i = 0; i < N_WORDS; i++) {
+    uint64_t c = 0;
+    DT_UNROLL
+    for (int j = 0; j < N_WORDS; j++) w[i + j] = mac(a[j], b[i], w[i + j], c);
+    DT_UNROLL
+    for (int j = i + N_WORDS; j < W_WORDS; j++) {
+      const uint64_t s = w[j] + c;
+      c = s < c;
+      w[j] = s;
+    }
+  }
+}
+
+DT_HD void zero_wide(uint64_t *w) {
+  DT_UNROLL
+  for (int i = 0; i < W_WORDS; i++) w[i] = 0;
+}
+
+// t <- t - u over 12 words for t, u < m^2, plus m * 2^384 where the
+// difference is negative: the value stays congruent mod m and lands in
+// [0, m * 2^384), which REDC maps below 2m.
+DT_HD void wide_sub(uint64_t *t, const uint64_t *u, const Mod &M) {
+  uint64_t borrow = 0;
+  DT_UNROLL
+  for (int j = 0; j < 2 * N_WORDS; j++) {
+    const uint64_t x = t[j] - u[j];
+    const uint64_t b1 = t[j] < u[j];
+    t[j] = x - borrow;
+    borrow = b1 | (x < borrow);
+  }
+  const uint64_t mask = 0 - borrow;
+  uint64_t c = 0;
+  DT_UNROLL
+  for (int j = 0; j < N_WORDS; j++) {
+    const uint64_t mj = M.m[j] & mask;
+    const uint64_t s = t[N_WORDS + j] + mj;
+    const uint64_t c1 = s < mj;
+    t[N_WORDS + j] = s + c;
+    c = c1 | (t[N_WORDS + j] < s);
+  }
+  t[W_WORDS - 1] = 0;                     // the carry cancels the borrow
+}
+
+// r = w * 2^-384 mod m, canonical, for a 13-word w < subs * 2^384 * m:
+// REDC returns (w + q m) / 2^384 < w / 2^384 + m < (subs + 1) m, and each
+// of the `subs` conditional subtracts removes one m.
+DT_HD void redc_to(uint64_t *w, uint64_t *r, int subs, const Mod &M) {
+  redc_wide(w, M);
+  DT_UNROLL
+  for (int j = 0; j < N_WORDS; j++) r[j] = w[N_WORDS + j];
+  cond_sub(r, w[W_WORDS - 1], M);
+  for (int s = 1; s < subs; s++) cond_sub(r, 0, M);
+}
+
+// B5: (r0, r1) = (x0 y0 - x1 y1, x0 y1 + x1 y0) * 2^-384 mod m, two REDCs
+// of wide sums.  The outputs must not alias the inputs.
+DT_HD void fp2_mul_words(const uint64_t *x0, const uint64_t *x1,
+                         const uint64_t *y0, const uint64_t *y1,
+                         uint64_t *r0, uint64_t *r1, const Mod &M) {
+  uint64_t t[W_WORDS], u[W_WORDS];
+  zero_wide(t);
+  mul_acc(x0, y0, t);
+  zero_wide(u);
+  mul_acc(x1, y1, u);
+  wide_sub(t, u, M);                      // [0, m 2^384)
+  redc_to(t, r0, 1, M);
+  zero_wide(t);
+  mul_acc(x0, y1, t);
+  mul_acc(x1, y0, t);                     // < 2 m^2
+  redc_to(t, r1, 1, M);
+}
+
+// B6: (r0, r1) = (x0^2 - x1^2, 2 x0 x1) * 2^-384 mod m: two triangular
+// squares and one doubled cross product.  The outputs must not alias the
+// inputs.
+DT_HD void fp2_sqr_words(const uint64_t *x0, const uint64_t *x1,
+                         uint64_t *r0, uint64_t *r1, const Mod &M) {
+  uint64_t t[W_WORDS], u[W_WORDS];
+  sqr_wide(x0, t);
+  sqr_wide(x1, u);
+  wide_sub(t, u, M);
+  redc_to(t, r0, 1, M);
+  zero_wide(t);
+  mul_acc(x0, x1, t);                     // < m^2 < 2^762: doubling fits
+  DT_UNROLL
+  for (int i = 2 * N_WORDS - 1; i > 0; i--)
+    t[i] = (t[i] << 1) | (t[i - 1] >> 63);
+  t[0] <<= 1;
+  redc_to(t, r1, 1, M);
+}
+
+DT_HD void fp2_mul_limbs(const int32_t *x0, const int32_t *x1,
+                         const int32_t *y0, const int32_t *y1, int32_t *o0,
+                         int32_t *o1, const Mod &M) {
+  uint64_t a0[N_WORDS], a1[N_WORDS], b0[N_WORDS], b1[N_WORDS];
+  uint64_t r0[N_WORDS], r1[N_WORDS];
+  load_words(x0, a0);
+  load_words(x1, a1);
+  load_words(y0, b0);
+  load_words(y1, b1);
+  fp2_mul_words(a0, a1, b0, b1, r0, r1, M);
+  store_words(r0, o0);
+  store_words(r1, o1);
+}
+
+DT_HD void fp2_sqr_limbs(const int32_t *x0, const int32_t *x1, int32_t *o0,
+                         int32_t *o1, const Mod &M) {
+  uint64_t a0[N_WORDS], a1[N_WORDS], r0[N_WORDS], r1[N_WORDS];
+  load_words(x0, a0);
+  load_words(x1, a1);
+  fp2_sqr_words(a0, a1, r0, r1, M);
+  store_words(r0, o0);
+  store_words(r1, o1);
+}
+
+// The sparse layout of a flat_mul operand b: pos[p] is the row of b that
+// holds the coefficient of w^p (-1 where b has none), K = 12 + the highest
+// power of b, the number of convolution coefficients.
+struct FlatIdx {
+  int pos[FLAT];
+  int K;
+};
+
+// The FlatIdx of an operand holding the J distinct w-powers b_idx[0..J).
+inline FlatIdx flat_idx(const int *b_idx, int J) {
+  FlatIdx idx;
+  for (int p = 0; p < FLAT; p++) idx.pos[p] = -1;
+  int top = 0;
+  for (int jj = 0; jj < J; jj++) {
+    idx.pos[b_idx[jj]] = jj;
+    top = b_idx[jj] > top ? b_idx[jj] : top;
+  }
+  idx.K = FLAT + top;
+  return idx;
+}
+
+// B13, one thread's share of a flat Fp12 product a*b: the convolution
+// coefficients c_k = sum_{i + p = k} a_i b_p for the four k = j (mod 6),
+// k = j, j+6, j+12, j+18 (0 <= j < 6), each reduced on its own, then
+// output slots j and j+6 through w^12 = 2w^6 - 2 iterated:
+//
+//   slot j   = c_j      - 2 c_(j+12) - 4 c_(j+18)
+//   slot j+6 = c_(j+6)  + 2 c_(j+12) + 2 c_(j+18)
+//
+// (the rows of _reduce_matrix in ops/flat12.py).  The six classes j cover
+// every k exactly once.  Recombining reduced words with modular adds and
+// subtracts keeps every intermediate in [0, m): no wide offset has to
+// cover a subtraction.  A coefficient sums at most 12 products of
+// canonical operands, < 12 m^2 < 1.22 * 2^384 m, so its REDC value is
+// below 2.22 m and two conditional subtracts make it canonical.
+//
+// Element e of a (of b) is read as words base[(e * 6 + w) * stride],
+// w = 0..5: the kernel's shared-memory layout (stride = rows of a block)
+// and the harness's plain one (stride = 1) alike.
+DT_HD void flat_mul_class(int j, const uint64_t *a, const uint64_t *b,
+                          int stride, const FlatIdx &idx, uint64_t *lo,
+                          uint64_t *hi, const Mod &M) {
+  uint64_t r[4][N_WORDS];
+  DT_UNROLL
+  for (int q = 0; q < 4; q++) {
+    const int k = j + 6 * q;
+    if (k >= idx.K) {                     // no such coefficient
+      DT_UNROLL
+      for (int v = 0; v < N_WORDS; v++) r[q][v] = 0;
+      continue;
+    }
+    uint64_t w[W_WORDS];
+    zero_wide(w);
+    for (int i = 0; i < FLAT; i++) {
+      const int p = k - i;
+      if (p < 0 || p >= FLAT || idx.pos[p] < 0) continue;
+      uint64_t x[N_WORDS], y[N_WORDS];
+      DT_UNROLL
+      for (int v = 0; v < N_WORDS; v++) {
+        x[v] = a[(i * N_WORDS + v) * stride];
+        y[v] = b[(idx.pos[p] * N_WORDS + v) * stride];
+      }
+      mul_acc(x, y, w);
+    }
+    redc_to(w, r[q], 2, M);
+  }
+  uint64_t u[N_WORDS], v[N_WORDS];
+  add_mod(r[2], r[2], u, M);              // 2 c_(j+12)
+  add_mod(r[3], r[3], v, M);              // 2 c_(j+18)
+  add_mod(r[1], u, hi, M);
+  add_mod(hi, v, hi, M);
+  sub_mod(r[0], u, lo, M);
+  sub_mod(lo, v, lo, M);
+  sub_mod(lo, v, lo, M);
+}
+
+// Fp2 helpers for the cyclotomic square, on (x, y) word pairs.
+DT_HD void fp2_add_words(const uint64_t *a0, const uint64_t *a1,
+                         const uint64_t *b0, const uint64_t *b1,
+                         uint64_t *r0, uint64_t *r1, const Mod &M) {
+  add_mod(a0, b0, r0, M);
+  add_mod(a1, b1, r1, M);
+}
+
+DT_HD void fp2_sub_words(const uint64_t *a0, const uint64_t *a1,
+                         const uint64_t *b0, const uint64_t *b1,
+                         uint64_t *r0, uint64_t *r1, const Mod &M) {
+  sub_mod(a0, b0, r0, M);
+  sub_mod(a1, b1, r1, M);
+}
+
+// Tower cell at flat slot s (0 <= s < 6) of a row of 12 limb vectors:
+// x = lo + hi, y = hi.
+DT_HD void flat_cell(const int32_t *row, int s, uint64_t *x, uint64_t *y,
+                     const Mod &M) {
+  uint64_t lo[N_WORDS];
+  load_words(row + s * N_LIMBS, lo);
+  load_words(row + (s + 6) * N_LIMBS, y);
+  add_mod(lo, y, x, M);
+}
+
+// Writes the cell (x, y) at flat slot s: lo = x - y, hi = y.
+DT_HD void flat_put_cell(int32_t *row, int s, const uint64_t *x,
+                         const uint64_t *y, const Mod &M) {
+  uint64_t lo[N_WORDS];
+  sub_mod(x, y, lo, M);
+  store_words(lo, row + s * N_LIMBS);
+  store_words(y, row + (s + 6) * N_LIMBS);
+}
+
+// B14, one thread's share of the Granger-Scott cyclotomic square of a
+// flat Fp12 row (the function of ops/flat12.py _flat_cyclo_sqr_plain, for
+// any canonical input; it equals the square only on unitary ones).  The
+// tower cells are g0..g5 at slots 0, 2, 4, 1, 3, 5; the Fp4 groups are
+// A = (g0, g4), B = (g3, g2), C = (g1, g5).  Group g (0, 1, 2 for A, B,
+// C) squares the cells at slots (g, g + 3):
+//
+//   a2 = a^2, b2 = b^2, s2 = (a + b)^2
+//   re = a2 + xi b2, im = s2 - a2 - b2          (xi = 1 + u)
+//
+// and writes slot 2g as 3 re - 2 (cell at 2g), and slot (2g + 3) mod 6 as
+// 3 t + 2 (cell there), with t = im, or xi im for group C.
+DT_HD void cyclo_sqr_group(int g, const int32_t *in, int32_t *out,
+                           const Mod &M) {
+  uint64_t ax[N_WORDS], ay[N_WORDS], bx[N_WORDS], by[N_WORDS];
+  uint64_t sx[N_WORDS], sy[N_WORDS];
+  flat_cell(in, g, ax, ay, M);
+  flat_cell(in, g + 3, bx, by, M);
+  fp2_add_words(ax, ay, bx, by, sx, sy, M);
+  uint64_t a2x[N_WORDS], a2y[N_WORDS], b2x[N_WORDS], b2y[N_WORDS];
+  uint64_t s2x[N_WORDS], s2y[N_WORDS];
+  fp2_sqr_words(ax, ay, a2x, a2y, M);
+  fp2_sqr_words(bx, by, b2x, b2y, M);
+  fp2_sqr_words(sx, sy, s2x, s2y, M);
+  // re = a2 + xi b2, xi b2 = (b2x - b2y, b2x + b2y)
+  uint64_t rex[N_WORDS], rey[N_WORDS];
+  sub_mod(b2x, b2y, rex, M);
+  add_mod(b2x, b2y, rey, M);
+  fp2_add_words(a2x, a2y, rex, rey, rex, rey, M);
+  // im = (s2 - a2) - b2
+  uint64_t imx[N_WORDS], imy[N_WORDS];
+  fp2_sub_words(s2x, s2y, a2x, a2y, imx, imy, M);
+  fp2_sub_words(imx, imy, b2x, b2y, imx, imy, M);
+  if (g == 2) {                           // t = xi im
+    sub_mod(imx, imy, sx, M);
+    add_mod(imx, imy, imy, M);
+    DT_UNROLL
+    for (int v = 0; v < N_WORDS; v++) imx[v] = sx[v];
+  }
+  uint64_t gx[N_WORDS], gy[N_WORDS], dx[N_WORDS], dy[N_WORDS];
+  // slot 2g: 3 re - 2 g = (d + d) + re, d = re - g
+  const int se = 2 * g;
+  flat_cell(in, se, gx, gy, M);
+  fp2_sub_words(rex, rey, gx, gy, dx, dy, M);
+  fp2_add_words(dx, dy, dx, dy, dx, dy, M);
+  fp2_add_words(dx, dy, rex, rey, dx, dy, M);
+  flat_put_cell(out, se, dx, dy, M);
+  // slot (2g + 3) mod 6: 3 t + 2 g = (s + s) + t, s = t + g
+  const int so = (2 * g + 3) % 6;
+  flat_cell(in, so, gx, gy, M);
+  fp2_add_words(imx, imy, gx, gy, dx, dy, M);
+  fp2_add_words(dx, dy, dx, dy, dx, dy, M);
+  fp2_add_words(dx, dy, imx, imy, dx, dy, M);
+  flat_put_cell(out, so, dx, dy, M);
+}
+
+
+// ---------------------------------------------------------------------------
+// Fp2 as a value type: the Fp2 chain steps (B7, B8), the G2 point kernels
+// and the Miller iterations (curve_arith.cuh) are written over it.
+// ---------------------------------------------------------------------------
+
+struct F2 {
+  uint64_t x[N_WORDS], y[N_WORDS];        // x + y*u
+};
+
+DT_HD F2 f2_mul(const F2 &a, const F2 &b, const Mod &M) {
+  F2 r;
+  fp2_mul_words(a.x, a.y, b.x, b.y, r.x, r.y, M);
+  return r;
+}
+
+DT_HD F2 f2_sqr(const F2 &a, const Mod &M) {
+  F2 r;
+  fp2_sqr_words(a.x, a.y, r.x, r.y, M);
+  return r;
+}
+
+DT_HD F2 f2_add(const F2 &a, const F2 &b, const Mod &M) {
+  F2 r;
+  add_mod(a.x, b.x, r.x, M);
+  add_mod(a.y, b.y, r.y, M);
+  return r;
+}
+
+DT_HD F2 f2_sub(const F2 &a, const F2 &b, const Mod &M) {
+  F2 r;
+  sub_mod(a.x, b.x, r.x, M);
+  sub_mod(a.y, b.y, r.y, M);
+  return r;
+}
+
+DT_HD F2 f2_dbl(const F2 &a, const Mod &M) { return f2_add(a, a, M); }
+
+DT_HD F2 f2_zero() {
+  F2 r;
+  DT_UNROLL
+  for (int v = 0; v < N_WORDS; v++) r.x[v] = r.y[v] = 0;
+  return r;
+}
+
+// -a mod m, with -0 = 0 (the function of Field.neg).
+DT_HD F2 f2_neg(const F2 &a, const Mod &M) { return f2_sub(f2_zero(), a, M); }
+
+// (a.x s, a.y s) * 2^-384: an Fp2 element times an Fp scalar.
+DT_HD F2 f2_mul_fp(const F2 &a, const uint64_t *s, const Mod &M) {
+  F2 r;
+  mont_mul_words(a.x, s, r.x, M);
+  mont_mul_words(a.y, s, r.y, M);
+  return r;
+}
+
+DT_HD bool fp_eq(const uint64_t *a, const uint64_t *b) {
+  bool e = true;
+  DT_UNROLL
+  for (int v = 0; v < N_WORDS; v++) e = e && (a[v] == b[v]);
+  return e;
+}
+
+DT_HD bool f2_eq(const F2 &a, const F2 &b) {
+  return fp_eq(a.x, b.x) && fp_eq(a.y, b.y);
+}
+
+DT_HD bool f2_is_zero(const F2 &a) { return f2_eq(a, f2_zero()); }
+
+DT_HD F2 f2_select(bool c, const F2 &a, const F2 &b) {
+  F2 r;
+  DT_UNROLL
+  for (int v = 0; v < N_WORDS; v++) {
+    r.x[v] = c ? a.x[v] : b.x[v];
+    r.y[v] = c ? a.y[v] : b.y[v];
+  }
+  return r;
+}
+
+DT_HD F2 f2_load(const int32_t *c0, const int32_t *c1) {
+  F2 r;
+  load_words(c0, r.x);
+  load_words(c1, r.y);
+  return r;
+}
+
+DT_HD void f2_store(const F2 &a, int32_t *c0, int32_t *c1) {
+  store_words(a.x, c0);
+  store_words(a.y, c1);
+}
+
+// B7 (B8 at k = 5): x^(2^k) * t in Fp2, or x^(2^k) when t is null; every
+// step canonical.
+DT_HD F2 fp2_sqr_chain_mul(F2 x, const F2 *t, int k, const Mod &M) {
+  for (int s = 0; s < k; s++) x = f2_sqr(x, M);
+  return t != nullptr ? f2_mul(x, *t, M) : x;
+}
+
+// ---------------------------------------------------------------------------
+// Flat Fp12 conjugation and Frobenius (B15, B16), one coefficient or one
+// slot pair of a row at a time.
+// ---------------------------------------------------------------------------
+
+// Coefficient s of f^(p^6): the odd w-powers negated.
+DT_HD void flat_conj_coeff(const int32_t *in, int32_t *out, int s,
+                           const Mod &M) {
+  uint64_t a[N_WORDS];
+  load_words(in, a);
+  if (s & 1) {
+    const uint64_t z[N_WORDS] = {0, 0, 0, 0, 0, 0};
+    sub_mod(z, a, a, M);
+  }
+  store_words(a, out);
+}
+
+// The per-slot 2x2 Montgomery constants of f^(p^n) (ops/flat12.py
+// _frob_consts): c[s] = {A, B, C, D}, each 6 words.
+struct FrobConsts {
+  uint64_t c[6][4][N_WORDS];
+};
+
+inline FrobConsts frob_from_words(const uint64_t *w) {
+  FrobConsts F;
+  for (int s = 0; s < 6; s++)
+    for (int q = 0; q < 4; q++)
+      for (int v = 0; v < N_WORDS; v++)
+        F.c[s][q][v] = w[(s * 4 + q) * N_WORDS + v];
+  return F;
+}
+
+// Slots s and s + 6 of f^(p^n): (A lo + B hi, C lo + D hi).
+DT_HD void flat_frob_pair(const int32_t *row, int32_t *out, int s,
+                          const FrobConsts &F, const Mod &M) {
+  uint64_t lo[N_WORDS], hi[N_WORDS], u[N_WORDS], v[N_WORDS];
+  load_words(row + s * N_LIMBS, lo);
+  load_words(row + (s + 6) * N_LIMBS, hi);
+  mont_mul_words(lo, F.c[s][0], u, M);
+  mont_mul_words(hi, F.c[s][1], v, M);
+  add_mod(u, v, u, M);
+  store_words(u, out + s * N_LIMBS);
+  mont_mul_words(lo, F.c[s][2], u, M);
+  mont_mul_words(hi, F.c[s][3], v, M);
+  add_mod(u, v, u, M);
+  store_words(u, out + (s + 6) * N_LIMBS);
+}
+
+}  // namespace dt

@@ -1,0 +1,258 @@
+// The Fp2 and flat-Fp12 kernels of the verify path, for sm_90a,
+// behind a plain C interface (loaded with ctypes by
+// drand_tpu_torch/ops/kernels.py together with field_kernels.cu).  The
+// arithmetic is in tower_arith.cuh.  Inputs are int32 limbs (the layout of
+// drand_tpu_torch/ops/field.py), canonical, contiguous and 16-byte
+// aligned; the Python wrappers check that.  Each entry point launches on
+// the given stream, does not synchronise, and returns the
+// cudaGetLastError() of its launch.
+//
+// What bounds them on the H100 (the convention of field_kernels.cu: each
+// input read once and each output written once at 3.35 TB/s, against
+// 32-bit multiply-adds at 16.7 T/s, 8 for a 64x64-bit word product and 4
+// for a REDC quotient word, 312 for a REDC):
+//
+// K5 dt_fp2_products -- replaces PallasField.fp2_products
+//   (drand_tpu/ops/pallas_field.py:1062, body _fp2_products_kernel :984).
+//   n stacked Fp2 products, one thread per (pair, row): four 6x6-word
+//   products and two REDCs, 1776 multiply-adds on 768 bytes: bound by
+//   bytes.  x0 y0 - x1 y1 is taken in the wide domain and lifted by
+//   m * 2^384 when negative, so no offset constant is needed.
+// K6 dt_fp2_sqrs -- replaces PallasField.fp2_sqrs (:1029, body :1008).
+//   n stacked Fp2 squares, one thread per (item, row): two triangular
+//   squares, one cross product doubled and two REDCs, 1248 multiply-adds
+//   on 512 bytes: bound by bytes.
+// K13 dt_flat_mul -- replaces PallasField.flat_mul (:1125, body
+//   _flat_mul_kernel :971).  A flat Fp12 product, b dense or sparse on
+//   b_idx (one kernel; b_idx arrives as a small table by value).  144 word
+//   products and 23 REDCs a row when dense, ~48.6k multiply-adds on
+//   4.6 KB: bound by operations.  A row is 72 words of a and as many of b,
+//   too many for one thread's registers, so a block stages 32 rows of a
+//   and b in shared memory as words (structure of arrays: neighbouring
+//   threads read neighbouring words, no bank conflicts), and six threads
+//   share a row, thread j computing the four convolution coefficients
+//   k = j (mod 6) and output slots j and j + 6 -- every coefficient once,
+//   24 products per thread, and each warp on one j, so the loops do not
+//   diverge.
+// K14 dt_cyclo_sqr -- replaces PallasField.cyclo_sqr (:647, body
+//   _cyclo_sqr_kernel :581).  The whole Granger-Scott square (cell
+//   extraction, nine Fp2 squares, the Fp4 recombination, the 3t +- 2g
+//   folds and the flat re-encoding) in one launch, three threads a row,
+//   one per Fp4 group, each reading the four cells it needs: 11.2k
+//   multiply-adds on 3 KB a row, bound by bytes.
+
+// K7 dt_fp2_sqr_chain_mul -- replaces PallasField.fp2_sqr_chain_mul
+//   (:1326, body _fp2_sqr_chain_mul_kernel :1298).  The Fp2 addition-chain
+//   step x^(2^k) * t (or x^(2^k)), one thread a row, every square and the
+//   product canonical in words (no lazy band, so no _WIDE_NEG_OFF_LAZY):
+//   k * 1248 + 1776 multiply-adds on 384 bytes, bound by operations.
+// K8 dt_fp2_sqr5_mul -- replaces PallasField.fp2_sqr5_mul (:1348, body
+//   :1286).  The window step x^32 * t of the same device function at k = 5.
+// K15 dt_flat_conj -- replaces PallasField.flat_conj (:1812, body :1804).
+//   f^(p^6), the odd w-powers negated, one thread per coefficient: 3 KB a
+//   row, bound by bytes.
+// K16 dt_flat_frob -- replaces PallasField.flat_frob (:1834, body :1817).
+//   f^(p^n), n = 1..3: per slot pair (s, s + 6) a 2x2 matrix of Montgomery
+//   constants (passed by value), four products and two adds, one thread
+//   per slot pair: 24 Montgomery products on 3 KB a row, bound by bytes.
+
+#include <cuda_runtime.h>
+
+#include "tower_arith.cuh"
+
+namespace {
+
+constexpr int THREADS = 128;
+constexpr int FLAT_ROWS = 32;                 // rows of a K13 block
+constexpr int FLAT_THREADS = 6 * FLAT_ROWS;   // six threads a row
+
+__global__ void k_fp2_products(const int32_t *__restrict__ x,
+                               const int32_t *__restrict__ y,
+                               int32_t *__restrict__ o, long long rows,
+                               int n, dt::Mod M) {
+  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (e >= rows * n) return;
+  const long long p = e / rows, r = e % rows;
+  // coordinate c of pair p, row r: ((2p + c) rows + r) * 32
+  const long long c0 = (2 * p * rows + r) * dt::N_LIMBS;
+  const long long c1 = c0 + rows * dt::N_LIMBS;
+  dt::fp2_mul_limbs(x + c0, x + c1, y + c0, y + c1, o + c0, o + c1, M);
+}
+
+__global__ void k_fp2_sqrs(const int32_t *__restrict__ x,
+                           int32_t *__restrict__ o, long long rows, int n,
+                           dt::Mod M) {
+  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (e >= rows * n) return;
+  const long long p = e / rows, r = e % rows;
+  const long long c0 = (2 * p * rows + r) * dt::N_LIMBS;
+  const long long c1 = c0 + rows * dt::N_LIMBS;
+  dt::fp2_sqr_limbs(x + c0, x + c1, o + c0, o + c1, M);
+}
+
+__global__ void __launch_bounds__(FLAT_THREADS)
+    k_flat_mul(const int32_t *__restrict__ a, const int32_t *__restrict__ b,
+               int32_t *__restrict__ o, long long rows, int J,
+               dt::FlatIdx idx, dt::Mod M) {
+  // word v of coefficient i of block row r at [(i * 6 + v) * FLAT_ROWS + r]
+  __shared__ uint64_t sa[dt::FLAT * dt::N_WORDS * FLAT_ROWS];
+  __shared__ uint64_t sb[dt::FLAT * dt::N_WORDS * FLAT_ROWS];
+  const long long row0 = (long long)blockIdx.x * FLAT_ROWS;
+  const int t = threadIdx.x;
+  for (int s = t; s < FLAT_ROWS * (dt::FLAT + J); s += FLAT_THREADS) {
+    const int r = s % FLAT_ROWS, i = s / FLAT_ROWS;
+    const bool of_a = i < dt::FLAT;
+    const int c = of_a ? i : i - dt::FLAT, width = of_a ? dt::FLAT : J;
+    uint64_t w[dt::N_WORDS] = {0, 0, 0, 0, 0, 0};
+    if (row0 + r < rows)
+      dt::load_words((of_a ? a : b) + ((row0 + r) * width + c) * dt::N_LIMBS,
+                     w);
+    uint64_t *dst = of_a ? sa : sb;
+#pragma unroll
+    for (int v = 0; v < dt::N_WORDS; v++)
+      dst[(c * dt::N_WORDS + v) * FLAT_ROWS + r] = w[v];
+  }
+  __syncthreads();
+  const int j = t / FLAT_ROWS, r = t % FLAT_ROWS;
+  if (row0 + r >= rows) return;
+  uint64_t lo[dt::N_WORDS], hi[dt::N_WORDS];
+  dt::flat_mul_class(j, sa + r, sb + r, FLAT_ROWS, idx, lo, hi, M);
+  int32_t *out = o + (row0 + r) * dt::FLAT * dt::N_LIMBS;
+  dt::store_words(lo, out + j * dt::N_LIMBS);
+  dt::store_words(hi, out + (j + 6) * dt::N_LIMBS);
+}
+
+__global__ void k_cyclo_sqr(const int32_t *__restrict__ a,
+                            int32_t *__restrict__ o, long long rows,
+                            dt::Mod M) {
+  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (e >= 3 * rows) return;
+  const long long g = e / rows, r = e % rows;   // a warp shares its group
+  dt::cyclo_sqr_group((int)g, a + r * dt::FLAT * dt::N_LIMBS,
+                      o + r * dt::FLAT * dt::N_LIMBS, M);
+}
+
+// K7, K8: coordinate c of row r at (c * rows + r) * 32.
+__global__ void k_fp2_sqr_chain_mul(const int32_t *__restrict__ x,
+                                    const int32_t *__restrict__ t,
+                                    int32_t *__restrict__ o, long long rows,
+                                    int k, dt::Mod M) {
+  const long long r = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  const long long c0 = r * dt::N_LIMBS, c1 = c0 + rows * dt::N_LIMBS;
+  dt::F2 tt;
+  if (t != nullptr) tt = dt::f2_load(t + c0, t + c1);
+  const dt::F2 out = dt::fp2_sqr_chain_mul(
+      dt::f2_load(x + c0, x + c1), t != nullptr ? &tt : nullptr, k, M);
+  dt::f2_store(out, o + c0, o + c1);
+}
+
+__global__ void k_flat_conj(const int32_t *__restrict__ a,
+                            int32_t *__restrict__ o, long long n,
+                            dt::Mod M) {
+  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  dt::flat_conj_coeff(a + e * dt::N_LIMBS, o + e * dt::N_LIMBS,
+                      (int)(e % dt::FLAT), M);
+}
+
+__global__ void k_flat_frob(const int32_t *__restrict__ a,
+                            int32_t *__restrict__ o, long long rows,
+                            dt::FrobConsts F, dt::Mod M) {
+  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (e >= 6 * rows) return;
+  const long long r = e / 6;
+  dt::flat_frob_pair(a + r * dt::FLAT * dt::N_LIMBS,
+                     o + r * dt::FLAT * dt::N_LIMBS, (int)(e % 6), F, M);
+}
+
+unsigned blocks(long long n, int threads) {
+  return (unsigned)((n + threads - 1) / threads);
+}
+
+}  // namespace
+
+extern "C" {
+
+int dt_fp2_products(const int32_t *x, const int32_t *y, int32_t *o,
+                    long long rows, int n, const uint64_t *mod7,
+                    void *stream) {
+  if (rows <= 0 || n <= 0) return 0;
+  k_fp2_products<<<blocks(rows * n, THREADS), THREADS, 0,
+                   (cudaStream_t)stream>>>(x, y, o, rows, n,
+                                           dt::mod_from_words(mod7));
+  return (int)cudaGetLastError();
+}
+
+int dt_fp2_sqrs(const int32_t *x, int32_t *o, long long rows, int n,
+                const uint64_t *mod7, void *stream) {
+  if (rows <= 0 || n <= 0) return 0;
+  k_fp2_sqrs<<<blocks(rows * n, THREADS), THREADS, 0,
+               (cudaStream_t)stream>>>(x, o, rows, n,
+                                       dt::mod_from_words(mod7));
+  return (int)cudaGetLastError();
+}
+
+// b_idx: the J distinct w-powers (0..11) that b's rows hold, host memory.
+int dt_flat_mul(const int32_t *a, const int32_t *b, int32_t *o,
+                long long rows, const int *b_idx, int J,
+                const uint64_t *mod7, void *stream) {
+  if (rows <= 0) return 0;
+  const dt::FlatIdx idx = dt::flat_idx(b_idx, J);
+  k_flat_mul<<<blocks(rows, FLAT_ROWS), FLAT_THREADS, 0,
+               (cudaStream_t)stream>>>(a, b, o, rows, J, idx,
+                                       dt::mod_from_words(mod7));
+  return (int)cudaGetLastError();
+}
+
+int dt_cyclo_sqr(const int32_t *a, int32_t *o, long long rows,
+                 const uint64_t *mod7, void *stream) {
+  if (rows <= 0) return 0;
+  k_cyclo_sqr<<<blocks(3 * rows, THREADS), THREADS, 0,
+                (cudaStream_t)stream>>>(a, o, rows,
+                                        dt::mod_from_words(mod7));
+  return (int)cudaGetLastError();
+}
+
+// t may be null: then x^(2^k).
+int dt_fp2_sqr_chain_mul(const int32_t *x, const int32_t *t, int32_t *o,
+                         long long rows, int k, const uint64_t *mod7,
+                         void *stream) {
+  if (rows <= 0) return 0;
+  k_fp2_sqr_chain_mul<<<blocks(rows, THREADS), THREADS, 0,
+                        (cudaStream_t)stream>>>(x, t, o, rows, k,
+                                                dt::mod_from_words(mod7));
+  return (int)cudaGetLastError();
+}
+
+int dt_fp2_sqr5_mul(const int32_t *x, const int32_t *t, int32_t *o,
+                    long long rows, const uint64_t *mod7, void *stream) {
+  if (rows <= 0) return 0;
+  k_fp2_sqr_chain_mul<<<blocks(rows, THREADS), THREADS, 0,
+                        (cudaStream_t)stream>>>(x, t, o, rows, 5,
+                                                dt::mod_from_words(mod7));
+  return (int)cudaGetLastError();
+}
+
+int dt_flat_conj(const int32_t *a, int32_t *o, long long rows,
+                 const uint64_t *mod7, void *stream) {
+  if (rows <= 0) return 0;
+  k_flat_conj<<<blocks(dt::FLAT * rows, THREADS), THREADS, 0,
+                (cudaStream_t)stream>>>(a, o, dt::FLAT * rows,
+                                        dt::mod_from_words(mod7));
+  return (int)cudaGetLastError();
+}
+
+// consts: the 6 x 4 x 6 words of dt::FrobConsts, host memory.
+int dt_flat_frob(const int32_t *a, int32_t *o, long long rows,
+                 const uint64_t *consts, const uint64_t *mod7,
+                 void *stream) {
+  if (rows <= 0) return 0;
+  k_flat_frob<<<blocks(6 * rows, THREADS), THREADS, 0,
+                (cudaStream_t)stream>>>(a, o, rows,
+                                        dt::frob_from_words(consts),
+                                        dt::mod_from_words(mod7));
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -2,7 +2,11 @@
 
 Counterpart of `drand_tpu/ops/curve.py` (its generic formulas).  Points
 are Jacobian (X, Y, Z) tuples of Montgomery limb tensors; Z == 0 encodes
-infinity.  All control flow is masked selects over the batch.
+infinity.  All control flow is masked selects over the batch.  A G2
+doubling or addition on a GPU tensor is one hand-written CUDA kernel (K9,
+K10 in `ops/kernels.py`, as `drand_tpu` takes its Pallas kernels on its
+chip); the formulas below, under `Fp2PlainOps`, are their plain
+versions.
 """
 
 from __future__ import annotations
@@ -11,6 +15,7 @@ import torch
 
 from drand_tpu_torch.crypto.bls12381 import curve as GC
 from drand_tpu_torch.crypto.bls12381.constants import X as BLS_X
+from drand_tpu_torch.ops import kernels as K
 from drand_tpu_torch.ops import towers as T
 from drand_tpu_torch.ops.field import FP, segmented_ladder, tail_segments
 
@@ -49,6 +54,22 @@ class Fp2Ops:
     products = staticmethod(T.fp2_products)
     mul_small = staticmethod(T.fp2_mul_small)
     broadcast = staticmethod(T.fp2_broadcast)
+    scalar_products = staticmethod(FP.products)   # Fp2 coordinate x Fp
+
+
+def _fp_products_plain(pairs):
+    a, b = FP._stack2(pairs)
+    return list(FP._mont_mul_plain(a, b).unbind(0))
+
+
+class Fp2PlainOps(Fp2Ops):
+    """Fp2Ops with every product through a plain version, never a kernel:
+    the G2 point and Miller-step formulas under it are the plain versions
+    of K9-K12."""
+    mul = staticmethod(lambda a, b: T._fp2_products_plain([(a, b)])[0])
+    sqr = staticmethod(lambda a: T._fp2_sqrs_plain([a])[0])
+    products = staticmethod(T._fp2_products_plain)
+    scalar_products = staticmethod(_fp_products_plain)
 
 
 # ---------------------------------------------------------------------------
@@ -69,9 +90,31 @@ def point_neg(pt, ops):
     return (pt[0], ops.neg(pt[1]), pt[2])
 
 
+def g2_pack(pt):
+    """G2 Jacobian point -> one [6, ..., 32] tensor (X0 X1 Y0 Y1 Z0 Z1):
+    the operand layout of K9 and K10."""
+    return torch.stack(FP._common([c for xy in pt for c in xy]), 0)
+
+
+def g2_unpack(st):
+    return ((st[0], st[1]), (st[2], st[3]), (st[4], st[5]))
+
+
+def _on_card(pt):
+    return pt[0][0].device.type != "cpu"
+
+
 def point_double(pt, ops):
-    """dbl-2009-l in staged stacked products; preserves infinity
-    (Z3 = 2YZ = 0)."""
+    """dbl-2009-l; preserves infinity (Z3 = 2YZ = 0).  A G2 point on a GPU
+    tensor is one K9 launch."""
+    if ops is Fp2Ops and _on_card(pt):
+        return g2_unpack(K.g2_point_dbl(g2_pack(pt), FP))
+    return _point_double_formula(pt, ops)
+
+
+def _point_double_formula(pt, ops):
+    """dbl-2009-l in staged stacked products (the plain version of K9
+    under Fp2PlainOps)."""
     x, y, z = pt
     a, b, yz = ops.products([(x, x), (y, y), (y, z)])
     xb = ops.add(x, b)
@@ -89,7 +132,17 @@ def point_double(pt, ops):
 
 def point_add(p1, p2, ops, with_double: bool = True):
     """General Jacobian addition with every case branchless: infinities,
-    P + P (doubling fallback unless with_double=False), P + (-P) = inf."""
+    P + P (doubling fallback unless with_double=False), P + (-P) = inf.
+    G2 points on a GPU tensor are one K10 launch."""
+    if ops is Fp2Ops and _on_card(p1):
+        return g2_unpack(K.g2_point_add(g2_pack(p1), g2_pack(p2),
+                                        with_double, FP))
+    return _point_add_formula(p1, p2, ops, with_double)
+
+
+def _point_add_formula(p1, p2, ops, with_double: bool = True):
+    """The staged formula of point_add (the plain version of K10 under
+    Fp2PlainOps)."""
     x1, y1, z1 = p1
     x2, y2, z2 = p2
     z1z1, z2z2, y1z2, y2z1 = ops.products(
@@ -114,7 +167,7 @@ def point_add(p1, p2, ops, with_double: bool = True):
     eq_u = ops.eq(u1, u2) & ~inf1 & ~inf2
     eq_s = ops.eq(s1, s2)
     if with_double:
-        dbl = point_double(p1, ops)
+        dbl = _point_double_formula(p1, ops)
         out = tuple(ops.select(eq_u & eq_s, d, o) for d, o in zip(dbl, out))
     cancel = eq_u & ~eq_s
     inf = point_inf(ops, cancel.shape, cancel.device)
@@ -157,6 +210,12 @@ def point_mul_const(pt, k: int, ops):
     if k <= 0:
         raise ValueError("point_mul_const takes k >= 1")
     segments = tail_segments(bin(k)[3:])
+    if ops is Fp2Ops and _on_card(pt):
+        # the ladder's state stays packed: one stack in, one view out
+        base = g2_pack(pt)
+        return g2_unpack(segmented_ladder(
+            segments, base, lambda acc: K.g2_point_dbl(acc, FP),
+            lambda acc: K.g2_point_add(acc, base, False, FP)))
     return segmented_ladder(
         segments, pt,  # starting from pt consumes the leading 1 bit
         lambda acc: point_double(acc, ops),

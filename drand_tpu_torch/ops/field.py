@@ -9,7 +9,10 @@ The Montgomery radix is R = 2^384.
 Four operations run as hand-written CUDA kernels on a GPU tensor
 (`ops/kernels.py`, sources in `csrc/`): the Montgomery multiply (K1), the
 Montgomery square (K2), the reduction of a wide value (K3) and the
-square-chain step of the exponent executors (K4).  Beside each kernel sits
+square-chain step of the exponent executors (K4); the Fp2, G2, Miller
+and flat Fp12 kernels (K5-K16) are dispatched from `ops/towers.py`,
+`ops/curve.py`, `ops/pairing.py` and `ops/flat12.py`.  Beside each kernel
+sits
 its plain PyTorch version (`_*_plain`), transcribed from the XLA path of
 `drand_tpu/ops/field.py`; a CPU tensor takes the plain version, a CUDA
 tensor the kernel.  Every output of the four is canonical, so kernel and
@@ -47,6 +50,13 @@ def int_to_limbs(x: int, n: int = N_LIMBS) -> np.ndarray:
         raise ValueError("value out of limb range")
     return np.array([(x >> (LIMB_BITS * i)) & LIMB_MASK for i in range(n)],
                     dtype=np.int32)
+
+
+def int_to_words(x: int) -> np.ndarray:
+    """Non-negative int < 2^384 -> the kernels' 6 little-endian 64-bit
+    words."""
+    return np.array([(x >> (64 * i)) & (2 ** 64 - 1) for i in range(6)],
+                    dtype=np.uint64)
 
 
 def limbs_to_int(limbs) -> int:
@@ -362,6 +372,7 @@ class Field:
         words = [(modulus >> (64 * i)) & (2 ** 64 - 1) for i in range(6)]
         ninv = (-pow(modulus, -1, 1 << 64)) % (1 << 64)
         self.kernel_arg = np.array(words + [ninv], dtype=np.uint64)
+        self.kernel_one = int_to_words(self.R_int)     # Montgomery one
 
     def c(self, const: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
         return dev(const, like.device)
@@ -480,10 +491,14 @@ class Field:
         """t * 2^-384 mod m for a [..., 64] wide limb value (K3).
 
         Contract (shared by the kernel): limbs in [0, 2^14) and value
-        T < (2 - 2^-9) * 2^384 * m; output canonical.  The callers stay
+        T < (2 - 2^-9) * 2^384 * m; output canonical.  The plain Fp2 and
+        flat Fp12 products (`towers._fp2_products_plain`,
+        `flat12._flat_mul_plain`) reduce through its plain version and stay
         far inside it: a flat Fp12 convolution sums <= 12 products of
         canonical operands (T < 1.22 * 2^384 * p), an Fp2 product adds at
-        most 3 p^2 (T < 0.31 * 2^384 * p)."""
+        most 3 p^2 (T < 0.31 * 2^384 * p).  On a GPU those products are
+        kernels of their own (K5, K13), so the verify path no longer
+        launches K3."""
         t = as_limbs(t)
         if t.device.type == "cpu":
             return self._mont_reduce_plain(t)

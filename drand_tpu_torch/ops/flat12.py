@@ -1,11 +1,17 @@
 """Flat Fp12 arithmetic: 12 Fp coefficients over the power basis of w.
 
-Counterpart of `drand_tpu/ops/flat12.py` (its composite branches).  The
-tower Fp2 -> Fp6 -> Fp12 is flattened onto {1, w, ..., w^11} over Fp
-(w^2 = v, v^3 = xi = 1 + u, u^2 = -1), so a product is one broadcast limb
-multiply of all coefficient pairs, a convolution onto w-powers, one
-stacked Montgomery reduction (kernel K3 on the GPU) and a signed
-recombination through the minimal polynomial w^12 - 2 w^6 + 2 = 0.
+Counterpart of `drand_tpu/ops/flat12.py`.  The tower Fp2 -> Fp6 -> Fp12
+is flattened onto {1, w, ..., w^11} over Fp (w^2 = v, v^3 = xi = 1 + u,
+u^2 = -1), so a product is a convolution of all coefficient pairs onto
+w-powers, a Montgomery reduction and a signed recombination through the
+minimal polynomial w^12 - 2 w^6 + 2 = 0.  On a GPU tensor the product
+(`flat_mul`, dense or sparse), the cyclotomic square, the conjugation and
+the Frobenius map are one hand-written CUDA kernel each (K13, K14, K15
+and K16 in `ops/kernels.py`, as `drand_tpu` takes its Pallas kernels on
+its chip); a CPU tensor takes the plain versions `_flat_mul_plain`,
+`_flat_cyclo_sqr_plain`, `_flat_conj_plain` and `_flat_frob_plain`,
+`drand_tpu`'s composite branches.  Every output is canonical, so kernel
+and plain version agree bit for bit.
 
 Basis mapping: the tower element ((a0,a1,a2),(b0,b1,b2)) with Fp2 cells
 c = x + y*u occupies slots s(a0)=0, s(b0)=1, s(a1)=2, s(b1)=3, s(a2)=4,
@@ -25,9 +31,11 @@ import torch.nn.functional as TF
 
 from drand_tpu_torch.crypto.bls12381 import fp as G
 from drand_tpu_torch.crypto.bls12381.constants import P
+from drand_tpu_torch.ops import kernels as K
 from drand_tpu_torch.ops import towers as T
 from drand_tpu_torch.ops.field import (FP, N_LIMBS, _carry, _carry_cheap,
-                                       _poly_mul_var, dev, host)
+                                       _poly_mul_var, dev, host, int_to_words,
+                                       limbs_to_int)
 
 # ---------------------------------------------------------------------------
 # Host-side basis conversion (golden ints <-> flat coefficient lists)
@@ -159,12 +167,18 @@ def flat_is_one(a):
 def flat_mul(a, b, b_idx=tuple(range(12))):
     """Flat Fp12 product.  a [..., 12, 32]; b [..., J, 32] holding the
     coefficients of the w-powers listed in static `b_idx` (full element by
-    default; Miller-loop lines pass their 6 non-zero powers).
+    default; Miller-loop lines pass their 6 non-zero powers).  Kernel K13
+    on a GPU tensor."""
+    if a.device.type == "cpu":
+        return _flat_mul_plain(a, b, b_idx)
+    return K.flat_mul(a, b, b_idx, FP)
 
-    Broadcast limb multiply -> convolution onto w-powers (<= 12 canonical
-    products per coefficient keeps the value inside the mont_reduce
-    contract) -> stacked Montgomery reduction -> signed recombination with
-    negatives folded through p - x."""
+
+def _flat_mul_plain(a, b, b_idx=tuple(range(12))):
+    """Plain version of K13: broadcast limb multiply -> convolution onto
+    w-powers (<= 12 canonical products per coefficient keeps the value
+    inside the mont_reduce contract) -> stacked Montgomery reduction ->
+    signed recombination with negatives folded through p - x."""
     tb = _tables(b_idx)
     d = a.device
     cols = _poly_mul_var(a[..., :, None, :], b[..., None, :, :])
@@ -176,7 +190,7 @@ def flat_mul(a, b, b_idx=tuple(range(12))):
                        device=d)
     conv.index_add_(-2, dev(tb["conv_k"], d),
                     cols.reshape(shape + (-1, 2 * N_LIMBS)))
-    red = FP.mont_reduce(_carry_cheap(conv))             # [..., K, 32]
+    red = FP._mont_reduce_plain(_carry_cheap(conv))      # [..., K, 32]
     nred = FP.neg(red)
     s = torch.zeros(shape + (12, N_LIMBS), dtype=red.dtype, device=d)
     s.index_add_(-2, dev(tb["pos_j"], d),
@@ -186,12 +200,14 @@ def flat_mul(a, b, b_idx=tuple(range(12))):
     return FP.reduce_small_multiple(_carry(s), tb["bound"])
 
 
-def flat_sqr(a):
-    return flat_mul(a, a)
-
-
 def flat_conj(a):
-    """f^(p^6): negate the odd w-powers."""
+    """f^(p^6): negate the odd w-powers.  Kernel K15 on a GPU tensor."""
+    if a.device.type == "cpu":
+        return _flat_conj_plain(a)
+    return K.flat_conj(a, FP)
+
+
+def _flat_conj_plain(a):
     return torch.where(dev(_ODD, a.device)[:, None], FP.neg(a), a)
 
 
@@ -223,16 +239,26 @@ def _frob_consts(n: int):
 
 
 _FROB = {n: _frob_consts(n) for n in (1, 2, 3)}
+# K16's constant argument: per slot s, A B C D as 6 words each
+_FROB_WORDS = {n: np.stack([
+    np.stack([int_to_words(limbs_to_int(c[s].numpy())) for c in consts])
+    for s in range(6)]) for n, consts in _FROB.items()}
 
 
 def flat_frob(a, n: int = 1):
-    """a^(p^n) for n in 1..3."""
+    """a^(p^n) for n in 1..3.  Kernel K16 on a GPU tensor."""
+    if a.device.type == "cpu":
+        return _flat_frob_plain(a, n)
+    return K.flat_frob(a, n, _FROB_WORDS[n], FP)
+
+
+def _flat_frob_plain(a, n: int = 1):
     A, B, C, D = (dev(x, a.device) for x in _FROB[n])
     lo, hi = a[..., :6, :], a[..., 6:, :]
     st_a = torch.stack([lo, hi, lo, hi], 0)
     st_b = torch.stack([A.expand(lo.shape), B.expand(hi.shape),
                         C.expand(lo.shape), D.expand(hi.shape)], 0)
-    p = FP.mont_mul(st_a, st_b)
+    p = FP._mont_mul_plain(*torch.broadcast_tensors(st_a, st_b))
     return torch.cat([FP.add(p[0], p[1]), FP.add(p[2], p[3])], -2)
 
 
@@ -263,8 +289,17 @@ def flat_inv(a):
 
 def flat_cyclo_sqr(a):
     """Granger-Scott cyclotomic squaring for UNITARY elements (everything
-    after the final exponentiation's easy part): 9 Fp2 squares in one
-    stack instead of the full flat square."""
+    after the final exponentiation's easy part): 9 Fp2 squares instead of
+    the full flat square.  Kernel K14 on a GPU tensor."""
+    if a.device.type == "cpu":
+        return _flat_cyclo_sqr_plain(a)
+    return K.cyclo_sqr(a, FP)
+
+
+def _flat_cyclo_sqr_plain(a):
+    """Plain version of K14: the 9 Fp2 squares in one stack, the rest in
+    stacked Fp2 adds and subtracts.  A fixed function of any canonical
+    input; it equals the square of `a` where `a` is unitary."""
     hi = a[..., 6:, :]
     xs = FP.add(a[..., :6, :], hi)          # tower-cell x coordinates
 
@@ -274,7 +309,7 @@ def flat_cyclo_sqr(a):
     g0, g1, g2 = cell(0), cell(2), cell(4)
     g3, g4, g5 = cell(1), cell(3), cell(5)
     s_a, s_b, s_c = T.fp2_sums([(g0, g4), (g3, g2), (g1, g5)])
-    a2, b2, sa2, c2, d2, sb2, e2, f2, sc2 = T.fp2_products([
+    a2, b2, sa2, c2, d2, sb2, e2, f2, sc2 = T._fp2_products_plain([
         (g0, g0), (g4, g4), (s_a, s_a),
         (g3, g3), (g2, g2), (s_b, s_b),
         (g1, g1), (g5, g5), (s_c, s_c)])

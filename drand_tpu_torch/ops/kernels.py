@@ -7,12 +7,15 @@ takes seconds.  The build runs at first use, into
 reused while the sources are unchanged.
 
 Each wrapper takes CUDA tensors only (the CPU path is the plain PyTorch
-version in `ops/field.py`): it checks device, dtype, shape, contiguity and
+version in `ops/field.py`, `ops/towers.py` or `ops/flat12.py`): it makes
+broadcast operands contiguous, checks device, dtype, shape, contiguity and
 alignment and raises on anything else, allocates its output with
 `torch.empty`, launches on PyTorch's current stream, raises on a CUDA
 error, and adds one to its kernel's `launches` where it launches (and
-counts the launch under its call -- field and shape, and k for K4 -- in
-`calls`).
+counts the launch under its call in `calls`: field and shape, and k for
+K4; shape and n for K5/K6; shape and b_idx for K13; shape, k and whether
+t is given for K7; shape for K8, K9, K11, K12, K14 and K15; shape and
+with_double for K10; shape and n for K16).
 """
 
 from __future__ import annotations
@@ -28,11 +31,13 @@ import time
 from dataclasses import dataclass, field
 from pathlib import Path
 
+import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "drand_tpu_torch"
-SOURCES = ("field_kernels.cu",)
+SOURCES = ("field_kernels.cu", "tower_kernels.cu", "curve_kernels.cu",
+           "miller_kernels.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libdrand_tpu_torch_kernels.so"
@@ -41,9 +46,8 @@ LIB_NAME = "libdrand_tpu_torch_kernels.so"
 @dataclass
 class Kernel:
     """One CUDA kernel: its C entry point, the TPU kernel it replaces, the
-    number of launches its wrapper has made, and those launches by call:
-    (field name, input shape), and for K4 also k and whether t was
-    given."""
+    number of launches its wrapper has made, and those launches by call
+    (the key each wrapper documents)."""
     name: str
     symbol: str
     replaces: str
@@ -52,6 +56,9 @@ class Kernel:
     calls: collections.Counter = field(default_factory=collections.Counter)
 
 
+_TOWER = "drand_tpu_torch/csrc/tower_kernels.cu"
+_CURVE = "drand_tpu_torch/csrc/curve_kernels.cu"
+_MILLER = "drand_tpu_torch/csrc/miller_kernels.cu"
 KERNELS = {
     "mont_mul": Kernel("mont_mul", "dt_mont_mul",
                        "drand_tpu/ops/pallas_field.py:723"),
@@ -61,6 +68,30 @@ KERNELS = {
                           "drand_tpu/ops/pallas_field.py:746"),
     "sqr_chain_mul": Kernel("sqr_chain_mul", "dt_sqr_chain_mul",
                             "drand_tpu/ops/pallas_field.py:1253"),
+    "fp2_products": Kernel("fp2_products", "dt_fp2_products",
+                           "drand_tpu/ops/pallas_field.py:1062", _TOWER),
+    "fp2_sqrs": Kernel("fp2_sqrs", "dt_fp2_sqrs",
+                       "drand_tpu/ops/pallas_field.py:1029", _TOWER),
+    "flat_mul": Kernel("flat_mul", "dt_flat_mul",
+                       "drand_tpu/ops/pallas_field.py:1125", _TOWER),
+    "cyclo_sqr": Kernel("cyclo_sqr", "dt_cyclo_sqr",
+                        "drand_tpu/ops/pallas_field.py:647", _TOWER),
+    "fp2_sqr_chain_mul": Kernel("fp2_sqr_chain_mul", "dt_fp2_sqr_chain_mul",
+                                "drand_tpu/ops/pallas_field.py:1326", _TOWER),
+    "fp2_sqr5_mul": Kernel("fp2_sqr5_mul", "dt_fp2_sqr5_mul",
+                           "drand_tpu/ops/pallas_field.py:1348", _TOWER),
+    "g2_point_dbl": Kernel("g2_point_dbl", "dt_g2_point_dbl",
+                           "drand_tpu/ops/pallas_field.py:1705", _CURVE),
+    "g2_point_add": Kernel("g2_point_add", "dt_g2_point_add",
+                           "drand_tpu/ops/pallas_field.py:1720", _CURVE),
+    "miller_dbl_iter": Kernel("miller_dbl_iter", "dt_miller_dbl_iter",
+                              "drand_tpu/ops/pallas_field.py:2088", _MILLER),
+    "miller_add_iter": Kernel("miller_add_iter", "dt_miller_add_iter",
+                              "drand_tpu/ops/pallas_field.py:2121", _MILLER),
+    "flat_conj": Kernel("flat_conj", "dt_flat_conj",
+                        "drand_tpu/ops/pallas_field.py:1812", _TOWER),
+    "flat_frob": Kernel("flat_frob", "dt_flat_frob",
+                        "drand_tpu/ops/pallas_field.py:1834", _TOWER),
 }
 
 
@@ -84,6 +115,18 @@ _ARGTYPES = {
     "dt_mont_sqr": [_P, _P, _LL, _P, _P],
     "dt_mont_reduce": [_P, _P, _LL, _P, _P],
     "dt_sqr_chain_mul": [_P, _P, _P, _LL, _I, _P, _P],
+    "dt_fp2_products": [_P, _P, _P, _LL, _I, _P, _P],
+    "dt_fp2_sqrs": [_P, _P, _LL, _I, _P, _P],
+    "dt_flat_mul": [_P, _P, _P, _LL, _P, _I, _P, _P],
+    "dt_cyclo_sqr": [_P, _P, _LL, _P, _P],
+    "dt_fp2_sqr_chain_mul": [_P, _P, _P, _LL, _I, _P, _P],
+    "dt_fp2_sqr5_mul": [_P, _P, _P, _LL, _P, _P],
+    "dt_g2_point_dbl": [_P, _P, _LL, _P, _P],
+    "dt_g2_point_add": [_P, _P, _P, _LL, _I, _P, _P, _P],
+    "dt_miller_dbl_iter": [_P, _P, _P, _P, _P, _P, _LL, _P, _P, _P],
+    "dt_miller_add_iter": [_P, _P, _P, _P, _P, _P, _P, _LL, _P, _P, _P],
+    "dt_flat_conj": [_P, _P, _LL, _P, _P],
+    "dt_flat_frob": [_P, _P, _LL, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -257,5 +300,249 @@ def sqr_chain_mul(a: torch.Tensor, k: int, t, field) -> torch.Tensor:
         _launch("sqr_chain_mul", (field.name, tuple(a.shape), k,
                                   t is not None), a.device, a.data_ptr(),
                 None if t is None else t.data_ptr(), out.data_ptr(), n, k,
+                field.kernel_arg.ctypes.data)
+    return out
+
+
+def _fp2_stack_check(x: torch.Tensor, what: str) -> int:
+    """[n, 2, ..., 32] Fp2 stack: returns the rows of one coordinate."""
+    _check(x, what, 32)
+    if x.ndim < 3 or x.shape[1] != 2:
+        raise ValueError(f"{what}: expected [n, 2, ..., 32], got "
+                         f"{tuple(x.shape)}")
+    return x[0, 0].numel() // 32
+
+
+def fp2_products(x: torch.Tensor, y: torch.Tensor, field) -> torch.Tensor:
+    """K5: n stacked Fp2 products.  x, y [n, 2, ..., 32] canonical, with
+    coordinate c of pair p at [p, c]; returns [n, 2, ..., 32], pair p's
+    product at [p]."""
+    x, y = x.contiguous(), y.contiguous()
+    rows = _fp2_stack_check(x, "fp2_products x")
+    _fp2_stack_check(y, "fp2_products y")
+    _same(x, y, "fp2_products")
+    out = torch.empty_like(x)
+    n = x.shape[0]
+    if n and rows:
+        _launch("fp2_products", (tuple(x.shape[2:]), n), x.device,
+                x.data_ptr(), y.data_ptr(), out.data_ptr(), rows, n,
+                field.kernel_arg.ctypes.data)
+    return out
+
+
+def fp2_sqrs(x: torch.Tensor, field) -> torch.Tensor:
+    """K6: n stacked Fp2 squares, [n, 2, ..., 32] canonical in and out."""
+    x = x.contiguous()
+    rows = _fp2_stack_check(x, "fp2_sqrs x")
+    out = torch.empty_like(x)
+    n = x.shape[0]
+    if n and rows:
+        _launch("fp2_sqrs", (tuple(x.shape[2:]), n), x.device, x.data_ptr(),
+                out.data_ptr(), rows, n, field.kernel_arg.ctypes.data)
+    return out
+
+
+def flat_mul(a: torch.Tensor, b: torch.Tensor, b_idx, field) -> torch.Tensor:
+    """K13: flat Fp12 a*b.  a [..., 12, 32]; b [..., J, 32] holding the
+    coefficients of the J distinct w-powers `b_idx` (all 12 when dense);
+    leading shapes broadcast.  Canonical in and out, [..., 12, 32]."""
+    b_idx = tuple(int(i) for i in b_idx)
+    J = len(b_idx)
+    if not (1 <= J <= 12 and len(set(b_idx)) == J
+            and all(0 <= i < 12 for i in b_idx)):
+        raise ValueError(f"flat_mul: b_idx must hold distinct powers 0..11, "
+                         f"got {b_idx}")
+    for x, rows, what in ((a, 12, "flat_mul a"), (b, J, "flat_mul b")):
+        if not isinstance(x, torch.Tensor) or x.ndim < 2 or \
+                x.shape[-2:] != (rows, 32):
+            raise ValueError(f"{what}: expected [..., {rows}, 32], got "
+                             f"{tuple(getattr(x, 'shape', ()))}")
+    shape = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    a = a.expand(shape + (12, 32)).contiguous()
+    b = b.expand(shape + (J, 32)).contiguous()
+    _check(a, "flat_mul a", 32)
+    _check(b, "flat_mul b", 32)
+    if a.device != b.device:
+        raise ValueError(f"flat_mul: operands on {a.device} and {b.device}")
+    out = torch.empty_like(a)
+    rows = a.numel() // (12 * 32)
+    if rows:
+        idx = np.asarray(b_idx, dtype=np.int32)
+        _launch("flat_mul", (tuple(a.shape), b_idx), a.device, a.data_ptr(),
+                b.data_ptr(), out.data_ptr(), rows, idx.ctypes.data, J,
+                field.kernel_arg.ctypes.data)
+    return out
+
+
+def cyclo_sqr(a: torch.Tensor, field) -> torch.Tensor:
+    """K14: the Granger-Scott cyclotomic square of flat Fp12 [..., 12, 32]
+    (the function of `flat12._flat_cyclo_sqr_plain` on any canonical
+    input), canonical in and out."""
+    a = a.contiguous()
+    _shaped(a, "cyclo_sqr a", (12, 32))
+    out = torch.empty_like(a)
+    rows = a.numel() // (12 * 32)
+    if rows:
+        _launch("cyclo_sqr", tuple(a.shape), a.device, a.data_ptr(),
+                out.data_ptr(), rows, field.kernel_arg.ctypes.data)
+    return out
+
+
+def _shaped(x: torch.Tensor, what: str, tail: tuple) -> None:
+    """A contiguous int32 CUDA tensor whose trailing dimensions are
+    `tail` (the last one the 32 limbs)."""
+    _check(x, what, 32)
+    if x.ndim < len(tail) or tuple(x.shape[x.ndim - len(tail):]) != tail:
+        raise ValueError(f"{what}: expected [..., {', '.join(map(str, tail))}]"
+                         f", got {tuple(x.shape)}")
+
+
+def _lead_check(x: torch.Tensor, what: str, lead: int) -> int:
+    """A coordinate-major stack [lead, ..., 32]: returns its rows."""
+    _check(x, what, 32)
+    if x.ndim < 2 or x.shape[0] != lead:
+        raise ValueError(f"{what}: expected [{lead}, ..., 32], got "
+                         f"{tuple(x.shape)}")
+    return x[0].numel() // 32
+
+
+def fp2_sqr_chain_mul(x: torch.Tensor, k: int, t, field) -> torch.Tensor:
+    """K7: x^(2^k) * t (t given) or x^(2^k) in Fp2.  x, t [2, ..., 32]
+    canonical (coordinate c at [c]); returns [2, ..., 32]."""
+    x = x.contiguous()
+    rows = _lead_check(x, "fp2_sqr_chain_mul x", 2)
+    if t is not None:
+        t = t.contiguous()
+        _lead_check(t, "fp2_sqr_chain_mul t", 2)
+        _same(x, t, "fp2_sqr_chain_mul")
+    if not 0 <= k < 2 ** 31:
+        raise ValueError(f"fp2_sqr_chain_mul: k out of range: {k}")
+    out = torch.empty_like(x)
+    if rows:
+        _launch("fp2_sqr_chain_mul", (tuple(x.shape), k, t is not None),
+                x.device, x.data_ptr(), None if t is None else t.data_ptr(),
+                out.data_ptr(), rows, k, field.kernel_arg.ctypes.data)
+    return out
+
+
+def fp2_sqr5_mul(x: torch.Tensor, t: torch.Tensor, field) -> torch.Tensor:
+    """K8: the window step x^32 * t in Fp2, [2, ..., 32] canonical."""
+    x, t = x.contiguous(), t.contiguous()
+    rows = _lead_check(x, "fp2_sqr5_mul x", 2)
+    _lead_check(t, "fp2_sqr5_mul t", 2)
+    _same(x, t, "fp2_sqr5_mul")
+    out = torch.empty_like(x)
+    if rows:
+        _launch("fp2_sqr5_mul", tuple(x.shape), x.device, x.data_ptr(),
+                t.data_ptr(), out.data_ptr(), rows,
+                field.kernel_arg.ctypes.data)
+    return out
+
+
+def g2_point_dbl(p: torch.Tensor, field) -> torch.Tensor:
+    """K9: Jacobian doubling of G2 points [6, ..., 32] (X0 X1 Y0 Y1 Z0
+    Z1), canonical in and out."""
+    p = p.contiguous()
+    rows = _lead_check(p, "g2_point_dbl p", 6)
+    out = torch.empty_like(p)
+    if rows:
+        _launch("g2_point_dbl", tuple(p.shape), p.device, p.data_ptr(),
+                out.data_ptr(), rows, field.kernel_arg.ctypes.data)
+    return out
+
+
+def g2_point_add(p1: torch.Tensor, p2: torch.Tensor, with_double: bool,
+                 field) -> torch.Tensor:
+    """K10: general Jacobian addition of G2 points [6, ..., 32], every
+    case branchless (P + P doubles only where `with_double`)."""
+    shape = torch.broadcast_shapes(p1.shape, p2.shape)
+    p1, p2 = p1.expand(shape).contiguous(), p2.expand(shape).contiguous()
+    rows = _lead_check(p1, "g2_point_add p1", 6)
+    _lead_check(p2, "g2_point_add p2", 6)
+    _same(p1, p2, "g2_point_add")
+    out = torch.empty_like(p1)
+    if rows:
+        _launch("g2_point_add", (tuple(p1.shape), bool(with_double)),
+                p1.device, p1.data_ptr(), p2.data_ptr(), out.data_ptr(), rows,
+                int(bool(with_double)), field.kernel_one.ctypes.data,
+                field.kernel_arg.ctypes.data)
+    return out
+
+
+def _miller_check(f, T, P, masks, Q=None):
+    lead = f.shape[:-2]
+    _shaped(f, "miller f", (12, 32))
+    for x, tail, what in ((T, (2, 6, 32), "miller T"),
+                          (P, (2, 2, 32), "miller P"),
+                          (Q, (2, 4, 32), "miller Q")):
+        if x is None:
+            continue
+        _shaped(x, what, tail)
+        if x.shape[:-3] != lead or x.device != f.device:
+            raise ValueError(f"{what}: leading shape or device differs from "
+                             f"f's {tuple(lead)}@{f.device}")
+    if masks.dtype != torch.int32 or masks.shape != lead + (2,) or \
+            not masks.is_contiguous() or masks.device != f.device:
+        raise ValueError(f"miller masks: expected contiguous int32 "
+                         f"{tuple(lead) + (2,)} on {f.device}")
+    return f.numel() // (12 * 32)
+
+
+def miller_dbl_iter(f, T, P, masks, field):
+    """K11: one merged Miller doubling iteration of the two-pair check.
+    f [..., 12, 32], T [..., 2, 6, 32], P [..., 2, 2, 32], masks [..., 2]
+    int32; returns (f^2 * l1 * l2, the doubled T)."""
+    f, T, P = f.contiguous(), T.contiguous(), P.contiguous()
+    rows = _miller_check(f, T, P, masks)
+    fo, To = torch.empty_like(f), torch.empty_like(T)
+    if rows:
+        _launch("miller_dbl_iter", tuple(f.shape), f.device, f.data_ptr(),
+                T.data_ptr(), P.data_ptr(), masks.data_ptr(), fo.data_ptr(),
+                To.data_ptr(), rows, field.kernel_one.ctypes.data,
+                field.kernel_arg.ctypes.data)
+    return fo, To
+
+
+def miller_add_iter(f, T, Q, P, masks, field):
+    """K12: one merged Miller addition step of the two-pair check, Q
+    [..., 2, 4, 32] affine; returns (f * l1 * l2, the new T)."""
+    f, T, Q, P = f.contiguous(), T.contiguous(), Q.contiguous(), P.contiguous()
+    rows = _miller_check(f, T, P, masks, Q)
+    fo, To = torch.empty_like(f), torch.empty_like(T)
+    if rows:
+        _launch("miller_add_iter", tuple(f.shape), f.device, f.data_ptr(),
+                T.data_ptr(), Q.data_ptr(), P.data_ptr(), masks.data_ptr(),
+                fo.data_ptr(), To.data_ptr(), rows,
+                field.kernel_one.ctypes.data, field.kernel_arg.ctypes.data)
+    return fo, To
+
+
+def flat_conj(a: torch.Tensor, field) -> torch.Tensor:
+    """K15: f^(p^6) of flat Fp12 [..., 12, 32], canonical in and out."""
+    a = a.contiguous()
+    _shaped(a, "flat_conj a", (12, 32))
+    out = torch.empty_like(a)
+    rows = a.numel() // (12 * 32)
+    if rows:
+        _launch("flat_conj", tuple(a.shape), a.device, a.data_ptr(),
+                out.data_ptr(), rows, field.kernel_arg.ctypes.data)
+    return out
+
+
+def flat_frob(a: torch.Tensor, n: int, consts: np.ndarray,
+              field) -> torch.Tensor:
+    """K16: f^(p^n) of flat Fp12 [..., 12, 32]; `consts` the 6 x 4 x 6
+    uint64 words of the per-slot 2x2 Montgomery matrices of frob^n."""
+    a = a.contiguous()
+    _shaped(a, "flat_frob a", (12, 32))
+    consts = np.ascontiguousarray(consts, dtype=np.uint64)
+    if consts.size != 6 * 4 * 6:
+        raise ValueError(f"flat_frob: expected 144 constant words, got "
+                         f"{consts.size}")
+    out = torch.empty_like(a)
+    rows = a.numel() // (12 * 32)
+    if rows:
+        _launch("flat_frob", (tuple(a.shape), int(n)), a.device,
+                a.data_ptr(), out.data_ptr(), rows, consts.ctypes.data,
                 field.kernel_arg.ctypes.data)
     return out

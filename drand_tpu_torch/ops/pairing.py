@@ -1,7 +1,7 @@
 """Batched optimal-ate pairing check in PyTorch.
 
-Counterpart of `drand_tpu/ops/pairing.py` (its non-merged Miller loop):
-Jacobian line steps with denominator-cleared coefficients (no inversion
+Counterpart of `drand_tpu/ops/pairing.py` (its merged Miller loop, one
+K11 or K12 launch per iteration on a GPU tensor): Jacobian line steps with denominator-cleared coefficients (no inversion
 in the loop), the Fp12 accumulator in the flat representation, the loop
 over the BLS parameter statically segmented by its bit pattern, and the
 final exponentiation in the factored form
@@ -14,7 +14,9 @@ from __future__ import annotations
 import torch
 
 from drand_tpu_torch.crypto.bls12381.constants import X as _BLS_X
+from drand_tpu_torch.ops import curve as DC
 from drand_tpu_torch.ops import flat12 as F
+from drand_tpu_torch.ops import kernels as K
 from drand_tpu_torch.ops import towers as T
 from drand_tpu_torch.ops.field import FP, segmented_ladder, tail_segments
 
@@ -35,11 +37,6 @@ def line_to_flat(line):
     return torch.cat([FP.sub(xs, ys), ys], -2)
 
 
-def fp12_mul_line(f, line):
-    """Flat f times a sparse line: one 12x6 product stack."""
-    return F.flat_mul(f, line_to_flat(line), LINE_IDX)
-
-
 def line_one(shape, device):
     one = T.fp2_broadcast(T.FP2_ONE, shape, device)
     zero = T.fp2_broadcast(T.FP2_ZERO, shape, device)
@@ -54,53 +51,131 @@ def line_select(mask, la, lb):
 # Miller loop steps (Jacobian T, denominator-cleared lines)
 # ---------------------------------------------------------------------------
 
-def _dbl_step(Tj, xp, yp):
+def _dbl_step(Tj, xp, yp, ops=DC.Fp2Ops):
     """Doubling step; line (scaled by 2YZ^3, killed by the final exp):
     a = 3X^3 - 2Y^2, b = -3X^2 Z^2 * xp, c = 2YZ^3 * yp."""
     X, Y, Z = Tj
-    XX, YY, ZZ, YZ = T.fp2_products([(X, X), (Y, Y), (Z, Z), (Y, Z)])
-    xyy = T.fp2_add(X, YY)
-    E = T.fp2_mul_small(XX, 3)
-    X3c, YZ3, XXZZ, C, S2, F_ = T.fp2_products(
+    XX, YY, ZZ, YZ = ops.products([(X, X), (Y, Y), (Z, Z), (Y, Z)])
+    xyy = ops.add(X, YY)
+    E = ops.mul_small(XX, 3)
+    X3c, YZ3, XXZZ, C, S2, F_ = ops.products(
         [(XX, X), (YZ, ZZ), (XX, ZZ), (YY, YY), (xyy, xyy), (E, E)])
-    a = T.fp2_sub(T.fp2_mul_small(X3c, 3), T.fp2_mul_small(YY, 2))
-    nb3 = T.fp2_neg(T.fp2_mul_small(XXZZ, 3))
-    cc2 = T.fp2_mul_small(YZ3, 2)
-    sc = FP.products([(nb3[0], xp), (nb3[1], xp), (cc2[0], yp), (cc2[1], yp)])
+    a = ops.sub(ops.mul_small(X3c, 3), ops.mul_small(YY, 2))
+    nb3 = ops.neg(ops.mul_small(XXZZ, 3))
+    cc2 = ops.mul_small(YZ3, 2)
+    sc = ops.scalar_products(
+        [(nb3[0], xp), (nb3[1], xp), (cc2[0], yp), (cc2[1], yp)])
     b = (sc[0], sc[1])
     c = (sc[2], sc[3])
-    D = T.fp2_sub(S2, T.fp2_add(XX, C))
-    D = T.fp2_add(D, D)
-    X2 = T.fp2_sub(F_, T.fp2_add(D, D))
-    (Et,) = T.fp2_products([(E, T.fp2_sub(D, X2))])
-    Y2 = T.fp2_sub(Et, T.fp2_mul_small(C, 8))
-    Z2 = T.fp2_add(YZ, YZ)
+    D = ops.sub(S2, ops.add(XX, C))
+    D = ops.add(D, D)
+    X2 = ops.sub(F_, ops.add(D, D))
+    (Et,) = ops.products([(E, ops.sub(D, X2))])
+    Y2 = ops.sub(Et, ops.mul_small(C, 8))
+    Z2 = ops.add(YZ, YZ)
     return (X2, Y2, Z2), (a, b, c)
 
 
-def _add_step(Tj, Q, xp, yp):
+def _add_step(Tj, Q, xp, yp, ops=DC.Fp2Ops):
     """Mixed addition step, Q = (xq, yq) affine Fp2.  With
     H = xq Z^2 - X, r = 2(yq Z^3 - Y): a = r*xq - 2HZ*yq, b = -r*xp,
     c = 2HZ*yp."""
     X, Y, Z = Tj
     xq, yq = Q
-    ZZ, yqZ = T.fp2_products([(Z, Z), (yq, Z)])
-    U2, S2 = T.fp2_products([(xq, ZZ), (yqZ, ZZ)])
-    H = T.fp2_sub(U2, X)
-    r = T.fp2_mul_small(T.fp2_sub(S2, Y), 2)
-    ZH = T.fp2_add(Z, H)
-    HH, rr, ZH2, HZ = T.fp2_products([(H, H), (r, r), (ZH, ZH), (H, Z)])
-    I = T.fp2_mul_small(HH, 4)
-    HZ2 = T.fp2_mul_small(HZ, 2)
-    J, V, rxq, hzyq = T.fp2_products([(H, I), (X, I), (r, xq), (HZ2, yq)])
-    X3 = T.fp2_sub(T.fp2_sub(rr, J), T.fp2_mul_small(V, 2))
-    rV, YJ = T.fp2_products([(r, T.fp2_sub(V, X3)), (Y, J)])
-    Y3 = T.fp2_sub(rV, T.fp2_mul_small(YJ, 2))
-    Z3 = T.fp2_sub(ZH2, T.fp2_add(ZZ, HH))
-    a = T.fp2_sub(rxq, hzyq)
-    nr = T.fp2_neg(r)
-    sc = FP.products([(nr[0], xp), (nr[1], xp), (HZ2[0], yp), (HZ2[1], yp)])
+    ZZ, yqZ = ops.products([(Z, Z), (yq, Z)])
+    U2, S2 = ops.products([(xq, ZZ), (yqZ, ZZ)])
+    H = ops.sub(U2, X)
+    r = ops.mul_small(ops.sub(S2, Y), 2)
+    ZH = ops.add(Z, H)
+    HH, rr, ZH2, HZ = ops.products([(H, H), (r, r), (ZH, ZH), (H, Z)])
+    I = ops.mul_small(HH, 4)
+    HZ2 = ops.mul_small(HZ, 2)
+    J, V, rxq, hzyq = ops.products([(H, I), (X, I), (r, xq), (HZ2, yq)])
+    X3 = ops.sub(ops.sub(rr, J), ops.mul_small(V, 2))
+    rV, YJ = ops.products([(r, ops.sub(V, X3)), (Y, J)])
+    Y3 = ops.sub(rV, ops.mul_small(YJ, 2))
+    Z3 = ops.sub(ZH2, ops.add(ZZ, HH))
+    a = ops.sub(rxq, hzyq)
+    nr = ops.neg(r)
+    sc = ops.scalar_products(
+        [(nr[0], xp), (nr[1], xp), (HZ2[0], yp), (HZ2[1], yp)])
     return (X3, Y3, Z3), (a, (sc[0], sc[1]), (sc[2], sc[3]))
+
+
+# ---------------------------------------------------------------------------
+# Merged Miller iterations: f, T of every pair, P, Q and the masks as
+# stacked tensors -- f [..., 12, 32], T [..., K, 6, 32] (X0 X1 Y0 Y1 Z0 Z1),
+# P [..., K, 2, 32] (xp yp), Q [..., K, 4, 32] (xq0 xq1 yq0 yq1), masks
+# [..., K] int32 (0: the pair is inactive and contributes 1)
+# ---------------------------------------------------------------------------
+
+def miller_dbl_iter(f, Ts, P, masks):
+    """One doubling iteration, f^2 * l_1 * ... * l_K and every pair's
+    doubling step: kernel K11 (K = 2) on a GPU tensor."""
+    if f.device.type == "cpu":
+        return _miller_dbl_iter_plain(f, Ts, P, masks)
+    return K.miller_dbl_iter(f, Ts, P, masks, FP)
+
+
+def miller_add_iter(f, Ts, Q, P, masks):
+    """One addition step, f * l_1 * ... * l_K and every pair's mixed
+    addition (an inactive pair keeps its T): kernel K12 (K = 2) on a GPU
+    tensor."""
+    if f.device.type == "cpu":
+        return _miller_add_iter_plain(f, Ts, Q, P, masks)
+    return K.miller_add_iter(f, Ts, Q, P, masks, FP)
+
+
+def _pair_major(x):
+    """[..., K, c, 32] -> the c coordinates, each [K, ..., 32]."""
+    x = x.movedim(-3, 0)
+    return [x[..., c, :] for c in range(x.shape[-2])]
+
+
+def _pair_minor(coords):
+    """Inverse of _pair_major."""
+    return torch.stack(coords, -2).movedim(0, -3)
+
+
+def _mul_lines(f, lines, masks):
+    """f times every pair's line, the flat one where a pair is inactive,
+    through the plain flat product."""
+    a, b, c = lines
+    for k in range(masks.shape[-1]):
+        lk = tuple((x[0][k], x[1][k]) for x in (a, b, c))
+        one = line_one(masks.shape[:-1], masks.device)
+        lk = line_select(masks[..., k] != 0, lk, one)
+        f = F._flat_mul_plain(f, line_to_flat(lk), LINE_IDX)
+    return f
+
+
+def _miller_dbl_iter_plain(f, Ts, P, masks):
+    """Plain version of K11: the plain flat square, the K doubling steps
+    stacked on one leading axis under Fp2PlainOps, and one plain sparse
+    product per line."""
+    X0, X1, Y0, Y1, Z0, Z1 = _pair_major(Ts)
+    xp, yp = _pair_major(P)
+    (X, Y, Z), lines = _dbl_step(((X0, X1), (Y0, Y1), (Z0, Z1)), xp, yp,
+                                 DC.Fp2PlainOps)
+    f = _mul_lines(F._flat_mul_plain(f, f), lines, masks)
+    return f, _pair_minor([X[0], X[1], Y[0], Y[1], Z[0], Z[1]])
+
+
+def _miller_add_iter_plain(f, Ts, Q, P, masks):
+    """Plain version of K12: the K mixed additions stacked under
+    Fp2PlainOps, T kept where a pair is inactive, and one plain sparse
+    product per line."""
+    old = _pair_major(Ts)
+    X0, X1, Y0, Y1, Z0, Z1 = old
+    xq0, xq1, yq0, yq1 = _pair_major(Q)
+    xp, yp = _pair_major(P)
+    (X, Y, Z), lines = _add_step(((X0, X1), (Y0, Y1), (Z0, Z1)),
+                                 ((xq0, xq1), (yq0, yq1)), xp, yp,
+                                 DC.Fp2PlainOps)
+    keep = masks.movedim(-1, 0) != 0
+    new = [torch.where(keep[..., None], n, o) for n, o in
+           zip((X[0], X[1], Y[0], Y[1], Z[0], Z[1]), old)]
+    return _mul_lines(f, lines, masks), _pair_minor(new)
 
 
 # ---------------------------------------------------------------------------
@@ -108,67 +183,36 @@ def _add_step(Tj, Q, xp, yp):
 # ---------------------------------------------------------------------------
 
 def miller_loop_pairs(pairs, active=None):
-    """Product of Miller loops over K (P, Q) pairs with shared squarings.
+    """Product of Miller loops over K (P, Q) pairs with shared squarings,
+    as `drand_tpu`'s merged executor: every doubling iteration is one
+    `miller_dbl_iter`, every set bit of |x| one `miller_add_iter` (K11 and
+    K12 on a GPU tensor, where K = 2, the verify shape).
 
     pairs: list of ((xp, yp), (xq, yq)) -- P affine Fp, Q affine Fp2,
     each broadcast to the batch shape.  active: optional list of bool[...]
-    masks; inactive pairs contribute 1.  The K pairs' curve steps run
-    stacked on one leading axis.  Returns flat Fp12 f, conjugated for the
-    negative BLS parameter."""
+    masks; inactive pairs contribute 1.  Returns flat Fp12 f, conjugated
+    for the negative BLS parameter."""
     shape = pairs[0][0][0].shape[:-1]
     d = pairs[0][0][0].device
-    K = len(pairs)
     if active is None:
-        active = [None] * K
+        active = [None] * len(pairs)
 
-    def stack_pts(pts):
-        return tuple(
-            tuple(torch.stack([p[c][j].expand(shape + (32,)) for p in pts], 0)
-                  for j in range(2))
-            for c in range(len(pts[0])))
+    def stack(coords):
+        return torch.stack([c.expand(shape + (32,)) for c in coords], -2)
 
-    def unstack(st, ncoord):
-        return [tuple((st[c][0][k], st[c][1][k]) for c in range(ncoord))
-                for k in range(K)]
-
-    def masked_line(line, mask):
-        if mask is None:
-            return line
-        return line_select(mask, line, line_one(mask.shape, d))
-
-    p_stack = tuple(torch.stack([pairs[k][0][j].expand(shape + (32,))
-                                 for k in range(K)], 0) for j in range(2))
-    q_stack = stack_pts([q for _, q in pairs])
     one = T.fp2_broadcast(T.FP2_ONE, shape, d)
-    f = F.flat_broadcast(F.FLAT_ONE, shape, d)
-    Ts = tuple((q[0], q[1], one) for _, q in pairs)
-
-    def dbl_half(state):
-        f, Ts = state
-        f = F.flat_sqr(f)
-        Tst, lines = _dbl_step(stack_pts(Ts), *p_stack)
-        lns = unstack(lines, 3)
-        for k in range(K):
-            f = fp12_mul_line(f, masked_line(tuple(lns[k]), active[k]))
-        return f, tuple(unstack(Tst, 3))
-
-    def add_half(state):
-        f, Ts = state
-        Ast, lines = _add_step(stack_pts(Ts), q_stack, *p_stack)
-        Aks = unstack(Ast, 3)
-        lns = unstack(lines, 3)
-        newTs = []
-        for k in range(K):
-            if active[k] is None:
-                Tk = tuple(Aks[k])
-            else:
-                Tk = tuple(T.fp2_select(active[k], x, y)
-                           for x, y in zip(Aks[k], Ts[k]))
-            f = fp12_mul_line(f, masked_line(tuple(lns[k]), active[k]))
-            newTs.append(Tk)
-        return f, tuple(newTs)
-
-    f, _ = segmented_ladder(_X_SEGMENTS, (f, Ts), dbl_half, add_half)
+    Ts = torch.stack([stack([xq[0], xq[1], yq[0], yq[1], one[0], one[1]])
+                      for _, (xq, yq) in pairs], -3)
+    Q = torch.stack([stack([xq[0], xq[1], yq[0], yq[1]])
+                     for _, (xq, yq) in pairs], -3)
+    P = torch.stack([stack([xp, yp]) for (xp, yp), _ in pairs], -3)
+    masks = torch.stack([
+        torch.ones(shape, dtype=torch.int32, device=d) if a is None
+        else a.to(torch.int32) for a in active], -1)
+    f = F.flat_broadcast(F.FLAT_ONE, shape, d).contiguous()
+    f, _ = segmented_ladder(
+        _X_SEGMENTS, (f, Ts), lambda st: miller_dbl_iter(*st, P, masks),
+        lambda st: miller_add_iter(*st, Q, P, masks))
     return F.flat_conj(f)                 # x < 0
 
 

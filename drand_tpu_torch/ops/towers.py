@@ -1,12 +1,16 @@
 """Batched BLS12-381 field towers in PyTorch: Fp2, and the Fp6/Fp12
 tower formulas the flat Fp12 inverse needs.
 
-Counterpart of `drand_tpu/ops/towers.py`, taking its composite branches
-(the ones its CPU tests run): an Fp2 product stack is ONE wide limb
+Counterpart of `drand_tpu/ops/towers.py`.  A stack of Fp2 products or
+squares, and an Fp2 chain step x^(2^k) * t, is one hand-written CUDA
+kernel on a GPU tensor (K5, K6, K7 and K8 in `ops/kernels.py`, as
+`drand_tpu` takes its Pallas kernels on its chip); a CPU tensor takes the
+plain versions `_fp2_products_plain`, `_fp2_sqrs_plain` and
+`_fp2_sqr_chain_mul_plain`, `drand_tpu`'s composite branches: ONE wide limb
 convolution, the u^2 = -1 combination in the wide domain (the subtraction
-through a K*p^2 offset), and ONE stacked Montgomery reduction (kernel K3
-on the GPU).  Elements are tuples of `[..., 32]` int32 Montgomery limb
-tensors:
+through a K*p^2 offset), and ONE stacked Montgomery reduction.  Every
+output is canonical, so kernel and plain version agree bit for bit.
+Elements are tuples of `[..., 32]` int32 Montgomery limb tensors:
 
   Fp2  : (c0, c1)           c0 + c1*u,   u^2 = -1
   Fp6  : (a0, a1, a2)       a_i in Fp2,  v^3 = xi = 1 + u
@@ -21,8 +25,10 @@ import torch.nn.functional as TF
 
 from drand_tpu_torch.crypto.bls12381 import fp as G
 from drand_tpu_torch.crypto.bls12381.constants import P
+from drand_tpu_torch.ops import kernels as K
 from drand_tpu_torch.ops.field import (FP, LIMB_MASK, N_LIMBS, _carry,
-                                       _carry_cheap, _poly_mul_var, dev, host)
+                                       _carry_cheap, _poly_mul_var,
+                                       addchain_plan, dev, host)
 
 # ---------------------------------------------------------------------------
 # Fp helpers
@@ -123,10 +129,37 @@ def wide_neg_offset(scale: int = 1, min_value: int | None = None):
 _WIDE_NEG_OFF = host(wide_neg_offset(1, min_value=P * P)[0])
 
 
+def _fp2_stack(items):
+    """[x, ...] Fp2 elements -> one [n, 2, ..., 32] tensor, every
+    coordinate broadcast to the common shape."""
+    coords = FP._common([c for x in items for c in x])
+    return torch.stack(coords, 0).unflatten(0, (len(items), 2))
+
+
+def _fp2_unstack(st):
+    return [(st[i, 0], st[i, 1]) for i in range(st.shape[0])]
+
+
 def fp2_products(pairs):
-    """[(x, y), ...] Fp2 pairs -> [x*y, ...]: the 4n coefficient products
-    as ONE wide limb multiply, x0y0 - x1y1 in the wide domain through the
-    K*p^2 offset, and ONE stacked Montgomery reduction of all 2n outputs."""
+    """[(x, y), ...] Fp2 pairs -> [x*y, ...]: kernel K5 on a GPU tensor."""
+    if pairs[0][0][0].device.type == "cpu":
+        return _fp2_products_plain(pairs)
+    st = _fp2_stack([x for x, _ in pairs] + [y for _, y in pairs])
+    n = len(pairs)
+    return _fp2_unstack(K.fp2_products(st[:n], st[n:], FP))
+
+
+def fp2_sqrs(items):
+    """[x, ...] -> [x^2, ...]: kernel K6 on a GPU tensor."""
+    if items[0][0].device.type == "cpu":
+        return _fp2_sqrs_plain(items)
+    return _fp2_unstack(K.fp2_sqrs(_fp2_stack(items), FP))
+
+
+def _fp2_products_plain(pairs):
+    """Plain version of K5: the 4n coefficient products as ONE wide limb
+    multiply, x0y0 - x1y1 in the wide domain through the K*p^2 offset, and
+    ONE stacked Montgomery reduction of all 2n outputs."""
     n = len(pairs)
     coords = FP._common(
         [x[0] for x, _ in pairs] + [x[1] for x, _ in pairs] +
@@ -140,7 +173,7 @@ def fp2_products(pairs):
     t01, t10 = t[2 * n:3 * n], t[3 * n:]
     c0w = t00 + (dev(_WIDE_NEG_OFF, t.device) - t11)   # x0y0 - x1y1 (+ K p^2)
     c1w = t01 + t10                                    # x0y1 + x1y0
-    red = FP.mont_reduce(torch.cat([c0w, c1w], 0))
+    red = FP._mont_reduce_plain(torch.cat([c0w, c1w], 0))
     return [(red[i], red[n + i]) for i in range(n)]
 
 
@@ -173,11 +206,12 @@ def fp2_mul(a, b):
 
 
 def fp2_sqr(a):
-    return fp2_products([(a, a)])[0]
+    return fp2_sqrs([a])[0]
 
 
-def fp2_sqrs(items):
-    return fp2_products([(x, x) for x in items])
+def _fp2_sqrs_plain(items):
+    """Plain version of K6: the composite product stack on (x, x)."""
+    return _fp2_products_plain([(x, x) for x in items])
 
 
 def fp2_mul_fp(a, s):
@@ -231,10 +265,49 @@ def fp2_sgn0(a):
     return s0 | (z0 & s1)
 
 
+def fp2_pack(a):
+    """Fp2 element -> one [2, ..., 32] tensor, coordinate c at [c]: the
+    operand layout of the chain-step kernels K7 and K8."""
+    return _fp2_stack([a])[0]
+
+
+def fp2_unpack(st):
+    return (st[0], st[1])
+
+
+def fp2_sqr_chain_mul(x, k: int, t=None):
+    """x^(2^k) * t, or x^(2^k) when t is None, on packed Fp2 (`fp2_pack`):
+    kernel K7 on a GPU tensor."""
+    if x.device.type == "cpu":
+        return _fp2_sqr_chain_mul_plain(x, k, t)
+    return K.fp2_sqr_chain_mul(x, k, t, FP)
+
+
+def fp2_sqr5_mul(x, t):
+    """The window step x^32 * t on packed Fp2: kernel K8 on a GPU tensor."""
+    if x.device.type == "cpu":
+        return _fp2_sqr_chain_mul_plain(x, 5, t)
+    return K.fp2_sqr5_mul(x, t, FP)
+
+
+def _fp2_sqr_chain_mul_plain(x, k: int, t=None):
+    """Plain version of K7 (and of K8 at k = 5): k plain Fp2 squares, then
+    one plain product."""
+    a = fp2_unpack(x)
+    for _ in range(k):
+        (a,) = _fp2_sqrs_plain([a])
+    if t is not None:
+        (a,) = _fp2_products_plain([(a, fp2_unpack(t))])
+    return fp2_pack(a)
+
+
 def fp2_pow_const(a, e: int):
-    """a^e (Fp2, Montgomery) for a static exponent: the uniform 5-bit
-    fixed window of `drand_tpu`'s composite path (table a^0..a^31 in four
-    doubling levels, then 5 squarings and one table product per digit)."""
+    """a^e (Fp2, Montgomery) for a static exponent, by the executor
+    `drand_tpu` takes on its chip: for exponents of 64 bits and more an
+    addition chain (`fp2_pow_addchain`, every step one K7 launch) where
+    the planner says it costs fewer operations than the uniform 5-bit
+    window; else the window (table a^0..a^31 in four doubling levels,
+    then one K8 launch x^32 * t per digit)."""
     a = tuple(FP._common([a[0], a[1]]))
     shape, device = a[0].shape[:-1], a[0].device
     one = fp2_broadcast(FP2_ONE, shape, device)
@@ -247,6 +320,11 @@ def fp2_pow_const(a, e: int):
             if bit == "1":
                 res = fp2_mul(res, a)
         return res
+    if e >= (1 << 64):
+        ops, build, n_sqr, n_mul, used_odd = addchain_plan(e)
+        nd = (e.bit_length() + 4) // 5
+        if n_sqr + n_mul < 6 * (nd - 1) + 32:
+            return fp2_pow_addchain(a, ops, build, used_odd)
     tab = [one, a] + [None] * 30
     for lvl in (1, 2, 4, 8):
         evens = fp2_sqrs([tab[k] for k in range(lvl, 2 * lvl)])
@@ -260,12 +338,54 @@ def fp2_pow_const(a, e: int):
         digits.append(x & 31)
         x >>= 5
     digits = digits[::-1]
-    res = tab[digits[0]]
+    packs = [fp2_pack(t) for t in tab]
+    res = packs[digits[0]]
     for d in digits[1:]:
-        for _ in range(5):
-            res = fp2_sqr(res)
-        res = fp2_mul(res, tab[d])
-    return res
+        res = fp2_sqr5_mul(res, packs[d])
+    return fp2_unpack(res)
+
+
+def fp2_pow_addchain(a, ops, build, used_odd: bool):
+    """Execute an `addchain_plan` over Fp2 (`drand_tpu`'s
+    fp2_pow_addchain): the odd table from K5/K6 products, then every step
+    res^(2^k) (* t) one K7 launch on packed operands."""
+    seed_lens = set()
+    for _, src, shift in build:
+        seed_lens.update(x for x in (src, shift) if 2 <= x <= 5)
+    for op in ops:
+        if op[0] in ("init_rep", "sqrmul_rep") and 2 <= op[-1] <= 5:
+            seed_lens.add(op[-1])
+    tab = {}
+    if used_odd:
+        need = max([op[2] for op in ops if op[0] == "sqrmul_odd"] +
+                   [op[1] for op in ops if op[0] == "init_odd"] +
+                   [(1 << l) - 1 for l in seed_lens] + [1])
+        tab[1] = a
+        a2 = fp2_sqr(a)
+        v = 3
+        while v <= need:
+            tab[v] = fp2_mul(tab[v - 2], a2)
+            v += 2
+    packed = {v: fp2_pack(t) for v, t in tab.items()}
+    reps = {1: fp2_pack(a)}
+    if used_odd:
+        for l in seed_lens:
+            reps[l] = packed[(1 << l) - 1]
+    for new, src, shift in build:
+        reps[new] = fp2_sqr_chain_mul(reps[src], shift, reps[shift])
+    res = None
+    for op in ops:
+        if op[0] == "init_rep":
+            res = reps[op[1]]
+        elif op[0] == "init_odd":
+            res = packed[op[1]]
+        elif op[0] == "sqrmul_rep":
+            res = fp2_sqr_chain_mul(res, op[1], reps[op[2]])
+        elif op[0] == "sqrmul_odd":
+            res = fp2_sqr_chain_mul(res, op[1], packed[op[2]])
+        elif op[1]:
+            res = fp2_sqr_chain_mul(res, op[1])
+    return fp2_unpack(res)
 
 
 # Direct Fp2 square roots: q = p^2 = 9 (mod 16), so a^((q+7)/16) is a root

@@ -40,6 +40,104 @@ def test_kernels_match_plain_versions_on_card(cuda, name):
                        F._mont_reduce_plain(wide))
 
 
+def _fp_rows(rng, shape):
+    """Canonical Fp limbs of `shape` + (32,): 0, 1, p-1, then random."""
+    from drand_tpu_torch.crypto.bls12381.constants import P
+    from drand_tpu_torch.ops.field import FP
+    n = int(np.prod(shape))
+    vals = [0, 1, P - 1] + [int.from_bytes(rng.bytes(48), "little") % P
+                            for _ in range(n - 3)]
+    return torch.from_numpy(FP.encode(vals[:n]).reshape(tuple(shape) + (32,)))
+
+
+def _max_flat_row():
+    """Every stored coefficient p - 1: the largest convolution values."""
+    from drand_tpu_torch.crypto.bls12381.constants import P
+    row = [((P - 1) >> (12 * i)) & 0xFFF for i in range(32)]
+    return torch.tensor([row] * 12, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("n", [1, 4, 9])
+def test_fp2_kernels_match_plain_versions_on_card(cuda, n):
+    from drand_tpu_torch.ops import kernels as K
+    from drand_tpu_torch.ops import towers as T
+    from drand_tpu_torch.ops.field import FP
+    rng = np.random.default_rng(11)
+    x = _fp_rows(rng, (n, 2, 300)).to(cuda)
+    y = _fp_rows(rng, (n, 2, 300)).flip(2).contiguous().to(cuda)
+    got = K.fp2_products(x, y, FP)
+    want = T._fp2_products_plain(
+        list(zip(T._fp2_unstack(x), T._fp2_unstack(y))))
+    assert torch.equal(got, T._fp2_stack(want))
+    got = K.fp2_sqrs(x, FP)
+    assert torch.equal(got, T._fp2_stack(T._fp2_sqrs_plain(T._fp2_unstack(x))))
+
+
+@pytest.mark.parametrize("b_idx", [tuple(range(12)), (0, 2, 3, 6, 8, 9)])
+def test_flat_mul_kernel_matches_plain_version_on_card(cuda, b_idx):
+    from drand_tpu_torch.ops import flat12 as F
+    from drand_tpu_torch.ops import kernels as K
+    from drand_tpu_torch.ops.field import FP
+    rng = np.random.default_rng(12)
+    a = _fp_rows(rng, (100, 12))
+    b = _fp_rows(rng, (100, len(b_idx)))
+    a[0] = _max_flat_row()
+    b[0] = _max_flat_row()[:len(b_idx)]
+    a, b = a.to(cuda), b.to(cuda)
+    assert torch.equal(K.flat_mul(a, b, b_idx, FP),
+                       F._flat_mul_plain(a, b, b_idx))
+    # broadcast leading shapes, as the Miller loop's first square gives
+    one = F.flat_broadcast(F.FLAT_ONE, (100,), cuda)
+    assert torch.equal(K.flat_mul(one, b, b_idx, FP),
+                       F._flat_mul_plain(one, b, b_idx))
+
+
+def test_cyclo_sqr_kernel_matches_plain_version_on_card(cuda):
+    from drand_tpu_torch.ops import flat12 as F
+    from drand_tpu_torch.ops import kernels as K
+    from drand_tpu_torch.ops.field import FP
+    rng = np.random.default_rng(13)
+    a = _fp_rows(rng, (200, 12)).to(cuda)
+    assert torch.equal(K.cyclo_sqr(a, FP), F._flat_cyclo_sqr_plain(a))
+    # unitary rows (the final exponentiation's easy part): the full square
+    u = F.flat_mul(F.flat_conj(a), F.flat_inv(a))
+    u = F.flat_mul(F.flat_frob(u, 2), u)
+    got = K.cyclo_sqr(u, FP)
+    assert torch.equal(got, F._flat_cyclo_sqr_plain(u))
+    assert torch.equal(got, F._flat_mul_plain(u, u))
+
+
+def test_tower_ops_reach_their_kernels_on_card(cuda, monkeypatch):
+    """On a CUDA tensor the tower entry points launch K5, K6, K13 and K14
+    and never reach a plain version or the limb convolution."""
+    from drand_tpu_torch.ops import field as TFd
+    from drand_tpu_torch.ops import flat12 as F
+    from drand_tpu_torch.ops import kernels as K
+    from drand_tpu_torch.ops import towers as T
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    for mod, name in ((T, "_fp2_products_plain"), (T, "_fp2_sqrs_plain"),
+                      (F, "_flat_mul_plain"), (F, "_flat_cyclo_sqr_plain"),
+                      (T, "_poly_mul_var"), (F, "_poly_mul_var"),
+                      (TFd, "_poly_mul_var")):
+        monkeypatch.setattr(mod, name, refuse)
+    rng = np.random.default_rng(14)
+    x = _fp_rows(rng, (2, 64)).to(cuda)
+    a = _fp_rows(rng, (64, 12)).to(cuda)
+    K.reset_launches()
+    T.fp2_products([((x[0], x[1]), (x[1], x[0]))])
+    T.fp2_sqr((x[0], x[1]))
+    T.fp2_sqrs([(x[0], x[1]), (x[1], x[0])])
+    F.flat_mul(a, a[..., :6, :], (0, 2, 3, 6, 8, 9))
+    F.flat_mul(a, a)
+    F.flat_cyclo_sqr(a)
+    counts = K.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {
+        "fp2_products": 1, "fp2_sqrs": 2, "flat_mul": 2, "cyclo_sqr": 1}
+
+
 def test_chained_segment_on_card(cuda):
     from drand_tpu_torch import fixtures as FX
     from drand_tpu_torch import verify as V
@@ -48,3 +146,115 @@ def test_chained_segment_on_card(cuda):
     ok = V.Verifier(pk, V.SHAPE_CHAINED).verify_chain_segment(2, sigs[1:9],
                                                               sigs[0])
     assert ok.all()
+
+
+@pytest.mark.parametrize("k", [1, 5, 13])
+def test_fp2_chain_kernels_match_plain_versions_on_card(cuda, k):
+    from drand_tpu_torch.ops import kernels as K
+    from drand_tpu_torch.ops import towers as T
+    from drand_tpu_torch.ops.field import FP
+    rng = np.random.default_rng(15)
+    x = _fp_rows(rng, (2, 300)).to(cuda)
+    t = _fp_rows(rng, (2, 300)).to(cuda)
+    assert torch.equal(K.fp2_sqr_chain_mul(x, k, t, FP),
+                       T._fp2_sqr_chain_mul_plain(x, k, t))
+    assert torch.equal(K.fp2_sqr_chain_mul(x, k, None, FP),
+                       T._fp2_sqr_chain_mul_plain(x, k))
+    if k == 5:
+        assert torch.equal(K.fp2_sqr5_mul(x, t, FP),
+                           T._fp2_sqr_chain_mul_plain(x, 5, t))
+
+
+def test_g2_point_kernels_match_plain_versions_on_card(cuda):
+    """K9 and K10 on random rows with the doubling, cancelling and
+    infinite cases among them."""
+    from drand_tpu_torch.ops import curve as C
+    from drand_tpu_torch.ops import kernels as K
+    from drand_tpu_torch.ops.field import FP
+    rng = np.random.default_rng(16)
+    p1 = _fp_rows(rng, (6, 300))
+    p2 = _fp_rows(rng, (6, 300))
+    p2[:, :2] = p1[:, :2]
+    p2[2:4, 1] = FP.neg(p1[2:4, 1])
+    p1[4:, 2] = 0
+    p2[4:, 3] = 0
+    p1, p2 = p1.to(cuda), p2.to(cuda)
+    ops = C.Fp2PlainOps
+    assert torch.equal(K.g2_point_dbl(p1, FP), C.g2_pack(
+        C._point_double_formula(C.g2_unpack(p1), ops)))
+    for wd in (False, True):
+        assert torch.equal(K.g2_point_add(p1, p2, wd, FP), C.g2_pack(
+            C._point_add_formula(C.g2_unpack(p1), C.g2_unpack(p2), ops, wd)))
+
+
+def test_miller_kernels_match_plain_versions_on_card(cuda):
+    """K11 and K12 on random rows (a row count that leaves a partial
+    block), every active/inactive pair combination among them."""
+    from drand_tpu_torch.ops import kernels as K
+    from drand_tpu_torch.ops import pairing as PR
+    from drand_tpu_torch.ops.field import FP
+    rng = np.random.default_rng(17)
+    n = 37
+    f = _fp_rows(rng, (n, 12)).to(cuda)
+    Ts = _fp_rows(rng, (n, 2, 6)).to(cuda)
+    Q = _fp_rows(rng, (n, 2, 4)).to(cuda)
+    P = _fp_rows(rng, (n, 2, 2)).to(cuda)
+    masks = torch.from_numpy(rng.integers(0, 2, (n, 2), dtype=np.int32))
+    masks[:4] = torch.tensor([[1, 1], [1, 0], [0, 1], [0, 0]])
+    masks = masks.to(cuda)
+    for got, want in zip(K.miller_dbl_iter(f, Ts, P, masks, FP),
+                         PR._miller_dbl_iter_plain(f, Ts, P, masks)):
+        assert torch.equal(got, want)
+    for got, want in zip(K.miller_add_iter(f, Ts, Q, P, masks, FP),
+                         PR._miller_add_iter_plain(f, Ts, Q, P, masks)):
+        assert torch.equal(got, want)
+
+
+def test_flat_conj_and_frob_kernels_match_plain_versions_on_card(cuda):
+    from drand_tpu_torch.ops import flat12 as F
+    from drand_tpu_torch.ops import kernels as K
+    from drand_tpu_torch.ops.field import FP
+    rng = np.random.default_rng(18)
+    a = _fp_rows(rng, (200, 12))
+    a[0] = _max_flat_row()
+    a = a.to(cuda)
+    assert torch.equal(K.flat_conj(a, FP), F._flat_conj_plain(a))
+    for n in (1, 2, 3):
+        assert torch.equal(K.flat_frob(a, n, F._FROB_WORDS[n], FP),
+                           F._flat_frob_plain(a, n))
+
+
+def test_curve_and_pairing_ops_reach_their_kernels_on_card(cuda, monkeypatch):
+    """On a CUDA tensor the Fp2 power, the G2 point ops, the Miller loop
+    and the Frobenius maps launch K7, K9-K12, K15 and K16 and never reach
+    a plain version."""
+    from drand_tpu_torch.ops import curve as C
+    from drand_tpu_torch.ops import flat12 as F
+    from drand_tpu_torch.ops import kernels as K
+    from drand_tpu_torch.ops import pairing as PR
+    from drand_tpu_torch.ops import towers as T
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    for mod, name in ((T, "_fp2_sqr_chain_mul_plain"),
+                      (C, "_point_double_formula"), (C, "_point_add_formula"),
+                      (PR, "_miller_dbl_iter_plain"),
+                      (PR, "_miller_add_iter_plain"),
+                      (F, "_flat_conj_plain"), (F, "_flat_frob_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    rng = np.random.default_rng(19)
+    x = _fp_rows(rng, (2, 64)).to(cuda)
+    pt = C.g2_unpack(_fp_rows(rng, (6, 64)).to(cuda))
+    a = _fp_rows(rng, (64, 12)).to(cuda)
+    K.reset_launches()
+    T.fp2_pow_const((x[0], x[1]), T._E_RATIO)
+    C.point_add(C.point_double(pt, C.Fp2Ops), pt, C.Fp2Ops)
+    PR.miller_loop_pairs([((x[0], x[1]), ((x[0], x[1]), (x[1], x[0])))] * 2)
+    F.flat_frob(F.flat_conj(a), 2)
+    counts = K.launch_counts()
+    for name in ("fp2_sqr_chain_mul", "g2_point_dbl", "g2_point_add",
+                 "miller_dbl_iter", "miller_add_iter", "flat_conj",
+                 "flat_frob"):
+        assert counts[name] > 0, (name, counts)
+    assert counts["miller_add_iter"] == 5 and counts["miller_dbl_iter"] == 63

@@ -16,6 +16,7 @@ from drand_tpu.ops import bls as JBLS
 from drand_tpu_torch import convert
 from drand_tpu_torch import device as D
 from drand_tpu_torch import verify as V
+from drand_tpu_torch.ops import flat12 as F
 from drand_tpu_torch.ops import kernels as K
 from drand_tpu_torch.ops.field import FP
 
@@ -82,6 +83,37 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         K.mont_reduce(torch.zeros((2, 64), dtype=torch.int32), FP)
     with pytest.raises(ValueError, match="CUDA tensor"):
         K.sqr_chain_mul(a, 4, None, FP)
+    x = torch.stack([a, a])[None]                 # one Fp2 pair, [1, 2, 2, 32]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.fp2_products(x, x, FP)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.fp2_sqrs(x, FP)
+    f = torch.zeros((2, 12, 32), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.flat_mul(f, f, tuple(range(12)), FP)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.cyclo_sqr(f, FP)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.fp2_sqr_chain_mul(x[0], 3, x[0], FP)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.fp2_sqr5_mul(x[0], x[0], FP)
+    pt = torch.zeros((6, 2, 32), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.g2_point_dbl(pt, FP)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.g2_point_add(pt, pt, True, FP)
+    Ts = torch.zeros((2, 2, 6, 32), dtype=torch.int32)
+    P = torch.zeros((2, 2, 2, 32), dtype=torch.int32)
+    Q = torch.zeros((2, 2, 4, 32), dtype=torch.int32)
+    m = torch.ones((2, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.miller_dbl_iter(f, Ts, P, m, FP)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.miller_add_iter(f, Ts, Q, P, m, FP)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.flat_conj(f, FP)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.flat_frob(f, 1, F._FROB_WORDS[1], FP)
 
 
 def convert_pk():

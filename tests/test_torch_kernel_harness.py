@@ -1,12 +1,22 @@
 """The CUDA kernels' arithmetic, compiled for the host, against the plain
 PyTorch versions.
 
-`drand_tpu_torch/csrc/field_arith.cuh` holds the per-element arithmetic of
-kernels K1-K4 as `__host__ __device__` functions; `csrc/field_host.cpp`
-wraps it in plain C loops.  This test builds that shim with g++ into a
-temporary shared library (no CUDA, no torch headers) and holds every
-kernel's arithmetic against `Field._*_plain` bit for bit, for Fp and Fr,
-on random and edge inputs, and K3 at the edge of its input contract.
+`drand_tpu_torch/csrc/field_arith.cuh`, `tower_arith.cuh` and
+`curve_arith.cuh` hold the per-element (per-thread) arithmetic of kernels
+K1-K16 as `__host__ __device__` functions; `csrc/field_host.cpp` wraps it in plain C
+loops that split the work as the kernels do.  This test builds that shim
+with g++ into a temporary shared library (no CUDA, no torch headers) and
+holds every kernel's arithmetic against its plain PyTorch version bit for
+bit: K1-K4 (`Field._*_plain`) for Fp and Fr on random and edge inputs, K3
+at the edge of its input contract; K5/K6 (`towers._fp2_*_plain`) on
+random values plus 0, 1 and p-1; K13 (`flat12._flat_mul_plain`) dense and
+sparse, with the all-(p-1) stored-coefficient operand; K14
+(`flat12._flat_cyclo_sqr_plain`) on random canonical rows, not only
+unitary ones; K7/K8 (`towers._fp2_sqr_chain_mul_plain`); K9/K10 (the
+`ops/curve.py` formulas under `Fp2PlainOps`) on random coordinates with
+the doubling, cancelling and infinite cases among them; K11/K12
+(`pairing._miller_*_iter_plain`) with active and inactive pairs; K15/K16
+(`flat12._flat_conj_plain`, `_flat_frob_plain`).
 """
 
 import ctypes
@@ -18,6 +28,11 @@ import numpy as np
 import pytest
 import torch
 
+from drand_tpu_torch.crypto.bls12381.constants import P
+from drand_tpu_torch.ops import curve as C
+from drand_tpu_torch.ops import flat12 as F
+from drand_tpu_torch.ops import pairing as PR
+from drand_tpu_torch.ops import towers as T
 from drand_tpu_torch.ops.field import FP, FR, int_to_limbs
 
 CSRC = Path(__file__).resolve().parents[1] / "drand_tpu_torch" / "csrc"
@@ -39,8 +54,24 @@ def host_lib(tmp_path_factory):
     lib.dth_mont_sqr.argtypes = [P_, P_, LL, P_]
     lib.dth_mont_reduce.argtypes = [P_, P_, LL, P_]
     lib.dth_sqr_chain_mul.argtypes = [P_, P_, P_, LL, I, P_]
+    lib.dth_fp2_products.argtypes = [P_, P_, P_, LL, I, P_]
+    lib.dth_fp2_sqrs.argtypes = [P_, P_, LL, I, P_]
+    lib.dth_flat_mul.argtypes = [P_, P_, P_, LL, P_, I, P_]
+    lib.dth_cyclo_sqr.argtypes = [P_, P_, LL, P_]
+    lib.dth_fp2_sqr_chain_mul.argtypes = [P_, P_, P_, LL, I, P_]
+    lib.dth_fp2_sqr5_mul.argtypes = [P_, P_, P_, LL, P_]
+    lib.dth_flat_conj.argtypes = [P_, P_, LL, P_]
+    lib.dth_flat_frob.argtypes = [P_, P_, LL, P_, P_]
+    lib.dth_g2_point_dbl.argtypes = [P_, P_, LL, P_]
+    lib.dth_g2_point_add.argtypes = [P_, P_, P_, LL, I, P_, P_]
+    lib.dth_miller_dbl_iter.argtypes = [P_] * 6 + [LL, P_, P_]
+    lib.dth_miller_add_iter.argtypes = [P_] * 7 + [LL, P_, P_]
     for fn in (lib.dth_mont_mul, lib.dth_mont_sqr, lib.dth_mont_reduce,
-               lib.dth_sqr_chain_mul):
+               lib.dth_sqr_chain_mul, lib.dth_fp2_products, lib.dth_fp2_sqrs,
+               lib.dth_flat_mul, lib.dth_cyclo_sqr, lib.dth_fp2_sqr_chain_mul,
+               lib.dth_fp2_sqr5_mul, lib.dth_flat_conj, lib.dth_flat_frob,
+               lib.dth_g2_point_dbl, lib.dth_g2_point_add,
+               lib.dth_miller_dbl_iter, lib.dth_miller_add_iter):
         fn.restype = None
     return lib
 
@@ -117,3 +148,177 @@ def test_sqr_chain_mul(host_lib, name, k):
         want = F._sqr_chain_mul_plain(
             torch.as_tensor(a), k, None if tt is None else torch.as_tensor(tt))
         np.testing.assert_array_equal(out, want.numpy())
+
+
+def _fp_rows(shape, seed):
+    """Canonical Fp limbs of `shape` + (32,): 0, 1, p-1, then random."""
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    vals = [0, 1, P - 1] + [int.from_bytes(rng.bytes(48), "little") % P
+                            for _ in range(n - 3)]
+    return np.ascontiguousarray(FP.encode(vals[:n]).reshape(shape + (32,)))
+
+
+def _fp2_list(st):
+    return T._fp2_unstack(torch.as_tensor(st))
+
+
+@pytest.mark.parametrize("n", [1, 4, 9])
+def test_fp2_products_and_sqrs(host_lib, n):
+    """K5/K6 on [n, 2, rows, 32] stacks: coordinates 0, 1, p-1 and random
+    values meet each other across the pairs."""
+    x = _fp_rows((n, 2, 7), seed=6)
+    y = np.ascontiguousarray(_fp_rows((n, 2, 7), seed=7)[:, ::-1])
+    out = np.empty_like(x)
+    host_lib.dth_fp2_products(_ptr(x), _ptr(y), _ptr(out), 7, n,
+                              _ptr(FP.kernel_arg))
+    want = T._fp2_products_plain(list(zip(_fp2_list(x), _fp2_list(y))))
+    np.testing.assert_array_equal(out, T._fp2_stack(want).numpy())
+    host_lib.dth_fp2_sqrs(_ptr(x), _ptr(out), 7, n, _ptr(FP.kernel_arg))
+    want = T._fp2_sqrs_plain(_fp2_list(x))
+    np.testing.assert_array_equal(out, T._fp2_stack(want).numpy())
+
+
+def _max_flat():
+    """Every stored coefficient p - 1: the largest convolution values."""
+    row = np.asarray([((P - 1) >> (12 * i)) & 0xFFF for i in range(32)],
+                     np.int32)
+    return np.tile(row, (12, 1))
+
+
+@pytest.mark.parametrize("b_idx", [tuple(range(12)), (0, 2, 3, 6, 8, 9),
+                                   (1, 4, 11)])
+def test_flat_mul(host_lib, b_idx):
+    """K13 dense, on the Miller loop's sparse line layout, and on an odd
+    sparse layout; rows 0 and 1 hold the all-(p-1) operand on one and on
+    both sides."""
+    J = len(b_idx)
+    a = _fp_rows((6, 12), seed=8)
+    b = _fp_rows((6, J), seed=9)
+    a[0] = a[1] = _max_flat()
+    b[1] = _max_flat()[:J]
+    out = np.empty_like(a)
+    idx = np.asarray(b_idx, np.int32)
+    host_lib.dth_flat_mul(_ptr(a), _ptr(b), _ptr(out), len(a), _ptr(idx), J,
+                          _ptr(FP.kernel_arg))
+    np.testing.assert_array_equal(
+        out, F._flat_mul_plain(torch.as_tensor(a), torch.as_tensor(b),
+                               b_idx).numpy())
+
+
+def test_cyclo_sqr(host_lib):
+    """K14 on random canonical rows (not unitary: the kernel must compute
+    the plain version's function everywhere) and on the all-(p-1) row."""
+    a = _fp_rows((9, 12), seed=10)
+    a[0] = _max_flat()
+    out = np.empty_like(a)
+    host_lib.dth_cyclo_sqr(_ptr(a), _ptr(out), len(a), _ptr(FP.kernel_arg))
+    np.testing.assert_array_equal(
+        out, F._flat_cyclo_sqr_plain(torch.as_tensor(a)).numpy())
+
+
+@pytest.mark.parametrize("k", [0, 1, 5, 13])
+def test_fp2_sqr_chain_mul(host_lib, k):
+    """K7 with and without t (x^(2^k) * t, x^(2^k)); K8 = K7 at k = 5."""
+    x = _fp_rows((2, 9), seed=20)
+    t = np.ascontiguousarray(_fp_rows((2, 9), seed=21)[:, ::-1])
+    out = np.empty_like(x)
+    for tt in ((None, t) if k else (t,)):
+        host_lib.dth_fp2_sqr_chain_mul(
+            _ptr(x), None if tt is None else _ptr(tt), _ptr(out), 9, k,
+            _ptr(FP.kernel_arg))
+        want = T._fp2_sqr_chain_mul_plain(
+            torch.as_tensor(x), k, None if tt is None else torch.as_tensor(tt))
+        np.testing.assert_array_equal(out, want.numpy())
+    if k == 5:
+        host_lib.dth_fp2_sqr5_mul(_ptr(x), _ptr(t), _ptr(out), 9,
+                                  _ptr(FP.kernel_arg))
+        np.testing.assert_array_equal(out, T._fp2_sqr_chain_mul_plain(
+            torch.as_tensor(x), 5, torch.as_tensor(t)).numpy())
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_flat_conj_and_frob(host_lib, n):
+    """K15 and K16 on random canonical rows and the all-(p-1) row."""
+    a = _fp_rows((7, 12), seed=22)
+    a[0] = _max_flat()
+    out = np.empty_like(a)
+    host_lib.dth_flat_frob(_ptr(a), _ptr(out), len(a),
+                           _ptr(F._FROB_WORDS[n]), _ptr(FP.kernel_arg))
+    np.testing.assert_array_equal(
+        out, F._flat_frob_plain(torch.as_tensor(a), n).numpy())
+    host_lib.dth_flat_conj(_ptr(a), _ptr(out), len(a), _ptr(FP.kernel_arg))
+    np.testing.assert_array_equal(
+        out, F._flat_conj_plain(torch.as_tensor(a)).numpy())
+
+
+def _g2_cases(seed):
+    """[6, rows, 32] point pairs (p1, p2) over random coordinates: rows 0-5
+    random, then p2 = p1 (doubling), p2 = -p1 (cancels), p2 = p1 with its
+    coordinates scaled by (l^2, l^3, l) (the same point), p1 infinite,
+    p2 infinite, both infinite."""
+    p1 = _fp_rows((6, 12), seed=seed)
+    p2 = _fp_rows((6, 12), seed=seed + 1)
+    t1 = torch.as_tensor(p1)
+    pt = C.g2_unpack(t1)
+    p2[:, 6] = p1[:, 6]
+    neg = C.g2_pack((pt[0], T.fp2_neg(pt[1]), pt[2])).numpy()
+    p2[:, 7] = neg[:, 7]
+    lam = T._fp2_unstack(torch.as_tensor(_fp_rows((1, 2, 12), seed=seed + 2)))[0]
+    l2 = C.Fp2PlainOps.sqr(lam)
+    l3 = C.Fp2PlainOps.mul(l2, lam)
+    scaled = C.g2_pack(tuple(C.Fp2PlainOps.mul(c, s)
+                             for c, s in zip(pt, (l2, l3, lam)))).numpy()
+    p2[:, 8] = scaled[:, 8]
+    p1[4:, 9] = 0
+    p2[4:, 10] = 0
+    p1[4:, 11] = p2[4:, 11] = 0
+    return p1, p2
+
+
+def test_g2_point_dbl_and_add(host_lib):
+    """K9 and K10 (with and without the doubling) against the formulas of
+    ops/curve.py under Fp2PlainOps, special cases included."""
+    p1, p2 = _g2_cases(seed=23)
+    out = np.empty_like(p1)
+    rows = p1.shape[1]
+    host_lib.dth_g2_point_dbl(_ptr(p1), _ptr(out), rows, _ptr(FP.kernel_arg))
+    want = C._point_double_formula(C.g2_unpack(torch.as_tensor(p1)),
+                                   C.Fp2PlainOps)
+    np.testing.assert_array_equal(out, C.g2_pack(want).numpy())
+    for with_double in (False, True):
+        host_lib.dth_g2_point_add(_ptr(p1), _ptr(p2), _ptr(out), rows,
+                                  int(with_double), _ptr(FP.kernel_one),
+                                  _ptr(FP.kernel_arg))
+        want = C._point_add_formula(C.g2_unpack(torch.as_tensor(p1)),
+                                    C.g2_unpack(torch.as_tensor(p2)),
+                                    C.Fp2PlainOps, with_double)
+        np.testing.assert_array_equal(out, C.g2_pack(want).numpy())
+
+
+def test_miller_iterations(host_lib):
+    """K11 and K12 on random rows: f, T (Z = 1 in row 0, as at the loop's
+    start), P, Q, and masks with every active/inactive combination."""
+    rows = 8
+    f = _fp_rows((rows, 12), seed=24)
+    f[1] = _max_flat()
+    Ts = _fp_rows((rows, 2, 6), seed=25)
+    Ts[0, :, 4] = FP.one_mont.numpy()
+    Ts[0, :, 5] = 0
+    P = _fp_rows((rows, 2, 2), seed=26)
+    Q = _fp_rows((rows, 2, 4), seed=27)
+    masks = np.array([[1, 1], [1, 0], [0, 1], [0, 0]] * 2, np.int32)
+    fo, To = np.empty_like(f), np.empty_like(Ts)
+    tf, tT, tP, tQ, tm = map(torch.as_tensor, (f, Ts, P, Q, masks))
+    host_lib.dth_miller_dbl_iter(_ptr(f), _ptr(Ts), _ptr(P), _ptr(masks),
+                                 _ptr(fo), _ptr(To), rows, _ptr(FP.kernel_one),
+                                 _ptr(FP.kernel_arg))
+    wf, wT = PR._miller_dbl_iter_plain(tf, tT, tP, tm)
+    np.testing.assert_array_equal(fo, wf.numpy())
+    np.testing.assert_array_equal(To, wT.numpy())
+    host_lib.dth_miller_add_iter(_ptr(f), _ptr(Ts), _ptr(Q), _ptr(P),
+                                 _ptr(masks), _ptr(fo), _ptr(To), rows,
+                                 _ptr(FP.kernel_one), _ptr(FP.kernel_arg))
+    wf, wT = PR._miller_add_iter_plain(tf, tT, tQ, tP, tm)
+    np.testing.assert_array_equal(fo, wf.numpy())
+    np.testing.assert_array_equal(To, wT.numpy())
