@@ -6,20 +6,34 @@ Phases, each printing one JSON line:
 
   device  card name and power limit (nvidia-smi), torch and CUDA versions
   build   nvcc build of the kernels in drand_tpu_torch/csrc, its seconds
-  slice   drand_tpu_torch.verify.Verifier on the committed 16384-round
-          pedersen-bls-unchained segment (all true; one flipped byte gives
-          exactly one false) and on the committed pedersen-bls-chained
-          segment (rounds 2-65 against anchor round 1), with the launches
-          of every kernel during the 16384-round batch, in total and by
-          call (the key each wrapper in ops/kernels.py documents).  Every
-          kernel but mont_reduce and fp2_sqr5_mul must have launched;
-          those two must not have (mont_reduce's callers on the GPU were
-          the composite Fp2 and flat Fp12 products, now kernels of their
-          own; both of the path's Fp2 powers take the addition chain of
-          fp2_sqr_chain_mul steps, not the window of fp2_sqr5_mul), and
-          the limb convolution `_poly_mul_var` must not have run
+  slice   drand_tpu_torch.verify.Verifier (drand_tpu's merged Miller
+          executor, the two lines merged first) on the committed
+          16384-round pedersen-bls-unchained segment (all true; one
+          flipped byte gives exactly one false) and on the committed
+          pedersen-bls-chained segment (rounds 2-65 against anchor round
+          1), with the launches of every kernel during the 16384-round
+          batch, in total and by call (the key each wrapper in
+          ops/kernels.py documents), and the calls of the chained run
+  trio    the same 16384-round segment and flipped batch with drand_tpu's
+          trio Miller executor (profiling.trio_batch_async: the verify
+          path with merged=False): every verdict equal to the default's;
+          and pairing_check_pairs at K = 1 and K = 3 pairs on 4096 rows
+          tiled from 64 rows of distinct golden-model pairs, some
+          inactive, some with product 1: every verdict equal to the
+          golden pairing_check of its row
+
+Each run of the slice and trio phases must launch every kernel of its
+path and no other, and never call the plain limb convolution
+`_poly_mul_var`: the default batch all but the trio kernels (flat_sqr,
+g2_dbl_line, g2_add_line) and those off every path (mont_reduce,
+fp2_sqr5_mul, line_merge, add, sub); the trio batch all but the merged
+iterations and those off every path; a pairing check the trio kernels,
+flat_mul, flat_conj, flat_frob, cyclo_sqr and the final
+exponentiation's inversion (mont_mul, mont_sqr, sqr_chain_mul,
+fp2_products).
+
   parity  every kernel against its plain PyTorch version on the card, bit
-          for bit, at every call the 16384-round batch made and at fixed
+          for bit, at every call the batches above made and at fixed
           cases: 16384 rows for Fp and Fr (sqr_chain_mul also at k = 1, 4,
           5, 9, 63 with and without t; mont_reduce also at the stacks
           [2, 16384, 64] and [16, 2, 16384, 64] the composite products
@@ -27,13 +41,16 @@ Phases, each printing one JSON line:
           sparse on all-(p-1) coefficients, cyclo_sqr on unitary rows,
           fp2_sqr_chain_mul at k = 1, 5, 13, fp2_sqr5_mul, the G2 point
           kernels with doubling, cancelling and infinite rows, the Miller
-          iterations with every active/inactive pair mask, flat_conj and
-          flat_frob at n = 1, 2, 3; on random values plus 0, 1, m-1
-          (mont_reduce: wide values up to the top of its input contract,
-          in limbs up to 2^14 - 1); then the device time of kernel and
-          plain version at the path's most common call: the summed
-          durations of the device kernels a call launches (torch.profiler),
-          so host time between launches does not count
+          iterations with every active/inactive pair mask,
+          flat_conj and flat_frob at n = 1, 2, 3, flat_sqr and line_merge
+          on all-(p-1) and zero rows, g2_dbl_line and g2_add_line on three
+          stacked pairs, add and sub at 0, 1, m-1 and on all-(m-1) and
+          zero rows; on random values plus 0, 1, m-1 (mont_reduce: wide
+          values up to the top of its input contract, in limbs up to
+          2^14 - 1); then the device time of kernel and plain version at
+          the path's most common call: the summed durations of the device
+          kernels a call launches (torch.profiler), so host time between
+          launches does not count
 
 then a {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
 Any mismatch or error exits non-zero before the last line.  It imports
@@ -42,9 +59,11 @@ nothing of JAX or drand_tpu.  Details go to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
+import random
 import subprocess
 import sys
 import time
@@ -67,16 +86,28 @@ MULADDS_REDC = 8 * 36 + 4 * 6            # K3
 MULADDS_WIDE = 8 * 36                    # a 6x6-word product
 MULADDS_FP2_MUL = 4 * MULADDS_WIDE + 2 * MULADDS_REDC           # K5
 MULADDS_FP2_SQR = 8 * (21 + 21 + 36) + 2 * MULADDS_REDC        # K6
+MULADDS_TRI = 8 * 21                      # a triangular 6-word square
 # K9/K10 and the Miller steps: (Fp2 squares, Fp2 products, Fp products)
 G2_DBL = (5, 2, 0)
 G2_ADD = (5, 11, 0)
 MILLER_DBL_STEP = (6, 5, 4)
 MILLER_ADD_STEP = (4, 10, 4)
-# kernels the verify path does not launch: K3 (its callers were the
-# composite products, now K5, K6, K13, K14) and K8 (fp2_pow_const takes
-# the addition chain of K7 steps on both of the path's exponents, as
-# drand_tpu does on its chip)
-OFF_PATH = ("mont_reduce", "fp2_sqr5_mul")
+LINE_IDX = (0, 2, 3, 6, 8, 9)
+# kernels no verify path launches: K3 (its callers were the composite
+# products, now K5, K6, K13, K14), K8 (fp2_pow_const takes the addition
+# chain of K7 steps on both of the path's exponents, as drand_tpu does on
+# its chip), K20 (its body runs inside K11 and K12; as in drand_tpu,
+# nothing calls it alone) and K21/K22 (drand_tpu's Field.add
+# and sub stay in XLA and never call their kernels; the port's keep their
+# torch path)
+OFF_PATH = ("mont_reduce", "fp2_sqr5_mul", "line_merge", "add", "sub")
+# kernels of the trio Miller executor only, and of the merged one only
+TRIO = ("flat_sqr", "g2_dbl_line", "g2_add_line")
+MERGED = ("miller_dbl_iter", "miller_add_iter")
+# the kernels of a pairing check alone: the trio Miller loop and the final
+# exponentiation, whose one inversion takes K1, K2, K4 and K5
+PAIRING = TRIO + ("flat_mul", "flat_conj", "flat_frob", "cyclo_sqr",
+                  "mont_mul", "mont_sqr", "sqr_chain_mul", "fp2_products")
 
 
 def muladds_fp2(sqrs: int, muls: int, fp_muls: int) -> int:
@@ -84,10 +115,19 @@ def muladds_fp2(sqrs: int, muls: int, fp_muls: int) -> int:
             + fp_muls * MULADDS_MUL)
 
 
-def muladds_flat(b_idx) -> int:
-    """A flat Fp12 product with b on the w-powers b_idx (K13's work)."""
-    coeffs = len({i + j for i in range(12) for j in b_idx})
-    return 12 * len(b_idx) * MULADDS_WIDE + coeffs * MULADDS_REDC
+def muladds_flat(b_idx, a_idx=tuple(range(12))) -> int:
+    """A flat Fp12 product of a on the w-powers a_idx by b on b_idx, one
+    REDC per power the product reaches (K13's work; K20's with both on
+    LINE_IDX)."""
+    coeffs = len({i + j for i in a_idx for j in b_idx})
+    return len(a_idx) * len(b_idx) * MULADDS_WIDE + coeffs * MULADDS_REDC
+
+
+# K17: 66 general and 12 triangular products, 23 REDCs
+MULADDS_FLAT_SQR = 66 * MULADDS_WIDE + 12 * MULADDS_TRI + 23 * MULADDS_REDC
+MULADDS_LINE_MERGE = muladds_flat(LINE_IDX, LINE_IDX)
+# f times the two lines of K11/K12: merged first, then one dense product
+MULADDS_LINES = MULADDS_LINE_MERGE + muladds_flat(tuple(range(12)))
 
 
 def emit(obj) -> None:
@@ -109,29 +149,43 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, what: str) -> float:
     """Mean device milliseconds per call: the summed durations of the
-    device kernels that `reps` calls launch, after a warm-up."""
+    device kernels that `reps` calls launch, after a warm-up.  The
+    profiler now and then drops a whole session's events, so an empty
+    trace is taken again, up to three sessions."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from drand_tpu_torch.profiling import device_kernels
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kern = device_kernels(prof)
-    if not kern:
-        fail("the profiler saw no device kernel")
-    return sum(d for _, d in kern) * 1e3 / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kern = device_kernels(prof)
+        if kern:
+            return sum(d for _, d in kern) * 1e3 / reps
+    fail(f"{what}: the profiler saw no device kernel in three sessions")
 
 
 def work(name: str, call: tuple):
     """(bytes moved, 32-bit multiply-adds) of one launch for `call`, a key
     of `Kernel.calls` (the key each wrapper in ops/kernels.py documents)."""
-    line_idx = (0, 2, 3, 6, 8, 9)
+    if name == "flat_sqr":
+        return 24 * 128 * math.prod(call[:-2]), \
+            MULADDS_FLAT_SQR * math.prod(call[:-2])
+    if name == "line_merge":
+        rows = math.prod(call[:-2])
+        return 24 * 128 * rows, MULADDS_LINE_MERGE * rows
+    if name in ("g2_dbl_line", "g2_add_line"):
+        rows, width = math.prod(call[:-2]), call[-2]
+        step = MILLER_DBL_STEP if name == "g2_dbl_line" else MILLER_ADD_STEP
+        return (width + 12) * 128 * rows, muladds_fp2(*step) * rows
+    if name in ("add", "sub"):
+        return 384 * math.prod(call[1][:-1]), 0
     if name == "fp2_sqr_chain_mul":
         (shape, k, with_t), rows = call, math.prod(call[0][1:-1])
         return ((768 if with_t else 512) * rows,
@@ -151,12 +205,11 @@ def work(name: str, call: tuple):
         rows = math.prod(call[:-2])
         if name == "miller_dbl_iter":
             nbytes = (12 + 12 + 4 + 12 + 12) * 128 + 8
-            ops = (muladds_flat(tuple(range(12))) + 2 * muladds_flat(line_idx)
+            ops = (MULADDS_FLAT_SQR + MULADDS_LINES
                    + 2 * muladds_fp2(*MILLER_DBL_STEP))
         else:
             nbytes = (12 + 12 + 8 + 4 + 12 + 12) * 128 + 8
-            ops = (2 * muladds_flat(line_idx)
-                   + 2 * muladds_fp2(*MILLER_ADD_STEP))
+            ops = MULADDS_LINES + 2 * muladds_fp2(*MILLER_ADD_STEP)
         return nbytes * rows, ops * rows
     if name == "flat_conj":
         return 24 * 128 * math.prod(call[:-2]), 0
@@ -203,7 +256,9 @@ def main() -> int:
 
     from drand_tpu_torch import fixtures as FX
     from drand_tpu_torch import verify as V
+    from drand_tpu_torch.profiling import trio_batch_async
     from drand_tpu_torch.crypto.bls12381 import curve as GC
+    from drand_tpu_torch.crypto.bls12381 import pairing as GP
     from drand_tpu_torch.crypto.bls12381.constants import P
     from drand_tpu_torch.ops import field as FLD
     from drand_tpu_torch.ops import flat12 as FL
@@ -228,11 +283,62 @@ def main() -> int:
     # -- build ---------------------------------------------------------------
     info = K.build()
     regs = [ln.strip() for ln in info["log"].splitlines()
-            if "registers" in ln or "spill" in ln]
+            if "registers" in ln or "spill" in ln or ln.startswith("== ")]
     report["build"] = {"phase": "build", "seconds": info["seconds"],
                        "dir": os.path.relpath(info["dir"], HERE),
                        "ptxas": regs}
     emit(report["build"])
+
+    def pairing_rows(k_pairs: int, n: int):
+        """Pairs for pairing_check_pairs at K = k_pairs on n rows, tiled
+        from 64 rows of distinct golden-model pairs a G1, b G2 (random
+        a, b): for K = 1 the pair, inactive in every other row; for K = 3
+        either (P, Q), (-P, Q) and a third pair, or (a G1, b G2),
+        (c G1, d G2) and (-(ab + cd) G1, G2), under a cycle of every
+        active/inactive mask.  Returns (pairs, active masks, the golden
+        pairing_check of every row's active pairs)."""
+        grng = random.Random(7 + k_pairs)
+        sc = [(grng.randrange(1, GC.R), grng.randrange(1, GC.R))
+              for _ in range(65)]
+        base = [(GC.g1_mul(GC.G1_GEN, a), GC.g2_mul_raw(GC.G2_GEN, b))
+                for a, b in sc]
+        rows, masks = [], []
+        for i in range(64):
+            if k_pairs == 1:
+                rows.append([base[i]])
+                masks.append([i % 2 == 1])
+                continue
+            if i % 2 == 0:
+                p, q = base[i]
+                rows.append([(p, q), (GC.g1_neg(p), q), base[i + 1]])
+            else:
+                (a, b), (c, d) = sc[i], sc[i + 1]
+                rows.append([base[i], base[i + 1],
+                             (GC.g1_mul(GC.G1_GEN, -(a * b + c * d) % GC.R),
+                              GC.G2_GEN)])
+            m = (i // 2) % 8
+            masks.append([bool(m & 4), bool(m & 2), bool(m & 1)])
+        want = np.array([GP.pairing_check(
+            [pq for pq, on in zip(r, ms) if on])
+            for r, ms in zip(rows, masks)])
+        reps = n // 64
+
+        def coord(vals):
+            return torch.from_numpy(np.tile(FP.encode(vals), (reps, 1))).to(dev)
+
+        pairs = []
+        for k in range(k_pairs):
+            ps = [GC.g1_affine(r[k][0]) for r in rows]
+            qs = [GC.g2_affine(r[k][1]) for r in rows]
+            pairs.append(((coord([p[0] for p in ps]),
+                           coord([p[1] for p in ps])),
+                          ((coord([q[0][0] for q in qs]),
+                            coord([q[0][1] for q in qs])),
+                           (coord([q[1][0] for q in qs]),
+                            coord([q[1][1] for q in qs])))))
+        active = [torch.tensor([m[k] for m in masks] * reps, device=dev)
+                  for k in range(k_pairs)]
+        return pairs, active, np.tile(want, reps)
 
     # -- slice ---------------------------------------------------------------
     _sk, pk = FX.fixture_keypair()
@@ -253,27 +359,48 @@ def main() -> int:
         conv_calls[0] += 1
         return poly_mul_var(a, b)
 
-    torch.cuda.synchronize()
-    for mod in (FLD, TW, FL):
-        mod._poly_mul_var = counted_poly_mul_var
-    K.reset_launches()
-    t0 = time.perf_counter()
-    resolve = verifier.verify_batch_async(rounds, sigs)
-    t_dispatch = time.perf_counter() - t0
-    ok = resolve()
-    t_batch = time.perf_counter() - t0
-    launches = K.launch_counts()
-    path_calls = {name: dict(k.calls) for name, k in K.KERNELS.items()}
-    for mod in (FLD, TW, FL):
-        mod._poly_mul_var = poly_mul_var
+    def drive(fn):
+        """fn() with every launch count at 0 just before it; returns (its
+        result, seconds, launches, calls by kernel, _poly_mul_var calls),
+        the counts read just after it."""
+        torch.cuda.synchronize()
+        conv_calls[0] = 0
+        for mod in (FLD, TW, FL):
+            mod._poly_mul_var = counted_poly_mul_var
+        K.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        seconds = time.perf_counter() - t0
+        counts = K.launch_counts()
+        calls = {name: collections.Counter(k.calls)
+                 for name, k in K.KERNELS.items()}
+        for mod in (FLD, TW, FL):
+            mod._poly_mul_var = poly_mul_var
+        return out, seconds, counts, calls, conv_calls[0]
+
+    def check_path(what, counts, n_conv, path):
+        """Fail unless the run launched every kernel of `path` and no
+        other, and never ran the plain limb convolution."""
+        missed = [name for name in path if not counts[name]]
+        extra = [name for name, n in counts.items() if n and name not in path]
+        if missed or extra or n_conv:
+            fail(f"{what}: kernels of the path not launched {missed}, "
+                 f"launched off the path {extra}, _poly_mul_var {n_conv} "
+                 f"calls; launches {counts}")
+
+    t_dispatch = [0.0]
+
+    def default_batch():
+        t0 = time.perf_counter()
+        resolve = verifier.verify_batch_async(rounds, sigs)
+        t_dispatch[0] = time.perf_counter() - t0
+        return resolve()
+
+    ok, t_batch, launches, path_calls, n_conv = drive(default_batch)
     if not ok.all():
         fail(f"valid 16384-round segment: {int(ok.sum())}/{BATCH} true")
-    if min(n for name, n in launches.items() if name not in OFF_PATH) == 0:
-        fail(f"a kernel of the path was not launched: {launches}")
-    if any(launches[name] for name in OFF_PATH) or conv_calls[0]:
-        fail(f"the batch launched a kernel off its path or ran the plain "
-             f"limb convolution: {launches}, _poly_mul_var {conv_calls[0]} "
-             f"calls")
+    default_path = [name for name in K.KERNELS if name not in OFF_PATH + TRIO]
+    check_path("default batch", launches, n_conv, default_path)
 
     bad = sigs.copy()
     flip_at = 4321
@@ -286,16 +413,16 @@ def main() -> int:
              f"flipped row {bool(ok_bad[flip_at])}")
 
     chained = V.Verifier(pk, V.SHAPE_CHAINED)
-    t2 = time.perf_counter()
-    ok_c = chained.verify_chain_segment(2, sigs_c[1:], sigs_c[0])
-    t_chain = time.perf_counter() - t2
+    ok_c, t_chain, chain_launches, chain_calls, n_conv = drive(
+        lambda: chained.verify_chain_segment(2, sigs_c[1:], sigs_c[0]))
     if not ok_c.all() or ok_c.shape != (64,):
         fail(f"chained segment: {int(ok_c.sum())}/{ok_c.shape[0]} true")
+    check_path("chained segment", chain_launches, n_conv, default_path)
 
     report["slice"] = {
         "phase": "slice", "rounds": BATCH, "all_true": True,
         "flipped_row_false_only": True, "chained_rounds_2_65_true": True,
-        "batch_wall_s": t_batch, "dispatch_s": t_dispatch,
+        "batch_wall_s": t_batch, "dispatch_s": t_dispatch[0],
         "flipped_batch_wall_s": t_bad, "chained_64_wall_s": t_chain,
         "launches": launches,
         "off_path": {"mont_reduce": "0 launches: the composite products "
@@ -303,11 +430,68 @@ def main() -> int:
                                     "K13, K14",
                      "fp2_sqr5_mul": "0 launches: both of the path's Fp2 "
                                      "exponents take the addition chain "
-                                     "(K7 steps)"},
-        "poly_mul_var_calls": conv_calls[0],
+                                     "(K7 steps)",
+                     "line_merge": "0 launches: its body runs inside K11 "
+                                   "and K12; nothing calls it alone, as in "
+                                   "drand_tpu",
+                     "add": "0 launches: Field.add keeps its torch path, "
+                            "as drand_tpu's stays in XLA",
+                     "sub": "0 launches: as add",
+                     "trio": "0 launches of flat_sqr, g2_dbl_line, "
+                             "g2_add_line: the default executor is the "
+                             "merged one"},
+        "poly_mul_var_calls": n_conv,
         "calls": {name: sorted(c.items()) for name, c in path_calls.items()},
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
     emit(report["slice"])
+
+    # -- trio ----------------------------------------------------------------
+    ok_t, t_trio, trio_launches, trio_calls, n_conv = drive(
+        lambda: trio_batch_async(verifier, rounds, sigs)())
+    if not np.array_equal(ok_t, ok):
+        fail(f"trio executor: {int((ok_t != ok).sum())} verdicts differ "
+             f"from the default's")
+    check_path("trio batch", trio_launches, n_conv,
+               [name for name in K.KERNELS if name not in OFF_PATH + MERGED])
+    t1 = time.perf_counter()
+    ok_t_bad = trio_batch_async(verifier, rounds, bad)()
+    t_trio_bad = time.perf_counter() - t1
+    if not np.array_equal(ok_t_bad, ok_bad):
+        fail("trio executor: the flipped batch's verdicts differ from the "
+             "default's")
+
+    golden = {}
+    pairing_calls = {name: collections.Counter() for name in K.KERNELS}
+    for k_pairs in (1, 3):
+        pairs, active, want = pairing_rows(k_pairs, 4096)
+        got, t_k, k_launches, k_calls, n_conv = drive(
+            lambda: PR.pairing_check_pairs(pairs, active).cpu().numpy())
+        if not np.array_equal(got, want):
+            fail(f"K = {k_pairs}: {int((got != want).sum())} verdicts differ "
+                 f"from the golden pairing_check")
+        check_path(f"K = {k_pairs} pairing check", k_launches, n_conv,
+                   PAIRING)
+        golden[k_pairs] = {"rows": int(want.size),
+                           "true": int(want.sum()), "wall_s": t_k,
+                           "launches": {n: v for n, v in k_launches.items()
+                                        if v}}
+        for name, cnt in k_calls.items():
+            pairing_calls[name].update(cnt)
+        del pairs, active
+
+    report["trio"] = {
+        "phase": "trio", "rounds": BATCH, "verdicts_equal_default": True,
+        "flipped_verdicts_equal_default": True,
+        "batch_wall_s": t_trio, "flipped_batch_wall_s": t_trio_bad,
+        "launches": trio_launches,
+        "pairing_checks": golden,
+        "calls": {name: sorted(c.items()) for name, c in trio_calls.items()},
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+    emit(report["trio"])
+    # every call the runs made, for the parity phase
+    all_calls = {name: set(path_calls[name]) | set(chain_calls[name])
+                 | set(trio_calls[name]) | set(pairing_calls[name])
+                 for name in K.KERNELS}
 
     # -- parity --------------------------------------------------------------
     rng = np.random.default_rng(2024)
@@ -399,9 +583,38 @@ def main() -> int:
             return f, T, field_rows(FP, lead + (2, 4, 32)), P_, masks
         return f, T, P_, masks
 
+    def edge_rows(F, shape, run=1):
+        """Rows whose every stored coefficient is m - 1, alternating with
+        all-zero rows in runs of `run` rows: runs 1 and 2 side by side
+        meet every pair of the two."""
+        top = [((F.modulus - 1) >> (12 * i)) & 0xFFF for i in range(32)]
+        x = torch.tensor(top, dtype=torch.int32, device=dev).expand(
+            shape).contiguous()
+        x[(torch.arange(shape[0], device=dev) // run) % 2 == 1] = 0
+        return x
+
     def inputs(name, call, kind="random"):
         """Kernel arguments for `call`: random canonical values (with 0, 1,
-        m-1 first), all-(p-1) flat rows ("max") or unitary ones."""
+        m-1 first), all-(p-1) flat rows ("max"), rows of all-(m-1) and of
+        zero coefficients ("edge") or unitary ones."""
+        if name == "flat_sqr":
+            return ((edge_rows(FP, call) if kind == "edge"
+                     else field_rows(FP, call)),)
+        if name == "line_merge":
+            shape = call[:-2] + (6, 32)
+            if kind == "edge":
+                return edge_rows(FP, shape), edge_rows(FP, shape, 2)
+            return field_rows(FP, shape), field_rows(FP, shape)
+        if name in ("g2_dbl_line", "g2_add_line"):
+            x = field_rows(FP, call)
+            x[..., :8, 4, :] = FP.one_mont.to(dev)      # Z = 1, as at start
+            x[..., :8, 5, :] = 0
+            return (x,)
+        if name in ("add", "sub"):
+            F, shape = fields[call[0]], call[1]
+            if kind == "edge":
+                return edge_rows(F, shape), edge_rows(F, shape, 2)
+            return field_rows(F, shape), field_rows(F, shape).flip(0)
         if name == "fp2_sqr_chain_mul":
             shape, _k, with_t = call
             x = field_rows(FP, shape)
@@ -438,9 +651,36 @@ def main() -> int:
             return (wide_rows(F, shape),)
         return (field_rows(F, shape), field_rows(F, shape))
 
+    def steps(name, x):
+        """The plain step formula on rows x [..., 8 or 12, 32], its two
+        outputs stacked as the kernel gives them."""
+        c = [x[..., i, :] for i in range(x.shape[-2])]
+        Tj = ((c[0], c[1]), (c[2], c[3]), (c[4], c[5]))
+        if name == "g2_dbl_line":
+            Tn, L = PR._dbl_step_plain(Tj, c[6], c[7])
+        else:
+            Tn, L = PR._add_step_plain(Tj, ((c[6], c[7]), (c[8], c[9])),
+                                       c[10], c[11])
+        return [torch.stack([v for xy in o for v in xy], -2) for o in (Tn, L)]
+
     def run(name, call, args, kernel: bool):
         """The kernel's or the plain version's output for `call`; the
-        Miller iterations' two outputs as one flat tensor."""
+        Miller iterations' and line steps' two outputs as one flat
+        tensor."""
+        if name == "flat_sqr":
+            return (K.flat_sqr(args[0], FP) if kernel
+                    else FL._flat_sqr_plain(args[0]))
+        if name == "line_merge":
+            return (K.line_merge(*args, FP) if kernel
+                    else FL._line_merge_plain(*args))
+        if name in ("g2_dbl_line", "g2_add_line"):
+            out = (getattr(K, name)(args[0], FP) if kernel
+                   else steps(name, args[0]))
+            return torch.cat([o.reshape(-1) for o in out])
+        if name in ("add", "sub"):
+            F = fields[call[0]]
+            return (getattr(K, name)(*args, F) if kernel
+                    else getattr(F, name)(*args))
         if name == "fp2_sqr_chain_mul":
             return (K.fp2_sqr_chain_mul(args[0], call[1], args[1], FP)
                     if kernel else
@@ -459,11 +699,9 @@ def main() -> int:
                         DC.Fp2PlainOps, call[1])))
         if name in ("miller_dbl_iter", "miller_add_iter"):
             if kernel:
-                fn = getattr(K, name)
-                out = fn(*args, FP)
+                out = getattr(K, name)(*args, FP)
             else:
-                fn = getattr(PR, f"_{name}_plain")
-                out = fn(*args)
+                out = getattr(PR, f"_{name}_plain")(*args)
             return torch.cat([o.reshape(-1) for o in out])
         if name == "flat_conj":
             return (K.flat_conj(args[0], FP) if kernel
@@ -502,7 +740,7 @@ def main() -> int:
     flat32, flat64 = (BATCH, 32), (BATCH, 64)
     flat12 = (BATCH, 12, 32)
     cases = {name: {(call, "random") for call in calls}
-             for name, calls in path_calls.items()}
+             for name, calls in all_calls.items()}
     for f in fields:
         cases["mont_mul"].add(((f, flat32), "random"))
         cases["mont_sqr"].add(((f, flat32), "random"))
@@ -532,6 +770,14 @@ def main() -> int:
     cases["flat_conj"].add((flat12, "random"))
     for n in (1, 2, 3):
         cases["flat_frob"].add(((flat12, n), "random"))
+    for kind in ("random", "edge"):
+        cases["flat_sqr"].add((flat12, kind))
+        cases["line_merge"].add((flat12, kind))
+        for f in fields:
+            cases["add"].add(((f, flat32), kind))
+            cases["sub"].add(((f, flat32), kind))
+    cases["g2_dbl_line"].add(((3, BATCH, 8, 32), "random"))
+    cases["g2_add_line"].add(((3, BATCH, 12, 32), "random"))
 
     rows = []
     for name in K.KERNELS:
@@ -542,7 +788,7 @@ def main() -> int:
             eq = bool(torch.equal(got, want))
             err = int((got.long() - want.long()).abs().max().item())
             rows.append({"kernel": name, "call": call, "inputs": kind,
-                         "on_path": call in path_calls[name],
+                         "on_path": call in all_calls[name],
                          "bit_equal": eq, "max_abs_err": err})
             if not eq:
                 fail(f"{name} {call} {kind}: kernel != plain "
@@ -555,14 +801,19 @@ def main() -> int:
     # at [16, 2, 16384, 64], K4 at the path's longest chain and at k = 63;
     # K5, K6, K13 and K14 at the path's most common call, and K13 also at
     # its most common dense call
+    main_path_calls = {name: trio_calls[name] if name in TRIO
+                       else path_calls[name] for name in K.KERNELS}
+
     def most_common(name, pick=lambda c: True):
-        calls = {c: n for c, n in path_calls[name].items() if pick(c)}
+        calls = {c: n for c, n in main_path_calls[name].items() if pick(c)}
         return max(sorted(calls, key=repr), key=calls.get)
 
     main_calls = {"mont_mul": ("fp", flat32), "mont_sqr": ("fp", flat32),
                   "mont_reduce": ("fp", (2, BATCH, 64)),
                   "sqr_chain_mul": ("fp", flat32, 4, True)}
     main_calls["fp2_sqr5_mul"] = fp2_rows
+    main_calls["line_merge"] = flat12
+    main_calls["add"] = main_calls["sub"] = ("fp", flat32)
     main_calls.update({name: most_common(name) for name in K.KERNELS
                        if name not in main_calls})
     longest = max(path_calls["sqr_chain_mul"], key=lambda c: (c[2], c[3]))
@@ -576,9 +827,11 @@ def main() -> int:
         args = inputs(name, call)
         bms, by = bound_ms(*work(name, call))
         tm = {"kernel": name, "call": call,
-              "launches": path_calls[name].get(call, 0),
-              "ms": device_ms(lambda: run(name, call, args, True), 50),
-              "plain_ms": device_ms(lambda: run(name, call, args, False), 3),
+              "launches": main_path_calls[name].get(call, 0),
+              "ms": device_ms(lambda: run(name, call, args, True), 50,
+                              f"{name} {call}"),
+              "plain_ms": device_ms(lambda: run(name, call, args, False), 3,
+                                    f"plain {name} {call}"),
               "bound_ms": bms, "bound_by": by}
         timings.append(tm)
         per_kernel.setdefault(name, tm)
@@ -594,7 +847,8 @@ def main() -> int:
         tm = per_kernel[name]
         kernels.append({
             "name": name, "route": "cuda", "source": kern.source,
-            "replaces": kern.replaces, "launches": launches[name],
+            "replaces": kern.replaces,
+            "launches": (trio_launches if name in TRIO else launches)[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows
                                if r["kernel"] == name),
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],

@@ -99,16 +99,21 @@ struct Line {
   uint64_t c[6][N_WORDS];
 };
 
-DT_HD Line line_flat(const F2 &a, const F2 &b, const F2 &c, const Mod &M) {
+// The same line as its Fp2 triple (a, b, c): what a Miller step returns.
+struct LineF2 {
+  F2 a, b, c;
+};
+
+DT_HD Line line_flat(const LineF2 &t, const Mod &M) {
   Line l;
-  sub_mod(a.x, a.y, l.c[0], M);
-  sub_mod(b.x, b.y, l.c[1], M);
-  sub_mod(c.x, c.y, l.c[2], M);
+  sub_mod(t.a.x, t.a.y, l.c[0], M);
+  sub_mod(t.b.x, t.b.y, l.c[1], M);
+  sub_mod(t.c.x, t.c.y, l.c[2], M);
   DT_UNROLL
   for (int v = 0; v < N_WORDS; v++) {
-    l.c[3][v] = a.y[v];
-    l.c[4][v] = b.y[v];
-    l.c[5][v] = c.y[v];
+    l.c[3][v] = t.a.y[v];
+    l.c[4][v] = t.b.y[v];
+    l.c[5][v] = t.c.y[v];
   }
   return l;
 }
@@ -126,8 +131,8 @@ DT_HD Line line_one(const One &one) {
 
 // The Miller doubling step (ops/pairing.py _dbl_step): T <- 2T, and the
 // line scaled by 2YZ^3, a = 3X^3 - 2Y^2, b = -3X^2 Z^2 xp, c = 2YZ^3 yp.
-DT_HD Line miller_dbl_step(G2J &T, const uint64_t *xp, const uint64_t *yp,
-                           const Mod &M) {
+DT_HD LineF2 miller_dbl_step(G2J &T, const uint64_t *xp, const uint64_t *yp,
+                             const Mod &M) {
   const F2 XX = f2_sqr(T.X, M), YY = f2_sqr(T.Y, M), ZZ = f2_sqr(T.Z, M);
   const F2 YZ = f2_mul(T.Y, T.Z, M);
   const F2 xyy = f2_add(T.X, YY, M);
@@ -146,15 +151,15 @@ DT_HD Line miller_dbl_step(G2J &T, const uint64_t *xp, const uint64_t *yp,
   T.Y = f2_sub(Et, f2_dbl(f2_dbl(f2_dbl(C, M), M), M), M);
   T.X = X2;
   T.Z = f2_dbl(YZ, M);
-  return line_flat(a, b, c, M);
+  return {a, b, c};
 }
 
 // The Miller mixed-addition step (ops/pairing.py _add_step), Q = (xq, yq)
 // affine: with H = xq Z^2 - X and r = 2(yq Z^3 - Y), the line is
 // a = r xq - 2HZ yq, b = -r xp, c = 2HZ yp.
-DT_HD Line miller_add_step(G2J &T, const F2 &xq, const F2 &yq,
-                           const uint64_t *xp, const uint64_t *yp,
-                           const Mod &M) {
+DT_HD LineF2 miller_add_step(G2J &T, const F2 &xq, const F2 &yq,
+                             const uint64_t *xp, const uint64_t *yp,
+                             const Mod &M) {
   const F2 ZZ = f2_sqr(T.Z, M), yqZ = f2_mul(yq, T.Z, M);
   const F2 U2 = f2_mul(xq, ZZ, M), S2 = f2_mul(yqZ, ZZ, M);
   const F2 H = f2_sub(U2, T.X, M);
@@ -174,7 +179,7 @@ DT_HD Line miller_add_step(G2J &T, const F2 &xq, const F2 &yq,
   const F2 a = f2_sub(rxq, hzyq, M);
   const F2 b = f2_mul_fp(f2_neg(r, M), xp, M);
   const F2 c = f2_mul_fp(HZ2, yp, M);
-  return line_flat(a, b, c, M);
+  return {a, b, c};
 }
 
 
@@ -211,7 +216,7 @@ DT_HD Line miller_pair_step(const int32_t *t, const int32_t *p,
   uint64_t xp[N_WORDS], yp[N_WORDS];
   load_words(p, xp);
   load_words(p + N_LIMBS, yp);
-  Line l;
+  LineF2 l;
   if (q == nullptr) {
     l = miller_dbl_step(T, xp, yp, M);
   } else {
@@ -221,7 +226,30 @@ DT_HD Line miller_pair_step(const int32_t *t, const int32_t *p,
     T = g2_select(mask != 0, T, old);
   }
   g2_store6(T, t_out, N_LIMBS);
-  return mask != 0 ? l : line_one(one);
+  return mask != 0 ? line_flat(l, M) : line_one(one);
+}
+
+// B18 (q == nullptr) and B19, one stacked row of the trio loop's step: in
+// holds T (X0 X1 Y0 Y1 Z0 Z1), for B19 Q (xq0 xq1 yq0 yq1), then P (xp
+// yp), 32 limbs each; T' goes to t_out and the line triple a0 a1 b0 b1 c0
+// c1 to l_out, six coordinates of 32 limbs each.  No mask: the trio loop
+// masks the lines and selects T itself (ops/pairing.py).
+DT_HD void miller_line_step(const int32_t *in, bool add, int32_t *t_out,
+                            int32_t *l_out, const Mod &M) {
+  G2J T = g2_load6(in, N_LIMBS);
+  const int32_t *p = in + (add ? 10 : 6) * N_LIMBS;
+  uint64_t xp[N_WORDS], yp[N_WORDS];
+  load_words(p, xp);
+  load_words(p + N_LIMBS, yp);
+  const LineF2 l =
+      add ? miller_add_step(T, f2_load(in + 6 * N_LIMBS, in + 7 * N_LIMBS),
+                            f2_load(in + 8 * N_LIMBS, in + 9 * N_LIMBS), xp,
+                            yp, M)
+          : miller_dbl_step(T, xp, yp, M);
+  g2_store6(T, t_out, N_LIMBS);
+  f2_store(l.a, l_out, l_out + N_LIMBS);
+  f2_store(l.b, l_out + 2 * N_LIMBS, l_out + 3 * N_LIMBS);
+  f2_store(l.c, l_out + 4 * N_LIMBS, l_out + 5 * N_LIMBS);
 }
 
 // Word v of line coefficient c at dst[(c * 6 + v) * stride]: the sparse

@@ -139,6 +139,43 @@ DT_HD void cond_sub(uint64_t *t, uint64_t hi, const Mod &M) {
   for (int j = 0; j < N_WORDS; j++) t[j] = take ? d[j] : t[j];
 }
 
+// r = a + b mod m; a, b in [0, m).  r may alias a or b.
+DT_HD void add_mod(const uint64_t *a, const uint64_t *b, uint64_t *r,
+                   const Mod &M) {
+  uint64_t c = 0;
+  DT_UNROLL
+  for (int j = 0; j < N_WORDS; j++) {
+    const uint64_t s = a[j] + b[j];
+    const uint64_t c1 = s < a[j];
+    r[j] = s + c;
+    c = c1 | (r[j] < s);
+  }
+  cond_sub(r, c, M);
+}
+
+// r = a - b mod m; a, b in [0, m).  r may alias a or b.
+DT_HD void sub_mod(const uint64_t *a, const uint64_t *b, uint64_t *r,
+                   const Mod &M) {
+  uint64_t borrow = 0;
+  DT_UNROLL
+  for (int j = 0; j < N_WORDS; j++) {
+    const uint64_t x = a[j] - b[j];
+    const uint64_t b1 = a[j] < b[j];
+    r[j] = x - borrow;
+    borrow = b1 | (x < borrow);
+  }
+  const uint64_t mask = 0 - borrow;       // add m back where a < b
+  uint64_t c = 0;
+  DT_UNROLL
+  for (int j = 0; j < N_WORDS; j++) {
+    const uint64_t mj = M.m[j] & mask;
+    const uint64_t s = r[j] + mj;
+    const uint64_t c1 = s < mj;
+    r[j] = s + c;
+    c = c1 | (r[j] < s);
+  }
+}
+
 // r = a * b * 2^-384 mod m for a, b in [0, m): CIOS (coarsely integrated
 // operand scanning) with a 7th and 8th accumulator word, so it holds for
 // any odd m < 2^381 (the BLS12-381 base and scalar fields alike), then one
@@ -260,6 +297,20 @@ DT_HD void sqr_chain_mul_limbs(const int32_t *a, const int32_t *t, int32_t *o,
     mont_mul_words(x, wt, x, M);
   }
   words_to_limbs(x, o);
+}
+
+// K21 (sub: K22): canonical a + b (a - b) mod m, canonical limbs in and
+// out.
+DT_HD void add_sub_limbs(const int32_t *a, const int32_t *b, int32_t *o,
+                         bool sub, const Mod &M) {
+  uint64_t wa[N_WORDS], wb[N_WORDS];
+  limbs_to_words(a, wa);
+  limbs_to_words(b, wb);
+  if (sub)
+    sub_mod(wa, wb, wa, M);
+  else
+    add_mod(wa, wb, wa, M);
+  words_to_limbs(wa, o);
 }
 
 // K3: T * 2^-384 mod m for a wide value given as 64 int32 limbs.

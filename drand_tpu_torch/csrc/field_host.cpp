@@ -1,7 +1,7 @@
 // Host build of the kernels' arithmetic (field_arith.cuh, tower_arith.cuh,
 // curve_arith.cuh), one loop per kernel over its elements or rows, with
 // the C interface of field_kernels.cu, tower_kernels.cu, curve_kernels.cu
-// and miller_kernels.cu minus the stream.
+// and miller_kernels.cu minus the stream (dth_ for dt_).
 // tests/test_torch_kernel_harness.py compiles it with g++ and holds it
 // against the plain PyTorch versions on a machine with no CUDA:
 //
@@ -88,6 +88,44 @@ void dth_flat_mul(const int32_t *a, const int32_t *b, int32_t *o,
   }
 }
 
+// K17 and K20 the same way: the six classes in turn on one row's words.
+void dth_flat_sqr(const int32_t *a, int32_t *o, long long rows,
+                  const uint64_t *mod7) {
+  const dt::Mod M = dt::mod_from_words(mod7);
+  uint64_t wa[dt::FLAT * dt::N_WORDS];
+  for (long long r = 0; r < rows; r++) {
+    for (int i = 0; i < dt::FLAT; i++)
+      dt::load_words(a + (r * dt::FLAT + i) * dt::N_LIMBS,
+                     wa + i * dt::N_WORDS);
+    int32_t *out = o + r * dt::FLAT * dt::N_LIMBS;
+    for (int j = 0; j < 6; j++) {
+      uint64_t lo[dt::N_WORDS], hi[dt::N_WORDS];
+      dt::flat_sqr_class(j, wa, 1, lo, hi, M);
+      dt::store_words(lo, out + j * dt::N_LIMBS);
+      dt::store_words(hi, out + (j + 6) * dt::N_LIMBS);
+    }
+  }
+}
+
+void dth_line_merge(const int32_t *l1, const int32_t *l2, int32_t *o,
+                    long long rows, const uint64_t *mod7) {
+  const dt::Mod M = dt::mod_from_words(mod7);
+  uint64_t w1[6 * dt::N_WORDS], w2[6 * dt::N_WORDS];
+  for (long long r = 0; r < rows; r++) {
+    for (int i = 0; i < 6; i++) {
+      dt::load_words(l1 + (r * 6 + i) * dt::N_LIMBS, w1 + i * dt::N_WORDS);
+      dt::load_words(l2 + (r * 6 + i) * dt::N_LIMBS, w2 + i * dt::N_WORDS);
+    }
+    int32_t *out = o + r * dt::FLAT * dt::N_LIMBS;
+    for (int j = 0; j < 6; j++) {
+      uint64_t lo[dt::N_WORDS], hi[dt::N_WORDS];
+      dt::line_merge_class(j, w1, w2, 1, lo, hi, M);
+      dt::store_words(lo, out + j * dt::N_LIMBS);
+      dt::store_words(hi, out + (j + 6) * dt::N_LIMBS);
+    }
+  }
+}
+
 void dth_cyclo_sqr(const int32_t *a, int32_t *o, long long rows,
                    const uint64_t *mod7) {
   const dt::Mod M = dt::mod_from_words(mod7);
@@ -157,6 +195,40 @@ void dth_g2_point_add(const int32_t *p1, const int32_t *p2, int32_t *o,
   }
 }
 
+void dth_g2_dbl_line(const int32_t *in, int32_t *to, int32_t *lo,
+                     long long rows, const uint64_t *mod7) {
+  const dt::Mod M = dt::mod_from_words(mod7);
+  for (long long r = 0; r < rows; r++)
+    dt::miller_line_step(in + r * 8 * dt::N_LIMBS, false,
+                         to + r * 6 * dt::N_LIMBS, lo + r * 6 * dt::N_LIMBS,
+                         M);
+}
+
+void dth_g2_add_line(const int32_t *in, int32_t *to, int32_t *lo,
+                     long long rows, const uint64_t *mod7) {
+  const dt::Mod M = dt::mod_from_words(mod7);
+  for (long long r = 0; r < rows; r++)
+    dt::miller_line_step(in + r * 12 * dt::N_LIMBS, true,
+                         to + r * 6 * dt::N_LIMBS, lo + r * 6 * dt::N_LIMBS,
+                         M);
+}
+
+void dth_add(const int32_t *a, const int32_t *b, int32_t *o, long long n,
+             const uint64_t *mod7) {
+  const dt::Mod M = dt::mod_from_words(mod7);
+  for (long long e = 0; e < n; e++)
+    dt::add_sub_limbs(a + e * dt::N_LIMBS, b + e * dt::N_LIMBS,
+                      o + e * dt::N_LIMBS, false, M);
+}
+
+void dth_sub(const int32_t *a, const int32_t *b, int32_t *o, long long n,
+             const uint64_t *mod7) {
+  const dt::Mod M = dt::mod_from_words(mod7);
+  for (long long e = 0; e < n; e++)
+    dt::add_sub_limbs(a + e * dt::N_LIMBS, b + e * dt::N_LIMBS,
+                      o + e * dt::N_LIMBS, true, M);
+}
+
 // K11 (q == nullptr) and K12 row by row, the phases of the kernel in its
 // order on one row's words laid out with stride 1.
 static void miller_iter(const int32_t *f, const int32_t *T, const int32_t *Q,
@@ -167,12 +239,10 @@ static void miller_iter(const int32_t *f, const int32_t *T, const int32_t *Q,
   const dt::One one = dt::one_from_words(one6);
   int all[dt::FLAT];
   for (int p = 0; p < dt::FLAT; p++) all[p] = p;
-  const int line_idx[6] = {0, 2, 3, 6, 8, 9};
   const dt::FlatIdx dense = dt::flat_idx(all, dt::FLAT);
-  const dt::FlatIdx line = dt::flat_idx(line_idx, 6);
   const int W = dt::FLAT * dt::N_WORDS;
-  uint64_t buf[2][W], sl[2][6 * dt::N_WORDS], lo[dt::N_WORDS],
-      hi[dt::N_WORDS];
+  // buf[0] f, buf[1] f^2; sl l1 then l2; L = l1 * l2
+  uint64_t buf[2][W], sl[W], L[W], lo[dt::N_WORDS], hi[dt::N_WORDS];
   for (long long r = 0; r < rows; r++) {
     for (int i = 0; i < dt::FLAT; i++)
       dt::flat_stage_coeff(f + (r * dt::FLAT + i) * dt::N_LIMBS,
@@ -183,23 +253,23 @@ static void miller_iter(const int32_t *f, const int32_t *T, const int32_t *Q,
           T + pk * 6 * dt::N_LIMBS, P + pk * 2 * dt::N_LIMBS,
           Q != nullptr ? Q + pk * 4 * dt::N_LIMBS : nullptr, mask[pk],
           To + pk * 6 * dt::N_LIMBS, one, M);
-      dt::line_stage(l, sl[k], 1);
+      dt::line_stage(l, sl + k * 6 * dt::N_WORDS, 1);
     }
     int cur = 0;
     if (Q == nullptr) {
       for (int j = 0; j < 6; j++) {
-        dt::flat_mul_class(j, buf[0], buf[0], 1, dense, lo, hi, M);
+        dt::flat_sqr_class(j, buf[0], 1, lo, hi, M);
         dt::flat_unstage(lo, hi, j, buf[1], 1);
       }
       cur = 1;
     }
-    for (int j = 0; j < 6; j++) {
-      dt::flat_mul_class(j, buf[cur], sl[0], 1, line, lo, hi, M);
-      dt::flat_unstage(lo, hi, j, buf[1 - cur], 1);
-    }
     int32_t *out = fo + r * dt::FLAT * dt::N_LIMBS;
     for (int j = 0; j < 6; j++) {
-      dt::flat_mul_class(j, buf[1 - cur], sl[1], 1, line, lo, hi, M);
+      dt::line_merge_class(j, sl, sl + 6 * dt::N_WORDS, 1, lo, hi, M);
+      dt::flat_unstage(lo, hi, j, L, 1);
+    }
+    for (int j = 0; j < 6; j++) {
+      dt::flat_mul_class(j, buf[cur], L, 1, dense, lo, hi, M);
       dt::store_words(lo, out + j * dt::N_LIMBS);
       dt::store_words(hi, out + (j + 6) * dt::N_LIMBS);
     }

@@ -1,4 +1,4 @@
-// The four Montgomery kernels of the verify path, for sm_90a, behind a
+// The Montgomery and Fp add/sub kernels, for sm_90a, behind a
 // plain C interface (loaded with ctypes by drand_tpu_torch/ops/kernels.py).
 //
 // Common design: one thread per field element.  A thread loads its 128
@@ -43,6 +43,13 @@
 //   of K1's products per 256-384 bytes.  The design keeps the value in
 //   registers across all k squarings (k is a runtime argument), so the
 //   chain costs one read and one write per element however long it is.
+// K21 dt_add -- replaces PallasField.add (:759, body _add_kernel :442).
+// K22 dt_sub -- replaces PallasField.sub (:762, body _sub_kernel :449).
+//   Canonical a + b and a - b mod m, one thread an element: 6-word add (or
+//   subtract) and one conditional correction on 256 bytes in and 128 out,
+//   no multiply: bound by bytes.  Like drand_tpu, whose Field.add/sub stay
+//   in XLA and never call their kernels, the port's Field.add/sub keep
+//   their torch path: these two have no caller on the verify path.
 
 #include <cuda_runtime.h>
 
@@ -121,6 +128,19 @@ __global__ void k_sqr_chain_mul(const int32_t *__restrict__ a,
   store_limbs(lo, o + e * dt::N_LIMBS);
 }
 
+template <bool SUB>
+__global__ void k_add_sub(const int32_t *__restrict__ a,
+                          const int32_t *__restrict__ b,
+                          int32_t *__restrict__ o, long long n, dt::Mod M) {
+  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  int32_t la[dt::N_LIMBS], lb[dt::N_LIMBS], lo[dt::N_LIMBS];
+  load_limbs(a + e * dt::N_LIMBS, la, dt::N_LIMBS);
+  load_limbs(b + e * dt::N_LIMBS, lb, dt::N_LIMBS);
+  dt::add_sub_limbs(la, lb, lo, SUB, M);
+  store_limbs(lo, o + e * dt::N_LIMBS);
+}
+
 unsigned blocks(long long n) { return (unsigned)((n + THREADS - 1) / THREADS); }
 
 }  // namespace
@@ -156,6 +176,22 @@ int dt_sqr_chain_mul(const int32_t *a, const int32_t *t, int32_t *o,
   if (n <= 0) return 0;
   k_sqr_chain_mul<<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>(
       a, t, o, n, k, dt::mod_from_words(mod7));
+  return (int)cudaGetLastError();
+}
+
+int dt_add(const int32_t *a, const int32_t *b, int32_t *o, long long n,
+           const uint64_t *mod7, void *stream) {
+  if (n <= 0) return 0;
+  k_add_sub<false><<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>(
+      a, b, o, n, dt::mod_from_words(mod7));
+  return (int)cudaGetLastError();
+}
+
+int dt_sub(const int32_t *a, const int32_t *b, int32_t *o, long long n,
+           const uint64_t *mod7, void *stream) {
+  if (n <= 0) return 0;
+  k_add_sub<true><<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>(
+      a, b, o, n, dt::mod_from_words(mod7));
   return (int)cudaGetLastError();
 }
 

@@ -19,27 +19,38 @@
 // A block takes 16 rows with six threads a row.  It stages the rows' f in
 // shared memory as words; one warp runs the 32 pair steps (one thread per
 // pair and row) and stages their sparse lines beside f; then the six
-// threads of a row compute the flat products in turn, each owning the
-// convolution classes k = j (mod 6) as K13 does (flat_mul_class): the
-// square f^2 (K11 only, dense), the product with the first line and the
-// product with the second (sparse on LINE_IDX), the last one written out.
-// drand_tpu multiplies the two lines together first (its line merge); the
-// product is the same canonical element in either order.
+// threads of a row compute the flat products, each owning the convolution
+// classes k = j (mod 6) as K13 does: for K11 the square f^2 with K17's
+// slot-symmetric flat_sqr_class (drand_tpu's _sqr_phase, shared by B11
+// and B17); then L = l1 * l2 with K20's line_merge_class (drand_tpu's
+// _line_merge_phase, its default line_merge=True form), written over the
+// two line buffers, and one dense product of f^2 (K11) or f (K12) by L.
+// Shared memory: f, f^2 and the two lines (then L), 27,648 bytes a block.
 //
-// Per row, K11 does 144 + 2 * 72 word products for the flat products
-// with 23 + 2 * 21 REDCs, and 2 x (~13k) multiply-adds for the steps:
-// ~100k multiply-adds on 4.9 KB, bound by operations.  K12 does 2 * 72
-// word products with 42 REDCs and 2 x (~14k) for the additions.
+// Per row, K11 does 66 + 12 triangular word products with 23 REDCs for
+// the square, 36 products with 16 REDCs for L and 144 with 23 for the
+// dense product, and 2 x (~19k) multiply-adds for the steps: ~130k
+// multiply-adds on 6.7 KB, bound by operations.  K12 does L, the dense
+// product and 2 x (~25k) for the additions.
+//
+// The file is compiled twice, in parallel (ops/kernels.py SOURCES), one
+// kernel each: -DDT_MILLER_ADD=0 for K11 (dt_miller_dbl_iter) and =1 for
+// K12 (dt_miller_add_iter).  Each takes nvcc minutes, most of it the
+// inlined pair step.
 
 #include <cuda_runtime.h>
 
 #include "curve_arith.cuh"
 
+#if !defined(DT_MILLER_ADD)
+#error "compile with -DDT_MILLER_ADD=0 (K11) or 1 (K12)"
+#endif
+
 namespace {
 
 constexpr int MR = 16;                 // rows of a block
 constexpr int MT = 6 * MR;             // threads of a block
-constexpr int LINE_IDX[6] = {0, 2, 3, 6, 8, 9};
+constexpr int SLOT = dt::N_WORDS * MR; // words of one coefficient of a block
 
 template <bool ADD>
 __global__ void __launch_bounds__(MT)
@@ -49,17 +60,17 @@ __global__ void __launch_bounds__(MT)
                   const int32_t *__restrict__ P,
                   const int32_t *__restrict__ mask, int32_t *__restrict__ fo,
                   int32_t *__restrict__ To, long long rows,
-                  dt::FlatIdx dense, dt::FlatIdx line, dt::One one,
-                  dt::Mod M) {
-  // word v of coefficient i of block row r at [(i * 6 + v) * MR + r]
-  __shared__ uint64_t sf[dt::FLAT * dt::N_WORDS * MR];
-  __shared__ uint64_t sg[dt::FLAT * dt::N_WORDS * MR];
-  __shared__ uint64_t sl[2][6 * dt::N_WORDS * MR];
+                  dt::FlatIdx dense, dt::One one, dt::Mod M) {
+  // word v of coefficient i of block row r at [(i * 6 + v) * MR + r]; sl
+  // holds l1 (coefficients 0-5) and l2 (6-11), then L
+  __shared__ uint64_t sf[dt::FLAT * SLOT];
+  __shared__ uint64_t sg[dt::FLAT * SLOT];
+  __shared__ uint64_t sl[2 * 6 * SLOT];
   const long long row0 = (long long)blockIdx.x * MR;
   const int t = threadIdx.x;
   for (int s = t; s < MR * dt::FLAT; s += MT) {
     const int r = s % MR, i = s / MR;
-    uint64_t *dst = sf + i * dt::N_WORDS * MR + r;
+    uint64_t *dst = sf + i * SLOT + r;
     if (row0 + r < rows) {
       dt::flat_stage_coeff(f + ((row0 + r) * dt::FLAT + i) * dt::N_LIMBS,
                            dst, MR);
@@ -77,23 +88,22 @@ __global__ void __launch_bounds__(MT)
                                P + pk * 2 * dt::N_LIMBS,
                                ADD ? Q + pk * 4 * dt::N_LIMBS : nullptr,
                                mask[pk], To + pk * 6 * dt::N_LIMBS, one, M);
-    dt::line_stage(l, sl[k] + r, MR);
+    dt::line_stage(l, sl + k * 6 * SLOT + r, MR);
   }
   __syncthreads();
   const int j = t / MR, r = t % MR;
   uint64_t lo[dt::N_WORDS], hi[dt::N_WORDS];
-  uint64_t *cur = sf, *nxt = sg;
-  if (!ADD) {                          // f^2
-    dt::flat_mul_class(j, sf + r, sf + r, MR, dense, lo, hi, M);
+  uint64_t *cur = sf;                  // f, or f^2 for K11
+  if (!ADD) {
+    dt::flat_sqr_class(j, sf + r, MR, lo, hi, M);
     dt::flat_unstage(lo, hi, j, sg + r, MR);
-    __syncthreads();
     cur = sg;
-    nxt = sf;
   }
-  dt::flat_mul_class(j, cur + r, sl[0] + r, MR, line, lo, hi, M);
-  dt::flat_unstage(lo, hi, j, nxt + r, MR);
+  dt::line_merge_class(j, sl + r, sl + 6 * SLOT + r, MR, lo, hi, M);
+  __syncthreads();                     // the lines are read; f^2 is written
+  dt::flat_unstage(lo, hi, j, sl + r, MR);
   __syncthreads();
-  dt::flat_mul_class(j, nxt + r, sl[1] + r, MR, line, lo, hi, M);
+  dt::flat_mul_class(j, cur + r, sl + r, MR, dense, lo, hi, M);
   if (row0 + r < rows) {
     int32_t *out = fo + (row0 + r) * dt::FLAT * dt::N_LIMBS;
     dt::store_words(lo, out + j * dt::N_LIMBS);
@@ -112,8 +122,7 @@ int launch(const int32_t *f, const int32_t *T, const int32_t *Q,
   k_miller_iter<ADD><<<(unsigned)((rows + MR - 1) / MR), MT, 0,
                        (cudaStream_t)stream>>>(
       f, T, Q, P, mask, fo, To, rows, dt::flat_idx(all, dt::FLAT),
-      dt::flat_idx(LINE_IDX, 6), dt::one_from_words(one6),
-      dt::mod_from_words(mod7));
+      dt::one_from_words(one6), dt::mod_from_words(mod7));
   return (int)cudaGetLastError();
 }
 
@@ -122,6 +131,7 @@ int launch(const int32_t *f, const int32_t *T, const int32_t *Q,
 extern "C" {
 
 // one6: Montgomery one, 6 words, host memory.
+#if DT_MILLER_ADD == 0
 int dt_miller_dbl_iter(const int32_t *f, const int32_t *T, const int32_t *P,
                        const int32_t *mask, int32_t *fo, int32_t *To,
                        long long rows, const uint64_t *one6,
@@ -129,12 +139,13 @@ int dt_miller_dbl_iter(const int32_t *f, const int32_t *T, const int32_t *P,
   return launch<false>(f, T, nullptr, P, mask, fo, To, rows, one6, mod7,
                        stream);
 }
-
+#else
 int dt_miller_add_iter(const int32_t *f, const int32_t *T, const int32_t *Q,
                        const int32_t *P, const int32_t *mask, int32_t *fo,
                        int32_t *To, long long rows, const uint64_t *one6,
                        const uint64_t *mod7, void *stream) {
   return launch<true>(f, T, Q, P, mask, fo, To, rows, one6, mod7, stream);
 }
+#endif
 
 }  // extern "C"

@@ -19,43 +19,6 @@ namespace dt {
 
 constexpr int FLAT = 12;      // coefficients of a flat Fp12 element
 
-// r = a + b mod m; a, b in [0, m).  r may alias a or b.
-DT_HD void add_mod(const uint64_t *a, const uint64_t *b, uint64_t *r,
-                   const Mod &M) {
-  uint64_t c = 0;
-  DT_UNROLL
-  for (int j = 0; j < N_WORDS; j++) {
-    const uint64_t s = a[j] + b[j];
-    const uint64_t c1 = s < a[j];
-    r[j] = s + c;
-    c = c1 | (r[j] < s);
-  }
-  cond_sub(r, c, M);
-}
-
-// r = a - b mod m; a, b in [0, m).  r may alias a or b.
-DT_HD void sub_mod(const uint64_t *a, const uint64_t *b, uint64_t *r,
-                   const Mod &M) {
-  uint64_t borrow = 0;
-  DT_UNROLL
-  for (int j = 0; j < N_WORDS; j++) {
-    const uint64_t x = a[j] - b[j];
-    const uint64_t b1 = a[j] < b[j];
-    r[j] = x - borrow;
-    borrow = b1 | (x < borrow);
-  }
-  const uint64_t mask = 0 - borrow;       // add m back where a < b
-  uint64_t c = 0;
-  DT_UNROLL
-  for (int j = 0; j < N_WORDS; j++) {
-    const uint64_t mj = M.m[j] & mask;
-    const uint64_t s = r[j] + mj;
-    const uint64_t c1 = s < mj;
-    r[j] = s + c;
-    c = c1 | (r[j] < s);
-  }
-}
-
 // w += a * b over 13 words (the caller keeps the sum below 2^832).
 DT_HD void mul_acc(const uint64_t *a, const uint64_t *b, uint64_t *w) {
   DT_UNROLL
@@ -195,24 +158,43 @@ inline FlatIdx flat_idx(const int *b_idx, int J) {
   return idx;
 }
 
-// B13, one thread's share of a flat Fp12 product a*b: the convolution
-// coefficients c_k = sum_{i + p = k} a_i b_p for the four k = j (mod 6),
-// k = j, j+6, j+12, j+18 (0 <= j < 6), each reduced on its own, then
-// output slots j and j+6 through w^12 = 2w^6 - 2 iterated:
+// Output slots j and j+6 of a flat Fp12 element from its four reduced
+// convolution coefficients r[q] = c_(j + 6q), 0 <= j < 6, through
+// w^12 = 2w^6 - 2 iterated:
 //
 //   slot j   = c_j      - 2 c_(j+12) - 4 c_(j+18)
 //   slot j+6 = c_(j+6)  + 2 c_(j+12) + 2 c_(j+18)
 //
-// (the rows of _reduce_matrix in ops/flat12.py).  The six classes j cover
-// every k exactly once.  Recombining reduced words with modular adds and
-// subtracts keeps every intermediate in [0, m): no wide offset has to
-// cover a subtraction.  A coefficient sums at most 12 products of
-// canonical operands, < 12 m^2 < 1.22 * 2^384 m, so its REDC value is
-// below 2.22 m and two conditional subtracts make it canonical.
-//
-// Element e of a (of b) is read as words base[(e * 6 + w) * stride],
-// w = 0..5: the kernel's shared-memory layout (stride = rows of a block)
-// and the harness's plain one (stride = 1) alike.
+// (the rows of _reduce_matrix in ops/flat12.py).  Recombining reduced
+// words with modular adds and subtracts keeps every intermediate in
+// [0, m): no wide offset has to cover a subtraction.
+DT_HD void flat_recombine(uint64_t (*r)[N_WORDS], uint64_t *lo,
+                          uint64_t *hi, const Mod &M) {
+  uint64_t u[N_WORDS], v[N_WORDS];
+  add_mod(r[2], r[2], u, M);              // 2 c_(j+12)
+  add_mod(r[3], r[3], v, M);              // 2 c_(j+18)
+  add_mod(r[1], u, hi, M);
+  add_mod(hi, v, hi, M);
+  sub_mod(r[0], u, lo, M);
+  sub_mod(lo, v, lo, M);
+  sub_mod(lo, v, lo, M);
+}
+
+// Words of element e of an operand: base[(e * 6 + v) * stride], v = 0..5,
+// the kernels' shared-memory layout (stride = rows of a block) and the
+// harness's plain one (stride = 1) alike.
+DT_HD void flat_load(const uint64_t *base, int e, int stride, uint64_t *x) {
+  DT_UNROLL
+  for (int v = 0; v < N_WORDS; v++) x[v] = base[(e * N_WORDS + v) * stride];
+}
+
+// B13, one thread's share of a flat Fp12 product a*b: the convolution
+// coefficients c_k = sum_{i + p = k} a_i b_p for the four k = j (mod 6),
+// k = j, j+6, j+12, j+18 (0 <= j < 6), each reduced on its own, then
+// output slots j and j+6 (flat_recombine).  The six classes j cover every
+// k exactly once.  A coefficient sums at most 12 products of canonical
+// operands, < 12 m^2 < 1.22 * 2^384 m, so its REDC value is below 2.22 m
+// and two conditional subtracts make it canonical.
 DT_HD void flat_mul_class(int j, const uint64_t *a, const uint64_t *b,
                           int stride, const FlatIdx &idx, uint64_t *lo,
                           uint64_t *hi, const Mod &M) {
@@ -231,23 +213,105 @@ DT_HD void flat_mul_class(int j, const uint64_t *a, const uint64_t *b,
       const int p = k - i;
       if (p < 0 || p >= FLAT || idx.pos[p] < 0) continue;
       uint64_t x[N_WORDS], y[N_WORDS];
-      DT_UNROLL
-      for (int v = 0; v < N_WORDS; v++) {
-        x[v] = a[(i * N_WORDS + v) * stride];
-        y[v] = b[(idx.pos[p] * N_WORDS + v) * stride];
-      }
+      flat_load(a, i, stride, x);
+      flat_load(b, idx.pos[p], stride, y);
       mul_acc(x, y, w);
     }
     redc_to(w, r[q], 2, M);
   }
-  uint64_t u[N_WORDS], v[N_WORDS];
-  add_mod(r[2], r[2], u, M);              // 2 c_(j+12)
-  add_mod(r[3], r[3], v, M);              // 2 c_(j+18)
-  add_mod(r[1], u, hi, M);
-  add_mod(hi, v, hi, M);
-  sub_mod(r[0], u, lo, M);
-  sub_mod(lo, v, lo, M);
-  sub_mod(lo, v, lo, M);
+  flat_recombine(r, lo, hi, M);
+}
+
+// B17, one thread's share of the flat Fp12 square a^2, slot-symmetric:
+// c_k = 2 sum_{i < k-i} a_i a_(k-i) + a_(k/2)^2 (the last for even k),
+// the off-diagonal products summed once and doubled, the diagonal one a
+// triangular square -- 66 general and 12 triangular products over the
+// six classes where the product takes 144 general ones.  c_k is the
+// product's coefficient, below 12 m^2, reduced and recombined as in
+// flat_mul_class, so the square equals flat_mul_class(a, a) bit for bit.
+DT_HD void flat_sqr_class(int j, const uint64_t *a, int stride, uint64_t *lo,
+                          uint64_t *hi, const Mod &M) {
+  uint64_t r[4][N_WORDS];
+  DT_UNROLL
+  for (int q = 0; q < 4; q++) {
+    const int k = j + 6 * q;
+    if (k > 2 * (FLAT - 1)) {             // no such coefficient
+      DT_UNROLL
+      for (int v = 0; v < N_WORDS; v++) r[q][v] = 0;
+      continue;
+    }
+    uint64_t w[W_WORDS];
+    zero_wide(w);
+    for (int i = k > FLAT - 1 ? k - (FLAT - 1) : 0; 2 * i < k; i++) {
+      uint64_t x[N_WORDS], y[N_WORDS];
+      flat_load(a, i, stride, x);
+      flat_load(a, k - i, stride, y);
+      mul_acc(x, y, w);
+    }
+    // at most 6 products, < 6 m^2 < 2^766: the doubling stays in 13 words
+    DT_UNROLL
+    for (int i = W_WORDS - 1; i > 0; i--)
+      w[i] = (w[i] << 1) | (w[i - 1] >> 63);
+    w[0] <<= 1;
+    if (k % 2 == 0) {
+      uint64_t x[N_WORDS], d[W_WORDS];
+      flat_load(a, k / 2, stride, x);
+      sqr_wide(x, d);
+      uint64_t c = 0;
+      DT_UNROLL
+      for (int i = 0; i < W_WORDS; i++) {
+        const uint64_t s = w[i] + d[i];
+        const uint64_t c1 = s < d[i];
+        w[i] = s + c;
+        c = c1 | (w[i] < s);
+      }
+    }
+    redc_to(w, r[q], 2, M);
+  }
+  flat_recombine(r, lo, hi, M);
+}
+
+// The w-power of coefficient i of a sparse line, LINE_IDX = (0, 2, 3, 6,
+// 8, 9): the slots s = 0, 2, 3 of its three Fp2 cells and s + 6.
+DT_HD int line_pow(int i) { return (i % 3 == 0 ? 0 : i % 3 + 1) + 6 * (i / 3); }
+
+// B20, one thread's share of the product L = l1 l2 of two sparse lines,
+// each six coefficients on LINE_IDX: the 36 products grouped by their
+// power k = p_i + p_j in 0..18 (at most four a power, so below 4 m^2),
+// each power reduced on its own, then output slots j and j + 6 of the
+// dense element through flat_recombine -- the scatter of drand_tpu's
+// _line_merge_tables: k < 12 -> (k, +1); 12 <= k < 18 -> (k - 6, +2),
+// (k - 12, -2); k = 18 -> (6, +2), (0, -4).
+DT_HD void line_merge_class(int j, const uint64_t *l1, const uint64_t *l2,
+                            int stride, uint64_t *lo, uint64_t *hi,
+                            const Mod &M) {
+  uint64_t r[4][N_WORDS];
+  DT_UNROLL
+  for (int q = 0; q < 4; q++) {
+    const int k = j + 6 * q;
+    uint64_t w[W_WORDS];
+    zero_wide(w);
+    bool any = false;
+    DT_UNROLL
+    for (int i = 0; i < 6; i++) {
+      DT_UNROLL
+      for (int jj = 0; jj < 6; jj++) {
+        if (line_pow(i) + line_pow(jj) != k) continue;
+        uint64_t x[N_WORDS], y[N_WORDS];
+        flat_load(l1, i, stride, x);
+        flat_load(l2, jj, stride, y);
+        mul_acc(x, y, w);
+        any = true;
+      }
+    }
+    if (any) {
+      redc_to(w, r[q], 2, M);
+    } else {                              // powers 1, 7, 13 and above 18
+      DT_UNROLL
+      for (int v = 0; v < N_WORDS; v++) r[q][v] = 0;
+    }
+  }
+  flat_recombine(r, lo, hi, M);
 }
 
 // Fp2 helpers for the cyclotomic square, on (x, y) word pairs.

@@ -56,6 +56,22 @@
 //   constants (passed by value), four products and two adds, one thread
 //   per slot pair: 24 Montgomery products on 3 KB a row, bound by bytes.
 
+// K17 dt_flat_sqr -- replaces PallasField.flat_sqr (:1758, body
+//   _flat_sqr_kernel :1749, phase _sqr_phase :929).  The slot-symmetric
+//   flat Fp12 square: K13's launch shape (32 rows staged in shared memory,
+//   six threads a row, thread j owning the powers k = j mod 6), a only,
+//   with flat_sqr_class: 66 general and 12 triangular word products and 23
+//   REDCs a row where K13 takes 144 and 23, ~28.2k multiply-adds on 3 KB,
+//   bound by operations.  K11's square is the same device function.
+// K20 dt_line_merge -- replaces PallasField.line_merge (:1898, body
+//   _line_merge_kernel :1887, phase _line_merge_phase :1864).  The dense
+//   product of two sparse lines on LINE_IDX, the same launch shape with
+//   line_merge_class: 36 word products and 16 REDCs a row, ~15.4k
+//   multiply-adds on 3 KB, bound by operations and bytes alike (0.92 ns
+//   a row each).  Like drand_tpu's, it has no
+//   caller on the verify path: its body runs inside K11 and K12, which
+//   merge the two lines before the dense product.
+
 #include <cuda_runtime.h>
 
 #include "tower_arith.cuh"
@@ -90,6 +106,23 @@ __global__ void k_fp2_sqrs(const int32_t *__restrict__ x,
   dt::fp2_sqr_limbs(x + c0, x + c1, o + c0, o + c1, M);
 }
 
+// Stages `width` coefficients of each of a block's FLAT_ROWS rows of x
+// [rows, width, 32] into dst as words, coefficient c of block row r at
+// [(c * 6 + v) * FLAT_ROWS + r]; rows past the end are zero.  Called by
+// every thread of the block.
+__device__ void stage_rows(const int32_t *__restrict__ x, int width,
+                           long long row0, long long rows, uint64_t *dst) {
+  for (int s = threadIdx.x; s < FLAT_ROWS * width; s += FLAT_THREADS) {
+    const int r = s % FLAT_ROWS, c = s / FLAT_ROWS;
+    uint64_t w[dt::N_WORDS] = {0, 0, 0, 0, 0, 0};
+    if (row0 + r < rows)
+      dt::load_words(x + ((row0 + r) * width + c) * dt::N_LIMBS, w);
+#pragma unroll
+    for (int v = 0; v < dt::N_WORDS; v++)
+      dst[(c * dt::N_WORDS + v) * FLAT_ROWS + r] = w[v];
+  }
+}
+
 __global__ void __launch_bounds__(FLAT_THREADS)
     k_flat_mul(const int32_t *__restrict__ a, const int32_t *__restrict__ b,
                int32_t *__restrict__ o, long long rows, int J,
@@ -98,25 +131,48 @@ __global__ void __launch_bounds__(FLAT_THREADS)
   __shared__ uint64_t sa[dt::FLAT * dt::N_WORDS * FLAT_ROWS];
   __shared__ uint64_t sb[dt::FLAT * dt::N_WORDS * FLAT_ROWS];
   const long long row0 = (long long)blockIdx.x * FLAT_ROWS;
-  const int t = threadIdx.x;
-  for (int s = t; s < FLAT_ROWS * (dt::FLAT + J); s += FLAT_THREADS) {
-    const int r = s % FLAT_ROWS, i = s / FLAT_ROWS;
-    const bool of_a = i < dt::FLAT;
-    const int c = of_a ? i : i - dt::FLAT, width = of_a ? dt::FLAT : J;
-    uint64_t w[dt::N_WORDS] = {0, 0, 0, 0, 0, 0};
-    if (row0 + r < rows)
-      dt::load_words((of_a ? a : b) + ((row0 + r) * width + c) * dt::N_LIMBS,
-                     w);
-    uint64_t *dst = of_a ? sa : sb;
-#pragma unroll
-    for (int v = 0; v < dt::N_WORDS; v++)
-      dst[(c * dt::N_WORDS + v) * FLAT_ROWS + r] = w[v];
-  }
+  stage_rows(a, dt::FLAT, row0, rows, sa);
+  stage_rows(b, J, row0, rows, sb);
   __syncthreads();
-  const int j = t / FLAT_ROWS, r = t % FLAT_ROWS;
+  const int j = threadIdx.x / FLAT_ROWS, r = threadIdx.x % FLAT_ROWS;
   if (row0 + r >= rows) return;
   uint64_t lo[dt::N_WORDS], hi[dt::N_WORDS];
   dt::flat_mul_class(j, sa + r, sb + r, FLAT_ROWS, idx, lo, hi, M);
+  int32_t *out = o + (row0 + r) * dt::FLAT * dt::N_LIMBS;
+  dt::store_words(lo, out + j * dt::N_LIMBS);
+  dt::store_words(hi, out + (j + 6) * dt::N_LIMBS);
+}
+
+__global__ void __launch_bounds__(FLAT_THREADS)
+    k_flat_sqr(const int32_t *__restrict__ a, int32_t *__restrict__ o,
+               long long rows, dt::Mod M) {
+  __shared__ uint64_t sa[dt::FLAT * dt::N_WORDS * FLAT_ROWS];
+  const long long row0 = (long long)blockIdx.x * FLAT_ROWS;
+  stage_rows(a, dt::FLAT, row0, rows, sa);
+  __syncthreads();
+  const int j = threadIdx.x / FLAT_ROWS, r = threadIdx.x % FLAT_ROWS;
+  if (row0 + r >= rows) return;
+  uint64_t lo[dt::N_WORDS], hi[dt::N_WORDS];
+  dt::flat_sqr_class(j, sa + r, FLAT_ROWS, lo, hi, M);
+  int32_t *out = o + (row0 + r) * dt::FLAT * dt::N_LIMBS;
+  dt::store_words(lo, out + j * dt::N_LIMBS);
+  dt::store_words(hi, out + (j + 6) * dt::N_LIMBS);
+}
+
+__global__ void __launch_bounds__(FLAT_THREADS)
+    k_line_merge(const int32_t *__restrict__ l1,
+                 const int32_t *__restrict__ l2, int32_t *__restrict__ o,
+                 long long rows, dt::Mod M) {
+  __shared__ uint64_t s1[6 * dt::N_WORDS * FLAT_ROWS];
+  __shared__ uint64_t s2[6 * dt::N_WORDS * FLAT_ROWS];
+  const long long row0 = (long long)blockIdx.x * FLAT_ROWS;
+  stage_rows(l1, 6, row0, rows, s1);
+  stage_rows(l2, 6, row0, rows, s2);
+  __syncthreads();
+  const int j = threadIdx.x / FLAT_ROWS, r = threadIdx.x % FLAT_ROWS;
+  if (row0 + r >= rows) return;
+  uint64_t lo[dt::N_WORDS], hi[dt::N_WORDS];
+  dt::line_merge_class(j, s1 + r, s2 + r, FLAT_ROWS, lo, hi, M);
   int32_t *out = o + (row0 + r) * dt::FLAT * dt::N_LIMBS;
   dt::store_words(lo, out + j * dt::N_LIMBS);
   dt::store_words(hi, out + (j + 6) * dt::N_LIMBS);
@@ -202,6 +258,24 @@ int dt_flat_mul(const int32_t *a, const int32_t *b, int32_t *o,
   k_flat_mul<<<blocks(rows, FLAT_ROWS), FLAT_THREADS, 0,
                (cudaStream_t)stream>>>(a, b, o, rows, J, idx,
                                        dt::mod_from_words(mod7));
+  return (int)cudaGetLastError();
+}
+
+int dt_flat_sqr(const int32_t *a, int32_t *o, long long rows,
+                const uint64_t *mod7, void *stream) {
+  if (rows <= 0) return 0;
+  k_flat_sqr<<<blocks(rows, FLAT_ROWS), FLAT_THREADS, 0,
+               (cudaStream_t)stream>>>(a, o, rows, dt::mod_from_words(mod7));
+  return (int)cudaGetLastError();
+}
+
+// l1, l2 [rows, 6, 32] on LINE_IDX; o [rows, 12, 32] dense.
+int dt_line_merge(const int32_t *l1, const int32_t *l2, int32_t *o,
+                  long long rows, const uint64_t *mod7, void *stream) {
+  if (rows <= 0) return 0;
+  k_line_merge<<<blocks(rows, FLAT_ROWS), FLAT_THREADS, 0,
+                 (cudaStream_t)stream>>>(l1, l2, o, rows,
+                                         dt::mod_from_words(mod7));
   return (int)cudaGetLastError();
 }
 

@@ -3,7 +3,8 @@ pedersen-bls schemes), in PyTorch.
 
 Counterpart of `drand_tpu/ops/bls.py` (g2_decompress, verify_g2_sigs):
 compressed-point deserialization, the G2 subgroup check, hash-to-curve,
-a shared 2-pair Miller loop and one final exponentiation per element,
+a shared 2-pair Miller loop (either executor) and one final
+exponentiation per element,
 batched over the round axis.
 """
 
@@ -72,13 +73,15 @@ _NEG_G1_GEN = g1_affine_limbs(GC.g1_neg(GC.G1_GEN))
 
 
 def verify_g2_sigs(msgs: torch.Tensor, sig_bytes: torch.Tensor, pk_aff,
-                   dst: bytes):
+                   dst: bytes, merged=None):
     """Batched BLS verify, signatures on G2.
 
     msgs [B, L] uint8 (digested round messages), sig_bytes [B, 96] uint8,
     pk_aff = (x, y) [32] int32 affine G1 limbs on the batch's device.
     Checks e(-g1, sigma) * e(pk, H(m)) == 1 plus deserialization validity
-    and G2 subgroup membership."""
+    and G2 subgroup membership.  merged chooses the Miller executor as
+    `pairing.pairing_check_pairs` takes it (None: the merged one, as for
+    any two pairs)."""
     shape, d = msgs.shape[:-1], msgs.device
     (sx, sy), s_inf, s_valid = g2_decompress(sig_bytes)
     sig_jac = (sx, sy, T.fp2_broadcast(T.FP2_ONE, shape, d))
@@ -90,6 +93,6 @@ def verify_g2_sigs(msgs: torch.Tensor, sig_bytes: torch.Tensor, pk_aff,
     p1 = tuple(T.fp_broadcast(c, shape, d) for c in _NEG_G1_GEN)
     p2 = tuple(T.fp_broadcast(c, shape, d) for c in pk_aff)
     ok = DP.pairing_check_pairs([(p1, (sx, sy)), (p2, (hx, hy))],
-                                active=[~s_inf, ~h_inf])
+                                active=[~s_inf, ~h_inf], merged=merged)
     return ok & s_valid & ~s_inf & in_sub
 

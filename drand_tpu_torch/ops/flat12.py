@@ -5,13 +5,15 @@ is flattened onto {1, w, ..., w^11} over Fp (w^2 = v, v^3 = xi = 1 + u,
 u^2 = -1), so a product is a convolution of all coefficient pairs onto
 w-powers, a Montgomery reduction and a signed recombination through the
 minimal polynomial w^12 - 2 w^6 + 2 = 0.  On a GPU tensor the product
-(`flat_mul`, dense or sparse), the cyclotomic square, the conjugation and
-the Frobenius map are one hand-written CUDA kernel each (K13, K14, K15
-and K16 in `ops/kernels.py`, as `drand_tpu` takes its Pallas kernels on
-its chip); a CPU tensor takes the plain versions `_flat_mul_plain`,
-`_flat_cyclo_sqr_plain`, `_flat_conj_plain` and `_flat_frob_plain`,
-`drand_tpu`'s composite branches.  Every output is canonical, so kernel
-and plain version agree bit for bit.
+(`flat_mul`, dense or sparse), the cyclotomic square, the conjugation,
+the Frobenius map, the slot-symmetric square and the product of two
+sparse lines are one hand-written CUDA kernel each (K13, K14, K15, K16,
+K17 and K20 in `ops/kernels.py`, as `drand_tpu` takes its Pallas kernels
+on its chip); a CPU tensor takes the plain versions `_flat_mul_plain`,
+`_flat_cyclo_sqr_plain`, `_flat_conj_plain`, `_flat_frob_plain`,
+`_flat_sqr_plain` and `_line_merge_plain`, `drand_tpu`'s composite
+branches.  Every output is canonical, so kernel and plain version agree
+bit for bit.
 
 Basis mapping: the tower element ((a0,a1,a2),(b0,b1,b2)) with Fp2 cells
 c = x + y*u occupies slots s(a0)=0, s(b0)=1, s(a1)=2, s(b1)=3, s(a2)=4,
@@ -198,6 +200,42 @@ def _flat_mul_plain(a, b, b_idx=tuple(range(12))):
     s.index_add_(-2, dev(tb["neg_j"], d),
                  nred[..., dev(tb["neg_k"], d), :] * dev(tb["neg_w"], d))
     return FP.reduce_small_multiple(_carry(s), tb["bound"])
+
+
+def flat_sqr(a):
+    """a^2, slot-symmetric: kernel K17 on a GPU tensor."""
+    if a.device.type == "cpu":
+        return _flat_sqr_plain(a)
+    return K.flat_sqr(a, FP)
+
+
+def _flat_sqr_plain(a):
+    """Plain version of K17: the product a * a (the same canonical
+    element)."""
+    return _flat_mul_plain(a, a)
+
+
+# Sparse line: Fp2 triple (a, b, c) meaning a + b*w^2 + c*w^3, i.e. flat
+# slots {0, 2, 3, 6, 8, 9}.
+LINE_IDX = (0, 2, 3, 6, 8, 9)
+
+
+def line_merge(l1, l2):
+    """The dense [..., 12, 32] product of two sparse lines [..., 6, 32] on
+    LINE_IDX: kernel K20 on a GPU tensor."""
+    if l1.device.type == "cpu":
+        return _line_merge_plain(l1, l2)
+    return K.line_merge(l1, l2, FP)
+
+
+def _line_merge_plain(l1, l2):
+    """Plain version of K20: l1 scattered to a dense element, times l2
+    through the plain sparse product."""
+    shape = torch.broadcast_shapes(l1.shape[:-2], l2.shape[:-2])
+    dense = torch.zeros(shape + (12, N_LIMBS), dtype=l1.dtype,
+                        device=l1.device)
+    dense[..., list(LINE_IDX), :] = l1
+    return _flat_mul_plain(dense, l2, LINE_IDX)
 
 
 def flat_conj(a):

@@ -12,10 +12,11 @@ broadcast operands contiguous, checks device, dtype, shape, contiguity and
 alignment and raises on anything else, allocates its output with
 `torch.empty`, launches on PyTorch's current stream, raises on a CUDA
 error, and adds one to its kernel's `launches` where it launches (and
-counts the launch under its call in `calls`: field and shape, and k for
-K4; shape and n for K5/K6; shape and b_idx for K13; shape, k and whether
-t is given for K7; shape for K8, K9, K11, K12, K14 and K15; shape and
-with_double for K10; shape and n for K16).
+counts the launch under its call in `calls`: field and shape for K1-K3,
+K21 and K22, and k and whether t is given for K4; shape and n for K5/K6;
+shape and b_idx for K13; shape, k and whether t is given for K7; shape
+for K8, K9, K11, K12, K14, K15, K17-K20; shape and with_double for K10;
+shape and n for K16).
 """
 
 from __future__ import annotations
@@ -36,8 +37,14 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "drand_tpu_torch"
-SOURCES = ("field_kernels.cu", "tower_kernels.cu", "curve_kernels.cu",
-           "miller_kernels.cu")
+# one nvcc per entry, all started together: a source and its own flags.
+# curve_kernels.cu and miller_kernels.cu are each built in two parts, each
+# part minutes of nvcc.
+SOURCES = (("field_kernels.cu", ()), ("tower_kernels.cu", ()),
+           ("curve_kernels.cu", ("-DDT_CURVE_PART=0",)),
+           ("curve_kernels.cu", ("-DDT_CURVE_PART=1",)),
+           ("miller_kernels.cu", ("-DDT_MILLER_ADD=0",)),
+           ("miller_kernels.cu", ("-DDT_MILLER_ADD=1",)))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libdrand_tpu_torch_kernels.so"
@@ -92,6 +99,16 @@ KERNELS = {
                         "drand_tpu/ops/pallas_field.py:1812", _TOWER),
     "flat_frob": Kernel("flat_frob", "dt_flat_frob",
                         "drand_tpu/ops/pallas_field.py:1834", _TOWER),
+    "flat_sqr": Kernel("flat_sqr", "dt_flat_sqr",
+                       "drand_tpu/ops/pallas_field.py:1758", _TOWER),
+    "g2_dbl_line": Kernel("g2_dbl_line", "dt_g2_dbl_line",
+                          "drand_tpu/ops/pallas_field.py:1538", _CURVE),
+    "g2_add_line": Kernel("g2_add_line", "dt_g2_add_line",
+                          "drand_tpu/ops/pallas_field.py:1551", _CURVE),
+    "line_merge": Kernel("line_merge", "dt_line_merge",
+                         "drand_tpu/ops/pallas_field.py:1898", _TOWER),
+    "add": Kernel("add", "dt_add", "drand_tpu/ops/pallas_field.py:759"),
+    "sub": Kernel("sub", "dt_sub", "drand_tpu/ops/pallas_field.py:762"),
 }
 
 
@@ -127,6 +144,12 @@ _ARGTYPES = {
     "dt_miller_add_iter": [_P, _P, _P, _P, _P, _P, _P, _LL, _P, _P, _P],
     "dt_flat_conj": [_P, _P, _LL, _P, _P],
     "dt_flat_frob": [_P, _P, _LL, _P, _P, _P],
+    "dt_flat_sqr": [_P, _P, _LL, _P, _P],
+    "dt_g2_dbl_line": [_P, _P, _P, _LL, _P, _P],
+    "dt_g2_add_line": [_P, _P, _P, _LL, _P, _P],
+    "dt_line_merge": [_P, _P, _P, _LL, _P, _P],
+    "dt_add": [_P, _P, _P, _LL, _P, _P],
+    "dt_sub": [_P, _P, _P, _LL, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -134,7 +157,7 @@ _state: dict = {}
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(f"{NVCC_FLAGS} {SOURCES}".encode())
     for p in sorted(CSRC.iterdir()):
         if p.suffix in (".cu", ".cuh"):
             h.update(p.name.encode())
@@ -155,18 +178,20 @@ def _compile(out_dir: Path) -> dict:
     nvcc = _nvcc()
     t0 = time.perf_counter()
     procs = []
-    for src in SOURCES:
-        obj = out_dir / (Path(src).stem + f".{os.getpid()}.o")
-        cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)]
-        procs.append((src, obj, subprocess.Popen(
+    for i, (src, flags) in enumerate(SOURCES):
+        obj = out_dir / (Path(src).stem + f".{i}.{os.getpid()}.o")
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-c", str(CSRC / src), "-o",
+               str(obj)]
+        procs.append((" ".join((src, *flags)), obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     logs, objs, failed = [], [], []
-    for src, obj, proc in procs:
+    for what, obj, proc in procs:
         out, err = proc.communicate()
-        logs.append(f"== {src}\n{out}{err}")
+        logs.append(f"== {what} (done by {time.perf_counter() - t0:.1f} s)\n"
+                    f"{out}{err}")
         objs.append(str(obj))
         if proc.returncode:
-            failed.append(src)
+            failed.append(what)
     (out_dir / "nvcc.log").write_text("\n".join(logs))
     if failed:
         raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
@@ -236,6 +261,7 @@ def _same(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
 
 
 def _launch(name: str, call: tuple, device: torch.device, *args) -> None:
+    """Launch `name`'s kernel and count the launch."""
     lib = _lib()
     kernel = KERNELS[name]
     with torch.cuda.device(device):
@@ -491,7 +517,8 @@ def _miller_check(f, T, P, masks, Q=None):
 def miller_dbl_iter(f, T, P, masks, field):
     """K11: one merged Miller doubling iteration of the two-pair check.
     f [..., 12, 32], T [..., 2, 6, 32], P [..., 2, 2, 32], masks [..., 2]
-    int32; returns (f^2 * l1 * l2, the doubled T)."""
+    int32; returns (f^2 * l1 * l2, the doubled T), the two lines
+    multiplied together first."""
     f, T, P = f.contiguous(), T.contiguous(), P.contiguous()
     rows = _miller_check(f, T, P, masks)
     fo, To = torch.empty_like(f), torch.empty_like(T)
@@ -546,3 +573,84 @@ def flat_frob(a: torch.Tensor, n: int, consts: np.ndarray,
                 a.data_ptr(), out.data_ptr(), rows, consts.ctypes.data,
                 field.kernel_arg.ctypes.data)
     return out
+
+
+def flat_sqr(a: torch.Tensor, field) -> torch.Tensor:
+    """K17: the slot-symmetric square of flat Fp12 [..., 12, 32],
+    canonical in and out (the function of `flat_mul(a, a)`)."""
+    a = a.contiguous()
+    _shaped(a, "flat_sqr a", (12, 32))
+    out = torch.empty_like(a)
+    rows = a.numel() // (12 * 32)
+    if rows:
+        _launch("flat_sqr", tuple(a.shape), a.device, a.data_ptr(),
+                out.data_ptr(), rows, field.kernel_arg.ctypes.data)
+    return out
+
+
+def _line_step(name: str, x: torch.Tensor, width: int, field):
+    x = x.contiguous()
+    _shaped(x, f"{name} in", (width, 32))
+    lead = x.shape[:-2]
+    to = torch.empty(lead + (6, 32), dtype=torch.int32, device=x.device)
+    lo = torch.empty_like(to)
+    rows = x.numel() // (width * 32)
+    if rows:
+        _launch(name, tuple(x.shape), x.device, x.data_ptr(), to.data_ptr(),
+                lo.data_ptr(), rows, field.kernel_arg.ctypes.data)
+    return to, lo
+
+
+def g2_dbl_line(x: torch.Tensor, field):
+    """K18: the Miller doubling step on rows x [..., 8, 32] (X0 X1 Y0 Y1
+    Z0 Z1 xp yp); returns (T' [..., 6, 32], the line triple a0 a1 b0 b1
+    c0 c1 [..., 6, 32])."""
+    return _line_step("g2_dbl_line", x, 8, field)
+
+
+def g2_add_line(x: torch.Tensor, field):
+    """K19: the Miller mixed-addition step on rows x [..., 12, 32] (X0 X1
+    Y0 Y1 Z0 Z1 xq0 xq1 yq0 yq1 xp yp); returns (T', the line triple)."""
+    return _line_step("g2_add_line", x, 12, field)
+
+
+def line_merge(l1: torch.Tensor, l2: torch.Tensor, field) -> torch.Tensor:
+    """K20: the dense [..., 12, 32] product of two sparse lines [..., 6,
+    32] on LINE_IDX; leading shapes broadcast."""
+    shape = torch.broadcast_shapes(l1.shape[:-2], l2.shape[:-2])
+    l1 = l1.expand(shape + (6, 32)).contiguous()
+    l2 = l2.expand(shape + (6, 32)).contiguous()
+    _shaped(l1, "line_merge l1", (6, 32))
+    _shaped(l2, "line_merge l2", (6, 32))
+    _same(l1, l2, "line_merge")
+    out = torch.empty(shape + (12, 32), dtype=torch.int32, device=l1.device)
+    rows = l1.numel() // (6 * 32)
+    if rows:
+        _launch("line_merge", tuple(out.shape), l1.device, l1.data_ptr(),
+                l2.data_ptr(), out.data_ptr(), rows,
+                field.kernel_arg.ctypes.data)
+    return out
+
+
+def _add_sub(name: str, a: torch.Tensor, b: torch.Tensor, field):
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    a, b = a.expand(shape).contiguous(), b.expand(shape).contiguous()
+    _check(a, f"{name} a", 32)
+    _check(b, f"{name} b", 32)
+    _same(a, b, name)
+    out = torch.empty_like(a)
+    n = a.numel() // 32
+    if n:
+        _launch(name, (field.name, tuple(a.shape)), a.device, a.data_ptr(),
+                b.data_ptr(), out.data_ptr(), n, field.kernel_arg.ctypes.data)
+    return out
+
+
+def add(a: torch.Tensor, b: torch.Tensor, field) -> torch.Tensor:
+    """K21: canonical (a + b) mod m, [..., 32] limbs, shapes broadcast."""
+    return _add_sub("add", a, b, field)
+
+
+def sub(a: torch.Tensor, b: torch.Tensor, field) -> torch.Tensor:
+    """K22: canonical (a - b) mod m, [..., 32] limbs, shapes broadcast."""
+    return _add_sub("sub", a, b, field)

@@ -258,3 +258,98 @@ def test_curve_and_pairing_ops_reach_their_kernels_on_card(cuda, monkeypatch):
                  "flat_frob"):
         assert counts[name] > 0, (name, counts)
     assert counts["miller_add_iter"] == 5 and counts["miller_dbl_iter"] == 63
+
+
+def test_trio_kernels_match_plain_versions_on_card(cuda):
+    """K17 and K20 with the all-(p-1) and zero rows, K18 and K19 on three
+    pairs stacked on the rows (Z = 1 in the first rows), K21 and K22 with
+    0, 1 and p-1 meeting each other."""
+    from drand_tpu_torch.ops import flat12 as F
+    from drand_tpu_torch.ops import kernels as K
+    from drand_tpu_torch.ops import pairing as PR
+    from drand_tpu_torch.ops.field import FP
+    rng = np.random.default_rng(20)
+    a = _fp_rows(rng, (101, 12))
+    a[0] = _max_flat_row()
+    a[1] = 0
+    a = a.to(cuda)
+    assert torch.equal(K.flat_sqr(a, FP), F._flat_sqr_plain(a))
+    l1, l2 = a[..., :6, :], a.flip(0)[..., 6:, :]
+    assert torch.equal(K.line_merge(l1, l2, FP), F._line_merge_plain(l1, l2))
+    for width, step in ((8, PR._dbl_step_plain), (12, PR._add_step_plain)):
+        x = _fp_rows(rng, (3, 50, width))
+        x[:, :5, 4] = FP.one_mont
+        x[:, :5, 5] = 0
+        x = x.to(cuda)
+        to, lo = (K.g2_add_line if width == 12 else K.g2_dbl_line)(x, FP)
+        c = [x[..., i, :] for i in range(width)]
+        Tj = ((c[0], c[1]), (c[2], c[3]), (c[4], c[5]))
+        args = ((Tj, c[6], c[7]) if width == 8 else
+                (Tj, ((c[6], c[7]), (c[8], c[9])), c[10], c[11]))
+        Tn, L = step(*args)
+        assert torch.equal(to, torch.stack([v for xy in Tn for v in xy], -2))
+        assert torch.equal(lo, torch.stack([v for xy in L for v in xy], -2))
+    e = _fp_rows(rng, (40,)).to(cuda)
+    x, y = e.repeat_interleave(40, 0), e.repeat(40, 1)
+    assert torch.equal(K.add(x, y, FP), FP.add(x, y))
+    assert torch.equal(K.sub(x, y, FP), FP.sub(x, y))
+
+
+def test_three_pair_check_reaches_trio_kernels_on_card(cuda, monkeypatch):
+    """pairing_check_pairs at K = 3 takes the trio executor on the card:
+    K17, K18, K19 (and K13 for the lines) launch, K11 and K12 do not, no
+    plain version runs, and the verdicts equal the golden model's."""
+    from drand_tpu_torch.crypto.bls12381 import curve as GC
+    from drand_tpu_torch.crypto.bls12381 import pairing as GP
+    from drand_tpu_torch.ops import flat12 as F
+    from drand_tpu_torch.ops import kernels as K
+    from drand_tpu_torch.ops import pairing as PR
+    from drand_tpu_torch.ops.field import FP
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    for mod, name in ((F, "_flat_sqr_plain"), (F, "_flat_mul_plain"),
+                      (PR, "_dbl_step_plain"), (PR, "_add_step_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    p = GC.g1_mul(GC.G1_GEN, 0x1234567)
+    q = GC.g2_mul_raw(GC.G2_GEN, 0x7654321)
+    rows = [[(p, q), (GC.g1_neg(p), q), (p, q)]] * 2
+
+    def enc(vals):
+        return torch.from_numpy(FP.encode(vals)).to(cuda)
+    pairs = []
+    for k in range(3):
+        (xp, yp), (xq, yq) = (GC.g1_affine(rows[0][k][0]),
+                              GC.g2_affine(rows[0][k][1]))
+        pairs.append(((enc([xp] * 2), enc([yp] * 2)),
+                      ((enc([xq[0]] * 2), enc([xq[1]] * 2)),
+                       (enc([yq[0]] * 2), enc([yq[1]] * 2)))))
+    active = [torch.tensor([True, True], device=cuda),
+              torch.tensor([True, True], device=cuda),
+              torch.tensor([False, True], device=cuda)]
+    K.reset_launches()
+    ok = PR.pairing_check_pairs(pairs, active)
+    counts = K.launch_counts()
+    for name in ("flat_sqr", "g2_dbl_line", "g2_add_line", "flat_mul"):
+        assert counts[name] > 0, (name, counts)
+    assert counts["miller_dbl_iter"] == counts["miller_add_iter"] == 0
+    want = [GP.pairing_check(rows[0][:2]), GP.pairing_check(rows[0])]
+    assert ok.tolist() == want == [True, False]
+
+
+def test_trio_verifier_on_card(cuda):
+    """The trio Miller executor verifies the committed chained rounds 2-9
+    and refuses one with a flipped byte."""
+    from drand_tpu_torch import fixtures as FX
+    from drand_tpu_torch import verify as V
+    from drand_tpu_torch.profiling import trio_batch_async
+    _, pk = FX.fixture_keypair()
+    sigs, _, _ = FX.load_chained_fixture()
+    ver = V.Verifier(pk, V.SHAPE_CHAINED)
+    rounds = np.arange(2, 10, dtype=np.uint64)
+    bad = sigs[1:9].copy()
+    bad[3, 40] ^= 1
+    assert trio_batch_async(ver, rounds, sigs[1:9], sigs[:8])().all()
+    assert trio_batch_async(ver, rounds, bad, sigs[:8])().tolist() == \
+        [True] * 3 + [False] + [True] * 4

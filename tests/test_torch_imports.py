@@ -114,6 +114,18 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         K.flat_conj(f, FP)
     with pytest.raises(ValueError, match="CUDA tensor"):
         K.flat_frob(f, 1, F._FROB_WORDS[1], FP)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.flat_sqr(f, FP)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.g2_dbl_line(torch.zeros((3, 2, 8, 32), dtype=torch.int32), FP)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.g2_add_line(torch.zeros((3, 2, 12, 32), dtype=torch.int32), FP)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.line_merge(f[..., :6, :], f[..., 6:, :], FP)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.add(a, a, FP)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.sub(a, a, FP)
 
 
 def convert_pk():

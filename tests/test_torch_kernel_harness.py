@@ -15,8 +15,13 @@ sparse, with the all-(p-1) stored-coefficient operand; K14
 unitary ones; K7/K8 (`towers._fp2_sqr_chain_mul_plain`); K9/K10 (the
 `ops/curve.py` formulas under `Fp2PlainOps`) on random coordinates with
 the doubling, cancelling and infinite cases among them; K11/K12
-(`pairing._miller_*_iter_plain`) with active and inactive pairs; K15/K16
-(`flat12._flat_conj_plain`, `_flat_frob_plain`).
+(`pairing._miller_*_iter_plain`) with active and inactive pairs, and
+against f^2 (or f) times the two lines one after the other;
+K15/K16 (`flat12._flat_conj_plain`, `_flat_frob_plain`); K17/K20
+(`flat12._flat_sqr_plain`, `_line_merge_plain`) with the all-(p-1) and
+zero operands; K18/K19 (`pairing._dbl_step_plain`, `_add_step_plain`)
+on K-stacked rows; K21/K22 (`Field.add`, `Field.sub`) at
+0, 1 and m-1.
 """
 
 import ctypes
@@ -66,12 +71,20 @@ def host_lib(tmp_path_factory):
     lib.dth_g2_point_add.argtypes = [P_, P_, P_, LL, I, P_, P_]
     lib.dth_miller_dbl_iter.argtypes = [P_] * 6 + [LL, P_, P_]
     lib.dth_miller_add_iter.argtypes = [P_] * 7 + [LL, P_, P_]
+    lib.dth_flat_sqr.argtypes = [P_, P_, LL, P_]
+    lib.dth_line_merge.argtypes = [P_, P_, P_, LL, P_]
+    lib.dth_g2_dbl_line.argtypes = [P_, P_, P_, LL, P_]
+    lib.dth_g2_add_line.argtypes = [P_, P_, P_, LL, P_]
+    lib.dth_add.argtypes = [P_, P_, P_, LL, P_]
+    lib.dth_sub.argtypes = [P_, P_, P_, LL, P_]
     for fn in (lib.dth_mont_mul, lib.dth_mont_sqr, lib.dth_mont_reduce,
                lib.dth_sqr_chain_mul, lib.dth_fp2_products, lib.dth_fp2_sqrs,
                lib.dth_flat_mul, lib.dth_cyclo_sqr, lib.dth_fp2_sqr_chain_mul,
                lib.dth_fp2_sqr5_mul, lib.dth_flat_conj, lib.dth_flat_frob,
                lib.dth_g2_point_dbl, lib.dth_g2_point_add,
-               lib.dth_miller_dbl_iter, lib.dth_miller_add_iter):
+               lib.dth_miller_dbl_iter, lib.dth_miller_add_iter,
+               lib.dth_flat_sqr, lib.dth_line_merge, lib.dth_g2_dbl_line,
+               lib.dth_g2_add_line, lib.dth_add, lib.dth_sub):
         fn.restype = None
     return lib
 
@@ -298,7 +311,10 @@ def test_g2_point_dbl_and_add(host_lib):
 
 def test_miller_iterations(host_lib):
     """K11 and K12 on random rows: f, T (Z = 1 in row 0, as at the loop's
-    start), P, Q, and masks with every active/inactive combination."""
+    start), P, Q, and masks with every active/inactive combination;
+    against their plain versions, and f' against f^2 (K11) or f (K12)
+    times the two masked lines one after the other: the merge gives the
+    same element."""
     rows = 8
     f = _fp_rows((rows, 12), seed=24)
     f[1] = _max_flat()
@@ -310,15 +326,108 @@ def test_miller_iterations(host_lib):
     masks = np.array([[1, 1], [1, 0], [0, 1], [0, 0]] * 2, np.int32)
     fo, To = np.empty_like(f), np.empty_like(Ts)
     tf, tT, tP, tQ, tm = map(torch.as_tensor, (f, Ts, P, Q, masks))
+
+    def lines_one_by_one(g, lines):
+        one = PR.line_one(tm.shape[:-1], tm.device)
+        for k in range(2):
+            lk = tuple((x[0][k], x[1][k]) for x in lines)
+            lk = PR.line_to_flat(PR.line_select(tm[:, k] != 0, lk, one))
+            g = F._flat_mul_plain(g, lk, F.LINE_IDX)
+        return g
+
+    X0, X1, Y0, Y1, Z0, Z1 = PR._pair_major(tT)
+    Tj = ((X0, X1), (Y0, Y1), (Z0, Z1))
+    xp, yp = PR._pair_major(tP)
     host_lib.dth_miller_dbl_iter(_ptr(f), _ptr(Ts), _ptr(P), _ptr(masks),
-                                 _ptr(fo), _ptr(To), rows, _ptr(FP.kernel_one),
-                                 _ptr(FP.kernel_arg))
+                                 _ptr(fo), _ptr(To), rows,
+                                 _ptr(FP.kernel_one), _ptr(FP.kernel_arg))
     wf, wT = PR._miller_dbl_iter_plain(tf, tT, tP, tm)
     np.testing.assert_array_equal(fo, wf.numpy())
     np.testing.assert_array_equal(To, wT.numpy())
+    _, lines = PR._dbl_step_plain(Tj, xp, yp)
+    np.testing.assert_array_equal(
+        fo, lines_one_by_one(F._flat_mul_plain(tf, tf), lines).numpy())
     host_lib.dth_miller_add_iter(_ptr(f), _ptr(Ts), _ptr(Q), _ptr(P),
                                  _ptr(masks), _ptr(fo), _ptr(To), rows,
                                  _ptr(FP.kernel_one), _ptr(FP.kernel_arg))
     wf, wT = PR._miller_add_iter_plain(tf, tT, tQ, tP, tm)
     np.testing.assert_array_equal(fo, wf.numpy())
     np.testing.assert_array_equal(To, wT.numpy())
+    xq0, xq1, yq0, yq1 = PR._pair_major(tQ)
+    _, lines = PR._add_step_plain(Tj, ((xq0, xq1), (yq0, yq1)), xp, yp)
+    np.testing.assert_array_equal(fo, lines_one_by_one(tf, lines).numpy())
+
+
+def test_flat_sqr(host_lib):
+    """K17 on random rows, the all-(p-1) row and the zero row, against
+    its plain version and the general product K13."""
+    a = _fp_rows((7, 12), seed=40)
+    a[0] = _max_flat()
+    a[1] = 0
+    out = np.empty_like(a)
+    host_lib.dth_flat_sqr(_ptr(a), _ptr(out), len(a), _ptr(FP.kernel_arg))
+    ta = torch.as_tensor(a)
+    np.testing.assert_array_equal(out, F._flat_sqr_plain(ta).numpy())
+    prod = np.empty_like(a)
+    idx = np.arange(12, dtype=np.int32)
+    host_lib.dth_flat_mul(_ptr(a), _ptr(a), _ptr(prod), len(a), _ptr(idx),
+                          12, _ptr(FP.kernel_arg))
+    np.testing.assert_array_equal(out, prod)
+
+
+def test_line_merge(host_lib):
+    """K20 on random lines with the all-(p-1) line on one and on both
+    sides and a zero line, against its plain version."""
+    l1 = _fp_rows((7, 6), seed=41)
+    l2 = _fp_rows((7, 6), seed=42)
+    l1[0] = l1[1] = _max_flat()[:6]
+    l2[1] = _max_flat()[:6]
+    l2[2] = 0
+    out = np.empty((7, 12, 32), np.int32)
+    host_lib.dth_line_merge(_ptr(l1), _ptr(l2), _ptr(out), len(l1),
+                            _ptr(FP.kernel_arg))
+    np.testing.assert_array_equal(out, F._line_merge_plain(
+        torch.as_tensor(l1), torch.as_tensor(l2)).numpy())
+
+
+@pytest.mark.parametrize("add", [False, True])
+def test_g2_line_steps(host_lib, add):
+    """K18 (doubling) and K19 (mixed addition) on K = 3 pairs stacked on
+    the leading axis of 5 rows each (Z = 1 in the first row of each pair,
+    as at the loop's start), against the step formulas."""
+    width = 12 if add else 8
+    x = _fp_rows((3, 5, width), seed=43 + add)
+    x[:, 0, 4] = FP.one_mont.numpy()
+    x[:, 0, 5] = 0
+    to = np.empty((3, 5, 6, 32), np.int32)
+    lo = np.empty_like(to)
+    fn = host_lib.dth_g2_add_line if add else host_lib.dth_g2_dbl_line
+    fn(_ptr(x), _ptr(to), _ptr(lo), 15, _ptr(FP.kernel_arg))
+    c = [torch.as_tensor(x[..., i, :]) for i in range(width)]
+    Tj = ((c[0], c[1]), (c[2], c[3]), (c[4], c[5]))
+    if add:
+        Tn, L = PR._add_step_plain(Tj, ((c[6], c[7]), (c[8], c[9])), c[10],
+                                   c[11])
+    else:
+        Tn, L = PR._dbl_step_plain(Tj, c[6], c[7])
+    np.testing.assert_array_equal(
+        to, torch.stack([v for xy in Tn for v in xy], -2).numpy())
+    np.testing.assert_array_equal(
+        lo, torch.stack([v for xy in L for v in xy], -2).numpy())
+
+
+@pytest.mark.parametrize("name", ["fp", "fr"])
+def test_add_and_sub(host_lib, name):
+    """K21 and K22 with 0, 1, 2, m-1, m-2 and (m-1)/2 meeting each other
+    and random values, against Field.add and Field.sub."""
+    F_ = FIELDS[name]
+    a = _elements(F_, n=20, seed=44)
+    b = np.ascontiguousarray(np.concatenate([a[:6][::-1], a[6:]]))
+    a, b = np.repeat(a, 6, 0), np.tile(b, (6, 1))
+    out = np.empty_like(a)
+    host_lib.dth_add(_ptr(a), _ptr(b), _ptr(out), len(a), _ptr(F_.kernel_arg))
+    np.testing.assert_array_equal(
+        out, F_.add(torch.as_tensor(a), torch.as_tensor(b)).numpy())
+    host_lib.dth_sub(_ptr(a), _ptr(b), _ptr(out), len(a), _ptr(F_.kernel_arg))
+    np.testing.assert_array_equal(
+        out, F_.sub(torch.as_tensor(a), torch.as_tensor(b)).numpy())
