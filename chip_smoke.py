@@ -6,14 +6,21 @@ Phases, each printing one JSON line:
 
   device  card name and power limit (nvidia-smi), torch and CUDA versions
   build   nvcc build of the kernels in drand_tpu_torch/csrc, its seconds
+  build   also each redesigned kernel's registers, local memory, shared
+          memory and resident blocks per SM (cudaFuncGetAttributes and
+          cudaOccupancyMaxActiveBlocksPerMultiprocessor, on a line of its
+          own): K11, K12, K14
   slice   drand_tpu_torch.verify.Verifier (drand_tpu's merged Miller
-          executor, the two lines merged first) on the committed
-          16384-round pedersen-bls-unchained segment (all true; one
-          flipped byte gives exactly one false) and on the committed
-          pedersen-bls-chained segment (rounds 2-65 against anchor round
-          1), with the launches of every kernel during the 16384-round
-          batch, in total and by call (the key each wrapper in
-          ops/kernels.py documents), and the calls of the chained run
+          executor) on the committed 16384-round pedersen-bls-unchained
+          segment (all true; one flipped byte gives exactly one false;
+          K14 launched at most 31 times, one chain of squares a run of
+          the final exponentiation's ladder, and K11 63 times) and on the
+          committed pedersen-bls-chained segment from round 1 (rounds
+          1-65 against the genesis seed, the irregular anchor: round 1 in
+          a bucket of its own), with the launches of every kernel during
+          the 16384-round batch, in total and by call (the key each
+          wrapper in ops/kernels.py documents), and the calls of the
+          chained run
   trio    the same 16384-round segment and flipped batch with drand_tpu's
           trio Miller executor (profiling.trio_batch_async: the verify
           path with merged=False): every verdict equal to the default's;
@@ -38,10 +45,12 @@ fp2_products).
           5, 9, 63 with and without t; mont_reduce also at the stacks
           [2, 16384, 64] and [16, 2, 16384, 64] the composite products
           gave it), fp2_products and fp2_sqrs at n = 9, flat_mul dense and
-          sparse on all-(p-1) coefficients, cyclo_sqr on unitary rows,
+          sparse on all-(p-1) coefficients, cyclo_sqr on unitary rows
+          at k = 1 and 32 and on a ragged last block,
           fp2_sqr_chain_mul at k = 1, 5, 13, fp2_sqr5_mul, the G2 point
           kernels with doubling, cancelling and infinite rows, the Miller
-          iterations with every active/inactive pair mask,
+          iterations with every active/inactive pair mask (also on a
+          ragged last block),
           flat_conj and flat_frob at n = 1, 2, 3, flat_sqr and line_merge
           on all-(p-1) and zero rows, g2_dbl_line and g2_add_line on three
           stacked pairs, add and sub at 0, 1, m-1 and on all-(m-1) and
@@ -96,8 +105,8 @@ LINE_IDX = (0, 2, 3, 6, 8, 9)
 # kernels no verify path launches: K3 (its callers were the composite
 # products, now K5, K6, K13, K14), K8 (fp2_pow_const takes the addition
 # chain of K7 steps on both of the path's exponents, as drand_tpu does on
-# its chip), K20 (its body runs inside K11 and K12; as in drand_tpu,
-# nothing calls it alone) and K21/K22 (drand_tpu's Field.add
+# its chip), K20 (K11 and K12 multiply f by their two lines one after the
+# other; as in drand_tpu, nothing calls it alone) and K21/K22 (drand_tpu's Field.add
 # and sub stay in XLA and never call their kernels; the port's keep their
 # torch path)
 OFF_PATH = ("mont_reduce", "fp2_sqr5_mul", "line_merge", "add", "sub")
@@ -126,8 +135,8 @@ def muladds_flat(b_idx, a_idx=tuple(range(12))) -> int:
 # K17: 66 general and 12 triangular products, 23 REDCs
 MULADDS_FLAT_SQR = 66 * MULADDS_WIDE + 12 * MULADDS_TRI + 23 * MULADDS_REDC
 MULADDS_LINE_MERGE = muladds_flat(LINE_IDX, LINE_IDX)
-# f times the two lines of K11/K12: merged first, then one dense product
-MULADDS_LINES = MULADDS_LINE_MERGE + muladds_flat(tuple(range(12)))
+# f times the two lines of K11/K12: one sparse product after the other
+MULADDS_LINES = 2 * muladds_flat(LINE_IDX)
 
 
 def emit(obj) -> None:
@@ -225,8 +234,8 @@ def work(name: str, call: tuple):
         rows, b_idx = math.prod(call[0][:-2]), call[1]
         return (24 + len(b_idx)) * 128 * rows, muladds_flat(b_idx) * rows
     if name == "cyclo_sqr":
-        rows = math.prod(call[:-2])
-        return 24 * 128 * rows, 9 * MULADDS_FP2_SQR * rows
+        (shape, k), rows = call, math.prod(call[0][:-2])
+        return 24 * 128 * rows, k * 9 * MULADDS_FP2_SQR * rows
     n = math.prod(call[1][:-1])
     if name == "mont_mul":
         return 384 * n, MULADDS_MUL * n
@@ -288,6 +297,10 @@ def main() -> int:
                        "dir": os.path.relpath(info["dir"], HERE),
                        "ptxas": regs}
     emit(report["build"])
+    report["occupancy"] = {"phase": "occupancy", **{
+        name: K.kernel_attrs(name)
+        for name in ("miller_dbl_iter", "miller_add_iter", "cyclo_sqr")}}
+    emit(report["occupancy"])
 
     def pairing_rows(k_pairs: int, n: int):
         """Pairs for pairing_check_pairs at K = k_pairs on n rows, tiled
@@ -342,7 +355,7 @@ def main() -> int:
 
     # -- slice ---------------------------------------------------------------
     _sk, pk = FX.fixture_keypair()
-    sigs_c, pk_bytes, _seed = FX.load_chained_fixture()
+    sigs_c, pk_bytes, seed = FX.load_chained_fixture()
     if GC.g1_to_bytes(pk) != pk_bytes:
         fail("fixture_keypair does not rebuild the committed public key")
     verifier = V.Verifier(pk, V.SHAPE_UNCHAINED)
@@ -401,6 +414,10 @@ def main() -> int:
         fail(f"valid 16384-round segment: {int(ok.sum())}/{BATCH} true")
     default_path = [name for name in K.KERNELS if name not in OFF_PATH + TRIO]
     check_path("default batch", launches, n_conv, default_path)
+    if launches["cyclo_sqr"] > 31 or launches["miller_dbl_iter"] != 63:
+        fail(f"default batch: cyclo_sqr launched {launches['cyclo_sqr']} "
+             f"times (at most 31: one a run of squares), miller_dbl_iter "
+             f"{launches['miller_dbl_iter']} (63)")
 
     bad = sigs.copy()
     flip_at = 4321
@@ -414,16 +431,17 @@ def main() -> int:
 
     chained = V.Verifier(pk, V.SHAPE_CHAINED)
     ok_c, t_chain, chain_launches, chain_calls, n_conv = drive(
-        lambda: chained.verify_chain_segment(2, sigs_c[1:], sigs_c[0]))
-    if not ok_c.all() or ok_c.shape != (64,):
+        lambda: chained.verify_chain_segment(
+            1, sigs_c, np.frombuffer(seed, np.uint8)))
+    if not ok_c.all() or ok_c.shape != (65,):
         fail(f"chained segment: {int(ok_c.sum())}/{ok_c.shape[0]} true")
     check_path("chained segment", chain_launches, n_conv, default_path)
 
     report["slice"] = {
         "phase": "slice", "rounds": BATCH, "all_true": True,
-        "flipped_row_false_only": True, "chained_rounds_2_65_true": True,
+        "flipped_row_false_only": True, "chained_rounds_1_65_true": True,
         "batch_wall_s": t_batch, "dispatch_s": t_dispatch[0],
-        "flipped_batch_wall_s": t_bad, "chained_64_wall_s": t_chain,
+        "flipped_batch_wall_s": t_bad, "chained_65_wall_s": t_chain,
         "launches": launches,
         "off_path": {"mont_reduce": "0 launches: the composite products "
                                     "that reduced through it are K5, K6, "
@@ -431,8 +449,9 @@ def main() -> int:
                      "fp2_sqr5_mul": "0 launches: both of the path's Fp2 "
                                      "exponents take the addition chain "
                                      "(K7 steps)",
-                     "line_merge": "0 launches: its body runs inside K11 "
-                                   "and K12; nothing calls it alone, as in "
+                     "line_merge": "0 launches: K11 and K12 multiply "
+                                   "f by the two lines one after the "
+                                   "other; nothing calls it alone, as in "
                                    "drand_tpu",
                      "add": "0 launches: Field.add keeps its torch path, "
                             "as drand_tpu's stays in XLA",
@@ -644,8 +663,8 @@ def main() -> int:
                 return max_flat(shape), max_flat(bshape)
             return field_rows(FP, shape), field_rows(FP, bshape)
         if name == "cyclo_sqr":
-            return (unitary_rows(call) if kind == "unitary"
-                    else field_rows(FP, call),)
+            return (unitary_rows(call[0]) if kind == "unitary"
+                    else field_rows(FP, call[0]),)
         F, shape = fields[call[0]], call[1]
         if name == "mont_reduce":
             return (wide_rows(F, shape),)
@@ -721,8 +740,8 @@ def main() -> int:
             return (K.flat_mul(*args, call[1], FP) if kernel
                     else FL._flat_mul_plain(*args, call[1]))
         if name == "cyclo_sqr":
-            return (K.cyclo_sqr(args[0], FP) if kernel
-                    else FL._flat_cyclo_sqr_plain(args[0]))
+            return (K.cyclo_sqr(args[0], FP, call[1]) if kernel
+                    else FL._flat_cyclo_sqr_plain(args[0], call[1]))
         F = fields[call[0]]
         if name == "mont_mul":
             return (K.mont_mul(*args, F) if kernel
@@ -755,8 +774,10 @@ def main() -> int:
     cases["fp2_sqrs"].add((((BATCH, 32), 9), "random"))
     for b_idx in (tuple(range(12)), LINE_IDX):
         cases["flat_mul"].add(((flat12, b_idx), "max"))
-    cases["cyclo_sqr"].add((flat12, "random"))
-    cases["cyclo_sqr"].add((flat12, "unitary"))
+    for k in (1, 32):
+        cases["cyclo_sqr"].add(((flat12, k), "random"))
+        cases["cyclo_sqr"].add(((flat12, k), "unitary"))
+    cases["cyclo_sqr"].add((((100, 12, 32), 3), "random"))
     fp2_rows = (2, BATCH, 32)
     for k in (1, 5, 13):
         for with_t in (False, True):
@@ -765,8 +786,9 @@ def main() -> int:
     cases["g2_point_dbl"].add(((6, BATCH, 32), "random"))
     for with_double in (False, True):
         cases["g2_point_add"].add((((6, BATCH, 32), with_double), "random"))
-    cases["miller_dbl_iter"].add((flat12, "random"))
-    cases["miller_add_iter"].add((flat12, "random"))
+    for shape in (flat12, (100, 12, 32)):
+        cases["miller_dbl_iter"].add((shape, "random"))
+        cases["miller_add_iter"].add((shape, "random"))
     cases["flat_conj"].add((flat12, "random"))
     for n in (1, 2, 3):
         cases["flat_frob"].add(((flat12, n), "random"))
@@ -799,8 +821,9 @@ def main() -> int:
     # times: K1, K2 and the window step (K4, k = 4, the sqr4_mul call) at
     # [16384, 32], K3 at the [2, 16384, 64] stack of one Fp2 product and
     # at [16, 2, 16384, 64], K4 at the path's longest chain and at k = 63;
-    # K5, K6, K13 and K14 at the path's most common call, and K13 also at
-    # its most common dense call
+    # K14 at the path's longest chain of squares, then at each of its
+    # other chains; the others at the path's most common call, and K13
+    # also at its most common dense call
     main_path_calls = {name: trio_calls[name] if name in TRIO
                        else path_calls[name] for name in K.KERNELS}
 
@@ -814,6 +837,8 @@ def main() -> int:
     main_calls["fp2_sqr5_mul"] = fp2_rows
     main_calls["line_merge"] = flat12
     main_calls["add"] = main_calls["sub"] = ("fp", flat32)
+    cyclo = sorted(path_calls["cyclo_sqr"], key=lambda c: (-c[1], repr(c)))
+    main_calls["cyclo_sqr"] = cyclo[0]
     main_calls.update({name: most_common(name) for name in K.KERNELS
                        if name not in main_calls})
     longest = max(path_calls["sqr_chain_mul"], key=lambda c: (c[2], c[3]))
@@ -821,7 +846,8 @@ def main() -> int:
         ("mont_reduce", ("fp", (16, 2, BATCH, 64))),
         ("sqr_chain_mul", longest),
         ("sqr_chain_mul", ("fp", flat32, 63, True)),
-        ("flat_mul", most_common("flat_mul", lambda c: len(c[1]) == 12))]
+        ("flat_mul", most_common("flat_mul", lambda c: len(c[1]) == 12))
+    ] + [("cyclo_sqr", call) for call in cyclo[1:]]
     timings, per_kernel = [], {}
     for name, call in timed:
         args = inputs(name, call)

@@ -263,21 +263,148 @@ DT_HD void line_stage(const Line &l, uint64_t *dst, int stride) {
   }
 }
 
-// Coefficient i of a flat row (32 limbs) into words at
-// dst[(i * 6 + v) * stride].
-DT_HD void flat_stage_coeff(const int32_t *limbs, uint64_t *dst, int stride) {
-  uint64_t w[N_WORDS];
-  load_words(limbs, w);
-  DT_UNROLL
-  for (int v = 0; v < N_WORDS; v++) dst[v * stride] = w[v];
-}
-
 DT_HD void flat_unstage(const uint64_t *lo, const uint64_t *hi, int j,
                         uint64_t *dst, int stride) {
   DT_UNROLL
   for (int v = 0; v < N_WORDS; v++) {
     dst[(j * N_WORDS + v) * stride] = lo[v];
     dst[((j + 6) * N_WORDS + v) * stride] = hi[v];
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// B11's doubling step split over three threads of a pair (K11): the
+// formula of miller_dbl_step by its dependency levels, each level's Fp2
+// values passed to the next through buffers in flat_load's layout
+// (element e, word v at base[(e * 6 + v) * stride]), a barrier between
+// levels.  Per pair:
+//
+//   t   T, elements X0 X1 Y0 Y1 Z0 Z1 (read at levels 0 and 1)
+//   s1  level 0's XX YY ZZ YZ, elements 0-7
+//   s2  level 1's X3c C YZ3 S2 XXZZ F, elements 0-11
+//   l   the flat line, elements 0-5 on LINE_IDX in line_flat's order,
+//       written at level 2 (it may alias t: level 2 reads no T)
+//
+// Share j of each level (the work of one thread, in Fp2 products and
+// squares of 1776 and 1248 multiply-adds, Fp products of 600):
+//
+//   level 0: j = 0: XX = X^2 and ZZ's y half; 1: YY = Y^2 and ZZ's x
+//            half (an Fp2 square's halves: 600 and 648); 2: YZ = Y Z
+//   level 1: j = 0: X3c = XX X, C = YY^2; 1: YZ3 = YZ ZZ,
+//            S2 = (X + YY)^2; 2: XXZZ = XX ZZ, F = E^2 (E = 3 XX)
+//   level 2: j = 0: the line's a = 3 X3c - 2 YY and b = -3 XXZZ xp;
+//            1: its c = 2 YZ3 yp, and Z' = 2 YZ; 2: D = 2 (S2 - XX - C),
+//            X' = F - 2D, Y' = E (D - X') - 8C
+//
+// Level 2 writes the pair's line (the flat one where the pair is
+// inactive) and T' (6 x 32 limbs at t_out, skipped when t_out is null).
+// Every intermediate is canonical, so the shares give miller_dbl_step's
+// outputs bit for bit.
+// ---------------------------------------------------------------------------
+
+DT_HD F2 f2_at(const uint64_t *b, int e, int stride) {
+  F2 r;
+  flat_load(b, e, stride, r.x);
+  flat_load(b, e + 1, stride, r.y);
+  return r;
+}
+
+DT_HD void f2_put(const F2 &a, uint64_t *b, int e, int stride) {
+  flat_store(a.x, b, e, stride);
+  flat_store(a.y, b, e + 1, stride);
+}
+
+DT_HD F2 f2_triple(const F2 &a, const Mod &M) {
+  return f2_add(f2_dbl(a, M), a, M);
+}
+
+// Cell i (0, 1, 2 for a, b, c) of a pair's flat line: x - y at element
+// i and y at element i + 3 (line_flat), or the flat one's (Montgomery
+// one at element 0, zero elsewhere) where the pair is inactive.
+DT_HD void line_put_cell(const F2 &c, int i, bool active, const One &one,
+                         uint64_t *l, int stride, const Mod &M) {
+  uint64_t lo[N_WORDS], hi[N_WORDS];
+  sub_mod(c.x, c.y, lo, M);
+  DT_UNROLL
+  for (int v = 0; v < N_WORDS; v++) {
+    lo[v] = active ? lo[v] : (i == 0 ? one.w[v] : 0);
+    hi[v] = active ? c.y[v] : 0;
+  }
+  flat_store(lo, l, i, stride);
+  flat_store(hi, l, i + 3, stride);
+}
+
+// A row's buffer in a merged Miller iteration (K11, K12 and the host
+// harness), in elements: f at MB_F (12); T at MB_L (12: pair k's at
+// MB_L + 6k), then the two lines over it; level 0's values at MB_S1 (pair
+// k's at MB_S1 + 8k); level 1's at MB_S2 (pair k's at MB_S2 + 12k).  The
+// products go where nothing is read any more: K11's f^2 at MB_S1, f^2 l1
+// at MB_F, f' at MB_S2; K12's f l1 at MB_S1, f' at MB_F.
+constexpr int MB_F = 0, MB_L = 12, MB_S1 = 24, MB_S2 = 40;
+constexpr int MB_DBL = 64, MB_ADD = 36;   // elements K11, K12 use
+
+// p: the pair's P (xp then yp, 32 limbs each); active: the pair's mask.
+DT_HD void miller_dbl_share(int level, int j, const uint64_t *t,
+                            uint64_t *s1, uint64_t *s2, uint64_t *l,
+                            const int32_t *p, bool active, int32_t *t_out,
+                            const One &one, int stride, const Mod &M) {
+  if (level == 0) {
+    if (j < 2) {                          // XX or YY, and half of ZZ
+      f2_put(f2_sqr(f2_at(t, 2 * j, stride), M), s1, 2 * j, stride);
+      const F2 Z = f2_at(t, 4, stride);
+      uint64_t h[N_WORDS];
+      if (j == 0)
+        fp2_sqr_im(Z.x, Z.y, h, M);
+      else
+        fp2_sqr_re(Z.x, Z.y, h, M);
+      flat_store(h, s1, 5 - j, stride);
+    } else {
+      f2_put(f2_mul(f2_at(t, 2, stride), f2_at(t, 4, stride), M), s1, 6,
+             stride);
+    }
+  } else if (level == 1) {
+    if (j == 0) {
+      f2_put(f2_mul(f2_at(s1, 0, stride), f2_at(t, 0, stride), M), s2, 0,
+             stride);
+      f2_put(f2_sqr(f2_at(s1, 2, stride), M), s2, 2, stride);
+    } else if (j == 1) {
+      f2_put(f2_mul(f2_at(s1, 6, stride), f2_at(s1, 4, stride), M), s2, 4,
+             stride);
+      const F2 xyy = f2_add(f2_at(t, 0, stride), f2_at(s1, 2, stride), M);
+      f2_put(f2_sqr(xyy, M), s2, 6, stride);
+    } else {
+      const F2 XX = f2_at(s1, 0, stride);
+      f2_put(f2_mul(XX, f2_at(s1, 4, stride), M), s2, 8, stride);
+      f2_put(f2_sqr(f2_triple(XX, M), M), s2, 10, stride);
+    }
+  } else if (j == 0) {
+    const F2 a = f2_sub(f2_triple(f2_at(s2, 0, stride), M),
+                        f2_dbl(f2_at(s1, 2, stride), M), M);
+    uint64_t xp[N_WORDS];
+    load_words(p, xp);
+    const F2 b = f2_mul_fp(f2_neg(f2_triple(f2_at(s2, 8, stride), M), M),
+                           xp, M);
+    line_put_cell(a, 0, active, one, l, stride, M);
+    line_put_cell(b, 1, active, one, l, stride, M);
+  } else if (j == 1) {
+    uint64_t yp[N_WORDS];
+    load_words(p + N_LIMBS, yp);
+    const F2 c = f2_mul_fp(f2_dbl(f2_at(s2, 4, stride), M), yp, M);
+    line_put_cell(c, 2, active, one, l, stride, M);
+    if (t_out != nullptr)
+      f2_store(f2_dbl(f2_at(s1, 6, stride), M), t_out + 4 * N_LIMBS,
+               t_out + 5 * N_LIMBS);
+  } else {
+    const F2 XX = f2_at(s1, 0, stride), C = f2_at(s2, 2, stride);
+    F2 D = f2_sub(f2_at(s2, 6, stride), f2_add(XX, C, M), M);
+    D = f2_dbl(D, M);
+    const F2 X2 = f2_sub(f2_at(s2, 10, stride), f2_dbl(D, M), M);
+    if (t_out != nullptr) f2_store(X2, t_out, t_out + N_LIMBS);
+    const F2 Et = f2_mul(f2_triple(XX, M), f2_sub(D, X2, M), M);
+    const F2 Y2 = f2_sub(Et, f2_dbl(f2_dbl(f2_dbl(C, M), M), M), M);
+    if (t_out != nullptr)
+      f2_store(Y2, t_out + 2 * N_LIMBS, t_out + 3 * N_LIMBS);
   }
 }
 

@@ -126,13 +126,30 @@ void dth_line_merge(const int32_t *l1, const int32_t *l2, int32_t *o,
   }
 }
 
-void dth_cyclo_sqr(const int32_t *a, int32_t *o, long long rows,
-                   const uint64_t *mod7) {
+// K14's chain: per row the shares of each phase in turn (in reverse
+// order when `reverse`: a share that read what another share of its
+// phase writes would then give another result), on one row's words laid
+// out with stride 1 (the kernel's stride is its 32 rows).
+void dth_cyclo_sqr(const int32_t *a, int32_t *o, long long rows, int k,
+                   int reverse, const uint64_t *mod7) {
   const dt::Mod M = dt::mod_from_words(mod7);
-  for (int g = 0; g < 3; g++)
-    for (long long r = 0; r < rows; r++)
-      dt::cyclo_sqr_group(g, a + r * dt::FLAT * dt::N_LIMBS,
-                          o + r * dt::FLAT * dt::N_LIMBS, M);
+  uint64_t cells[dt::FLAT * dt::N_WORDS], sq[18 * dt::N_WORDS];
+  for (long long r = 0; r < rows; r++) {
+    for (int i = 0; i < dt::FLAT; i++)
+      dt::load_words(a + (r * dt::FLAT + i) * dt::N_LIMBS,
+                     cells + i * dt::N_WORDS);
+    for (int s = 0; s < 6; s++) dt::cyclo_to_cell(s, cells, 1, M);
+    for (int i = 0; i < k; i++) {
+      for (int q = 0; q < 9; q++)
+        dt::cyclo_sqr_square(reverse ? 8 - q : q, cells, sq, 1, M);
+      for (int s = 0; s < 6; s++)
+        dt::cyclo_sqr_fold(reverse ? 5 - s : s, cells, sq, 1, M);
+    }
+    for (int s = 0; s < 6; s++) dt::cyclo_to_flat(s, cells, 1, M);
+    for (int i = 0; i < dt::FLAT; i++)
+      dt::store_words(cells + i * dt::N_WORDS,
+                      o + (r * dt::FLAT + i) * dt::N_LIMBS);
+  }
 }
 
 void dth_fp2_sqr_chain_mul(const int32_t *x, const int32_t *t, int32_t *o,
@@ -229,65 +246,82 @@ void dth_sub(const int32_t *a, const int32_t *b, int32_t *o, long long n,
                       o + e * dt::N_LIMBS, true, M);
 }
 
-// K11 (q == nullptr) and K12 row by row, the phases of the kernel in its
-// order on one row's words laid out with stride 1.
+// K11 (q == nullptr) and K12 row by row: the kernel's phases in its
+// order on one row's buffer (curve_arith.cuh MB_*, stride 1), the shares
+// of each phase in turn, in reverse order when `reverse` (as in
+// dth_cyclo_sqr).
 static void miller_iter(const int32_t *f, const int32_t *T, const int32_t *Q,
                         const int32_t *P, const int32_t *mask, int32_t *fo,
-                        int32_t *To, long long rows, const uint64_t *one6,
-                        const uint64_t *mod7) {
+                        int32_t *To, long long rows, int reverse,
+                        const uint64_t *one6, const uint64_t *mod7) {
   const dt::Mod M = dt::mod_from_words(mod7);
   const dt::One one = dt::one_from_words(one6);
-  int all[dt::FLAT];
-  for (int p = 0; p < dt::FLAT; p++) all[p] = p;
-  const dt::FlatIdx dense = dt::flat_idx(all, dt::FLAT);
-  const int W = dt::FLAT * dt::N_WORDS;
-  // buf[0] f, buf[1] f^2; sl l1 then l2; L = l1 * l2
-  uint64_t buf[2][W], sl[W], L[W], lo[dt::N_WORDS], hi[dt::N_WORDS];
+  const int W = dt::N_WORDS;
+  uint64_t buf[dt::MB_DBL * dt::N_WORDS], lo[dt::N_WORDS], hi[dt::N_WORDS];
+  auto at = [&](int e) { return buf + e * W; };
   for (long long r = 0; r < rows; r++) {
-    for (int i = 0; i < dt::FLAT; i++)
-      dt::flat_stage_coeff(f + (r * dt::FLAT + i) * dt::N_LIMBS,
-                           buf[0] + i * dt::N_WORDS, 1);
-    for (int k = 0; k < 2; k++) {
-      const long long pk = r * 2 + k;
-      const dt::Line l = dt::miller_pair_step(
-          T + pk * 6 * dt::N_LIMBS, P + pk * 2 * dt::N_LIMBS,
-          Q != nullptr ? Q + pk * 4 * dt::N_LIMBS : nullptr, mask[pk],
-          To + pk * 6 * dt::N_LIMBS, one, M);
-      dt::line_stage(l, sl + k * 6 * dt::N_WORDS, 1);
+    for (int i = 0; i < dt::FLAT; i++) {
+      dt::load_words(f + (r * dt::FLAT + i) * dt::N_LIMBS, at(dt::MB_F + i));
+      if (Q == nullptr)
+        dt::load_words(T + (r * 12 + i) * dt::N_LIMBS, at(dt::MB_L + i));
     }
-    int cur = 0;
+    int cur = dt::MB_F, mid = dt::MB_S1, out = dt::MB_F;
     if (Q == nullptr) {
-      for (int j = 0; j < 6; j++) {
-        dt::flat_sqr_class(j, buf[0], 1, lo, hi, M);
-        dt::flat_unstage(lo, hi, j, buf[1], 1);
+      for (int level = 0; level < 3; level++)
+        for (int s = 0; s < 6; s++) {
+          const int js = reverse ? 5 - s : s, j = js / 2, k = js % 2;
+          const long long pk = r * 2 + k;
+          dt::miller_dbl_share(level, j, at(dt::MB_L + 6 * k),
+                               at(dt::MB_S1 + 8 * k), at(dt::MB_S2 + 12 * k),
+                               at(dt::MB_L + 6 * k), P + pk * 2 * dt::N_LIMBS,
+                               mask[pk] != 0, To + pk * 6 * dt::N_LIMBS, one,
+                               1, M);
+        }
+      for (int s = 0; s < 6; s++) {
+        const int c = reverse ? 5 - s : s;
+        dt::flat_sqr_class(c, at(dt::MB_F), 1, lo, hi, M);
+        dt::flat_unstage(lo, hi, c, at(dt::MB_S1), 1);
       }
-      cur = 1;
+      cur = dt::MB_S1;
+      mid = dt::MB_F;
+      out = dt::MB_S2;
+    } else {
+      for (int k = 0; k < 2; k++) {
+        const long long pk = r * 2 + k;
+        const dt::Line l = dt::miller_pair_step(
+            T + pk * 6 * dt::N_LIMBS, P + pk * 2 * dt::N_LIMBS,
+            Q + pk * 4 * dt::N_LIMBS, mask[pk], To + pk * 6 * dt::N_LIMBS,
+            one, M);
+        dt::line_stage(l, at(dt::MB_L + 6 * k), 1);
+      }
     }
-    int32_t *out = fo + r * dt::FLAT * dt::N_LIMBS;
-    for (int j = 0; j < 6; j++) {
-      dt::line_merge_class(j, sl, sl + 6 * dt::N_WORDS, 1, lo, hi, M);
-      dt::flat_unstage(lo, hi, j, L, 1);
+    for (int s = 0; s < 6; s++) {
+      const int c = reverse ? 5 - s : s;
+      dt::flat_mul_line_class(c, at(cur), at(dt::MB_L), 1, lo, hi, M);
+      dt::flat_unstage(lo, hi, c, at(mid), 1);
     }
-    for (int j = 0; j < 6; j++) {
-      dt::flat_mul_class(j, buf[cur], L, 1, dense, lo, hi, M);
-      dt::store_words(lo, out + j * dt::N_LIMBS);
-      dt::store_words(hi, out + (j + 6) * dt::N_LIMBS);
+    for (int s = 0; s < 6; s++) {
+      const int c = reverse ? 5 - s : s;
+      dt::flat_mul_line_class(c, at(mid), at(dt::MB_L + 6), 1, lo, hi, M);
+      dt::flat_unstage(lo, hi, c, at(out), 1);
     }
+    for (int i = 0; i < dt::FLAT; i++)
+      dt::store_words(at(out + i), fo + (r * dt::FLAT + i) * dt::N_LIMBS);
   }
 }
 
 void dth_miller_dbl_iter(const int32_t *f, const int32_t *T, const int32_t *P,
                          const int32_t *mask, int32_t *fo, int32_t *To,
-                         long long rows, const uint64_t *one6,
+                         long long rows, int reverse, const uint64_t *one6,
                          const uint64_t *mod7) {
-  miller_iter(f, T, nullptr, P, mask, fo, To, rows, one6, mod7);
+  miller_iter(f, T, nullptr, P, mask, fo, To, rows, reverse, one6, mod7);
 }
 
 void dth_miller_add_iter(const int32_t *f, const int32_t *T, const int32_t *Q,
                          const int32_t *P, const int32_t *mask, int32_t *fo,
-                         int32_t *To, long long rows, const uint64_t *one6,
-                         const uint64_t *mod7) {
-  miller_iter(f, T, Q, P, mask, fo, To, rows, one6, mod7);
+                         int32_t *To, long long rows, int reverse,
+                         const uint64_t *one6, const uint64_t *mod7) {
+  miller_iter(f, T, Q, P, mask, fo, To, rows, reverse, one6, mod7);
 }
 
 }  // extern "C"

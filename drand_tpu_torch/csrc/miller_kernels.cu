@@ -16,31 +16,42 @@
 //   body :2040).  One addition step: f' = f * l1 * l2 and both pairs'
 //   mixed additions, an inactive pair keeping its T.
 //
-// A block takes 16 rows with six threads a row.  It stages the rows' f in
-// shared memory as words; one warp runs the 32 pair steps (one thread per
-// pair and row) and stages their sparse lines beside f; then the six
-// threads of a row compute the flat products, each owning the convolution
-// classes k = j (mod 6) as K13 does: for K11 the square f^2 with K17's
-// slot-symmetric flat_sqr_class (drand_tpu's _sqr_phase, shared by B11
-// and B17); then L = l1 * l2 with K20's line_merge_class (drand_tpu's
-// _line_merge_phase, its default line_merge=True form), written over the
-// two line buffers, and one dense product of f^2 (K11) or f (K12) by L.
-// Shared memory: f, f^2 and the two lines (then L), 27,648 bytes a block.
+// Both are bound by operations.  Per row, K11 does the square f^2 (66 +
+// 12 triangular word products, 23 REDCs), two sparse products by a line
+// (72 products and 21 REDCs each) and two doubling steps (~19k
+// multiply-adds each): ~120k multiply-adds on 6.7 KB.  K12 does the two
+// sparse products and two mixed additions (~25k each).
 //
-// Per row, K11 does 66 + 12 triangular word products with 23 REDCs for
-// the square, 36 products with 16 REDCs for L and 144 with 23 for the
-// dense product, and 2 x (~19k) multiply-adds for the steps: ~130k
-// multiply-adds on 6.7 KB, bound by operations.  K12 does L, the dense
-// product and 2 x (~25k) for the additions.
+// A block takes 32 rows with six threads a row, and keeps its rows on
+// chip from one phase to the next: f and T are staged once, coalesced
+// (stage.cuh), into dynamic shared memory as words; f' goes out the same
+// way.  The lines are multiplied in one after the other, f^2 * l1 then
+// * l2, each a sparse product on LINE_IDX (flat_mul_line_class): on this
+// card that does fewer word products than merging the lines first
+// (drand_tpu's default form, K20's body), and its canonical output is
+// the same element bit for bit.  In the product phases thread j of a row
+// owns the convolution classes k = j (mod 6) as K13 does, each warp on
+// one j.
+//
+// K11's steps run on all six threads of a row, three a pair: the shares
+// of curve_arith.cuh miller_dbl_share, three dependency levels with a
+// barrier after each, each warp on one (share, pair), so no thread holds
+// a whole point and its temporaries.  Shared memory, in elements of 32
+// rows x 6 words: f (12) | T, then the lines over it (12) | level 0's
+// values (2 x 8), then f^2 | level 1's (2 x 12), then f', 64 elements,
+// 98,304 bytes a block; two blocks (12 warps) a SM.  K12 keeps one
+// thread a pair for its steps (miller_pair_step, the other four threads
+// of a row waiting at the barrier): f (12) | the lines (12) | f * l1
+// (12), 55,296 bytes.
 //
 // The file is compiled twice, in parallel (ops/kernels.py SOURCES), one
 // kernel each: -DDT_MILLER_ADD=0 for K11 (dt_miller_dbl_iter) and =1 for
-// K12 (dt_miller_add_iter).  Each takes nvcc minutes, most of it the
-// inlined pair step.
+// K12 (dt_miller_add_iter).
 
 #include <cuda_runtime.h>
 
 #include "curve_arith.cuh"
+#include "stage.cuh"
 
 #if !defined(DT_MILLER_ADD)
 #error "compile with -DDT_MILLER_ADD=0 (K11) or 1 (K12)"
@@ -48,85 +59,124 @@
 
 namespace {
 
-constexpr int MR = 16;                 // rows of a block
+constexpr bool IS_ADD = DT_MILLER_ADD != 0;  // this compile's kernel
+constexpr int MR = 32;                 // rows of a block
 constexpr int MT = 6 * MR;             // threads of a block
-constexpr int SLOT = dt::N_WORDS * MR; // words of one coefficient of a block
+constexpr int SLOT = dt::N_WORDS * MR; // words of one element of a block
+// the row buffer of curve_arith.cuh (MB_*), 32 rows of it
+constexpr int E_F = dt::MB_F, E_L = dt::MB_L, E_S1 = dt::MB_S1,
+              E_S2 = dt::MB_S2;
+constexpr int SMEM = (IS_ADD ? dt::MB_ADD : dt::MB_DBL) * SLOT *
+                     (int)sizeof(uint64_t);
 
+// K11: 12 warps a SM (two blocks), so at most 168 registers a thread; K12
+// leaves the one-thread addition step its registers.  A template, so the
+// two kernels keep apart names in a profile.
 template <bool ADD>
-__global__ void __launch_bounds__(MT)
+__global__ void __launch_bounds__(MT, ADD ? 1 : 2)
     k_miller_iter(const int32_t *__restrict__ f,
                   const int32_t *__restrict__ T,
                   const int32_t *__restrict__ Q,
                   const int32_t *__restrict__ P,
                   const int32_t *__restrict__ mask, int32_t *__restrict__ fo,
-                  int32_t *__restrict__ To, long long rows,
-                  dt::FlatIdx dense, dt::One one, dt::Mod M) {
-  // word v of coefficient i of block row r at [(i * 6 + v) * MR + r]; sl
-  // holds l1 (coefficients 0-5) and l2 (6-11), then L
-  __shared__ uint64_t sf[dt::FLAT * SLOT];
-  __shared__ uint64_t sg[dt::FLAT * SLOT];
-  __shared__ uint64_t sl[2 * 6 * SLOT];
+                  int32_t *__restrict__ To, long long rows, dt::One one,
+                  dt::Mod M) {
+  extern __shared__ uint64_t sm[];
   const long long row0 = (long long)blockIdx.x * MR;
-  const int t = threadIdx.x;
-  for (int s = t; s < MR * dt::FLAT; s += MT) {
-    const int r = s % MR, i = s / MR;
-    uint64_t *dst = sf + i * SLOT + r;
-    if (row0 + r < rows) {
-      dt::flat_stage_coeff(f + ((row0 + r) * dt::FLAT + i) * dt::N_LIMBS,
-                           dst, MR);
-    } else {
+  const int t = threadIdx.x, r = t % MR;
+  dt::stage_in<MR>(f, dt::FLAT, row0, rows, sm + E_F * SLOT);
+  if constexpr (!ADD) dt::stage_in<MR>(T, 12, row0, rows, sm + E_L * SLOT);
+  __syncthreads();
+
+  const long long row = row0 + r;
+  const int c = t / MR;                // product phases: class c
+  uint64_t lo[dt::N_WORDS], hi[dt::N_WORDS];
+  const uint64_t *cur = sm + E_F * SLOT + r;   // f, or f^2 for K11
+  if constexpr (!ADD) {
+    // steps: share j of pair k
+    const int j = t / (2 * MR), k = (t / MR) % 2;
+    const long long pk = row * 2 + k;
+    uint64_t *tk = sm + (E_L + 6 * k) * SLOT + r;
 #pragma unroll
-      for (int v = 0; v < dt::N_WORDS; v++) dst[v * MR] = 0;
+    for (int level = 0; level < 3; level++) {
+      if (row < rows)
+        dt::miller_dbl_share(level, j, tk, sm + (E_S1 + 8 * k) * SLOT + r,
+                             sm + (E_S2 + 12 * k) * SLOT + r, tk,
+                             P + pk * 2 * dt::N_LIMBS, mask[pk] != 0,
+                             To + pk * 6 * dt::N_LIMBS, one, MR, M);
+      __syncthreads();
     }
-  }
-  if (t < 2 * MR) {                    // warp 0: pair k = t / MR
-    const int k = t / MR, r = t % MR;
-    const long long row = row0 + r, pk = row * 2 + k;
+    // f^2 over the level-0 values
+    dt::flat_sqr_class(c, sm + E_F * SLOT + r, MR, lo, hi, M);
+    dt::flat_unstage(lo, hi, c, sm + E_S1 * SLOT + r, MR);
+    cur = sm + E_S1 * SLOT + r;
+  } else if (t < 2 * MR) {             // one thread per pair k = t / MR
+    const int k = t / MR;
+    const long long pk = row * 2 + k;
     dt::Line l = dt::line_one(one);
     if (row < rows)
       l = dt::miller_pair_step(T + pk * 6 * dt::N_LIMBS,
                                P + pk * 2 * dt::N_LIMBS,
-                               ADD ? Q + pk * 4 * dt::N_LIMBS : nullptr,
-                               mask[pk], To + pk * 6 * dt::N_LIMBS, one, M);
-    dt::line_stage(l, sl + k * 6 * SLOT + r, MR);
+                               Q + pk * 4 * dt::N_LIMBS, mask[pk],
+                               To + pk * 6 * dt::N_LIMBS, one, M);
+    dt::line_stage(l, sm + (E_L + 6 * k) * SLOT + r, MR);
   }
   __syncthreads();
-  const int j = t / MR, r = t % MR;
-  uint64_t lo[dt::N_WORDS], hi[dt::N_WORDS];
-  uint64_t *cur = sf;                  // f, or f^2 for K11
-  if (!ADD) {
-    dt::flat_sqr_class(j, sf + r, MR, lo, hi, M);
-    dt::flat_unstage(lo, hi, j, sg + r, MR);
-    cur = sg;
-  }
-  dt::line_merge_class(j, sl + r, sl + 6 * SLOT + r, MR, lo, hi, M);
-  __syncthreads();                     // the lines are read; f^2 is written
-  dt::flat_unstage(lo, hi, j, sl + r, MR);
+  // f^2 * l1 (K12: f * l1), over f (K11, whose f^2 is elsewhere) or
+  // into K12's third block
+  uint64_t *mid = sm + (ADD ? E_S1 : E_F) * SLOT + r;
+  dt::flat_mul_line_class(c, cur, sm + E_L * SLOT + r, MR, lo, hi, M);
+  dt::flat_unstage(lo, hi, c, mid, MR);
   __syncthreads();
-  dt::flat_mul_class(j, cur + r, sl + r, MR, dense, lo, hi, M);
-  if (row0 + r < rows) {
-    int32_t *out = fo + (row0 + r) * dt::FLAT * dt::N_LIMBS;
-    dt::store_words(lo, out + j * dt::N_LIMBS);
-    dt::store_words(hi, out + (j + 6) * dt::N_LIMBS);
-  }
-}
-
-template <bool ADD>
-int launch(const int32_t *f, const int32_t *T, const int32_t *Q,
-           const int32_t *P, const int32_t *mask, int32_t *fo, int32_t *To,
-           long long rows, const uint64_t *one6, const uint64_t *mod7,
-           void *stream) {
-  if (rows <= 0) return 0;
-  int all[dt::FLAT];
-  for (int p = 0; p < dt::FLAT; p++) all[p] = p;
-  k_miller_iter<ADD><<<(unsigned)((rows + MR - 1) / MR), MT, 0,
-                       (cudaStream_t)stream>>>(
-      f, T, Q, P, mask, fo, To, rows, dt::flat_idx(all, dt::FLAT),
-      dt::one_from_words(one6), dt::mod_from_words(mod7));
-  return (int)cudaGetLastError();
+  // * l2, into a block nothing reads any more
+  uint64_t *out = sm + (ADD ? E_F : E_S2) * SLOT;
+  dt::flat_mul_line_class(c, mid, sm + (E_L + 6) * SLOT + r, MR, lo, hi,
+                          M);
+  dt::flat_unstage(lo, hi, c, out + r, MR);
+  __syncthreads();
+  dt::stage_out<MR>(out, dt::FLAT, row0, rows, fo);
 }
 
 }  // namespace
+
+// The launch and the kernel's attributes, under the entry point's name.
+static int launch(const int32_t *f, const int32_t *T, const int32_t *Q,
+                  const int32_t *P, const int32_t *mask, int32_t *fo,
+                  int32_t *To, long long rows, const uint64_t *one6,
+                  const uint64_t *mod7, void *stream) {
+  if (rows <= 0) return 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      k_miller_iter<IS_ADD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM);
+  if (e != cudaSuccess) return (int)e;
+  k_miller_iter<IS_ADD><<<(unsigned)((rows + MR - 1) / MR), MT, SMEM,
+                  (cudaStream_t)stream>>>(f, T, Q, P, mask, fo, To, rows,
+                                          dt::one_from_words(one6),
+                                          dt::mod_from_words(mod7));
+  return (int)cudaGetLastError();
+}
+
+// Registers, local memory and shared memory (static plus dynamic) a thread
+// or block, threads a block and resident blocks per SM on the current
+// device: out[0..4].
+static int attrs(int *out) {
+  cudaError_t e = cudaFuncSetAttribute(
+      k_miller_iter<IS_ADD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM);
+  cudaFuncAttributes fa;
+  int per_sm = 0;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, k_miller_iter<IS_ADD>);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, k_miller_iter<IS_ADD>, MT, SMEM);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  out[2] = (int)fa.sharedSizeBytes + SMEM;
+  out[3] = MT;
+  out[4] = per_sm;
+  return 0;
+}
 
 extern "C" {
 
@@ -136,16 +186,19 @@ int dt_miller_dbl_iter(const int32_t *f, const int32_t *T, const int32_t *P,
                        const int32_t *mask, int32_t *fo, int32_t *To,
                        long long rows, const uint64_t *one6,
                        const uint64_t *mod7, void *stream) {
-  return launch<false>(f, T, nullptr, P, mask, fo, To, rows, one6, mod7,
-                       stream);
+  return launch(f, T, nullptr, P, mask, fo, To, rows, one6, mod7, stream);
 }
+
+int dt_miller_dbl_iter_attrs(int *out) { return attrs(out); }
 #else
 int dt_miller_add_iter(const int32_t *f, const int32_t *T, const int32_t *Q,
                        const int32_t *P, const int32_t *mask, int32_t *fo,
                        int32_t *To, long long rows, const uint64_t *one6,
                        const uint64_t *mod7, void *stream) {
-  return launch<true>(f, T, Q, P, mask, fo, To, rows, one6, mod7, stream);
+  return launch(f, T, Q, P, mask, fo, To, rows, one6, mod7, stream);
 }
+
+int dt_miller_add_iter_attrs(int *out) { return attrs(out); }
 #endif
 
 }  // extern "C"

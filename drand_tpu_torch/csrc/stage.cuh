@@ -1,0 +1,76 @@
+// Coalesced staging of a block's rows between device memory (int32
+// 12-bit limbs, row-major, the layout of drand_tpu_torch/ops/field.py)
+// and shared memory (64-bit words in flat_load's layout: element e of
+// block row r, word v at [(e * 6 + v) * R + r]), for the kernels that keep
+// their rows on chip across phases: K11, K12 (miller_kernels.cu) and K14
+// (tower_kernels.cu).  Device code only.
+//
+// A row of `width` elements is width * 128 contiguous bytes.  An element
+// is eight 16-byte chunks of four limbs, 48 bits each.  Eight
+// neighbouring lanes take the eight chunks of one element and a warp one
+// element of four neighbouring rows, so a load or store instruction
+// touches four whole 128-byte lines.  The conversion between limbs and
+// words happens in the lanes: word v is bits 64v..64v+63, which lie in
+// chunks 4v/3 and 4v/3 + 1, so lane v of an element builds it from two
+// shuffles (and chunk p from words 48p/64 and the next on the way out).
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "field_arith.cuh"
+
+namespace dt {
+
+__device__ __forceinline__ uint64_t shfl64(uint64_t x, int lane) {
+  return (uint64_t)__shfl_sync(0xffffffffu, (unsigned long long)x, lane);
+}
+
+// Rows [row0, row0 + R) of src [rows, width, 32] into dst; rows past
+// `rows` stage as zero.  Called by every thread of the block, blockDim.x
+// a multiple of 32.
+template <int R>
+__device__ __forceinline__ void stage_in(const int32_t *__restrict__ src,
+                                         int width, long long row0,
+                                         long long rows, uint64_t *dst) {
+  const int lane = threadIdx.x & 31, p = lane & 7, base = lane & ~7;
+  const int pa = (4 * p) / 3;             // word p's first chunk (p < 6)
+  for (int s = threadIdx.x; s < R * width * 8; s += blockDim.x) {
+    const int g = s >> 3, r = g % R, e = g / R;
+    uint64_t x = 0;                       // chunk p: limbs 4p..4p+3
+    if (row0 + r < rows) {
+      const int4 v = reinterpret_cast<const int4 *>(
+          src + ((row0 + r) * width + e) * N_LIMBS)[p];
+      x = (uint64_t)(uint32_t)v.x | (uint64_t)(uint32_t)v.y << 12 |
+          (uint64_t)(uint32_t)v.z << 24 | (uint64_t)(uint32_t)v.w << 36;
+    }
+    const uint64_t xa = shfl64(x, base + (pa & 7));
+    const uint64_t xb = shfl64(x, base + ((pa + 1) & 7));
+    if (p < N_WORDS) {
+      const int sh = 64 * p - 48 * pa;    // 0, 16 or 32
+      dst[(e * N_WORDS + p) * R + r] = (xa >> sh) | (xb << (48 - sh));
+    }
+  }
+}
+
+// The inverse: src's rows [row0, row0 + R) to dst [rows, width, 32],
+// rows past `rows` skipped.  Called by every thread of the block.
+template <int R>
+__device__ __forceinline__ void stage_out(const uint64_t *src, int width,
+                                          long long row0, long long rows,
+                                          int32_t *__restrict__ dst) {
+  const int lane = threadIdx.x & 31, p = lane & 7, base = lane & ~7;
+  const int wa = (48 * p) >> 6, off = (48 * p) & 63;
+  for (int s = threadIdx.x; s < R * width * 8; s += blockDim.x) {
+    const int g = s >> 3, r = g % R, e = g / R;
+    const uint64_t w = p < N_WORDS ? src[(e * N_WORDS + p) * R + r] : 0;
+    const uint64_t lo = shfl64(w, base + wa), hi = shfl64(w, base + wa + 1);
+    const uint64_t x = off > 16 ? (lo >> off) | (hi << (64 - off))
+                                : lo >> off;
+    if (row0 + r < rows)
+      reinterpret_cast<int4 *>(dst + ((row0 + r) * width + e) * N_LIMBS)[p] =
+          make_int4((int)(x & 0xFFF), (int)((x >> 12) & 0xFFF),
+                    (int)((x >> 24) & 0xFFF), (int)((x >> 36) & 0xFFF));
+  }
+}
+
+}  // namespace dt

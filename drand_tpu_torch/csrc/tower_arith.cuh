@@ -94,16 +94,21 @@ DT_HD void fp2_mul_words(const uint64_t *x0, const uint64_t *x1,
   redc_to(t, r1, 1, M);
 }
 
-// B6: (r0, r1) = (x0^2 - x1^2, 2 x0 x1) * 2^-384 mod m: two triangular
-// squares and one doubled cross product.  The outputs must not alias the
-// inputs.
-DT_HD void fp2_sqr_words(const uint64_t *x0, const uint64_t *x1,
-                         uint64_t *r0, uint64_t *r1, const Mod &M) {
+// The two halves of B6, each one REDC: r0 = (x0^2 - x1^2) * 2^-384 mod m
+// from two triangular squares, r1 = 2 x0 x1 * 2^-384 mod m from one
+// doubled cross product.
+DT_HD void fp2_sqr_re(const uint64_t *x0, const uint64_t *x1, uint64_t *r0,
+                      const Mod &M) {
   uint64_t t[W_WORDS], u[W_WORDS];
   sqr_wide(x0, t);
   sqr_wide(x1, u);
   wide_sub(t, u, M);
   redc_to(t, r0, 1, M);
+}
+
+DT_HD void fp2_sqr_im(const uint64_t *x0, const uint64_t *x1, uint64_t *r1,
+                      const Mod &M) {
+  uint64_t t[W_WORDS];
   zero_wide(t);
   mul_acc(x0, x1, t);                     // < m^2 < 2^762: doubling fits
   DT_UNROLL
@@ -111,6 +116,14 @@ DT_HD void fp2_sqr_words(const uint64_t *x0, const uint64_t *x1,
     t[i] = (t[i] << 1) | (t[i - 1] >> 63);
   t[0] <<= 1;
   redc_to(t, r1, 1, M);
+}
+
+// B6: (r0, r1) = (x0^2 - x1^2, 2 x0 x1) * 2^-384 mod m.  The outputs must
+// not alias the inputs.
+DT_HD void fp2_sqr_words(const uint64_t *x0, const uint64_t *x1,
+                         uint64_t *r0, uint64_t *r1, const Mod &M) {
+  fp2_sqr_re(x0, x1, r0, M);
+  fp2_sqr_im(x0, x1, r1, M);
 }
 
 DT_HD void fp2_mul_limbs(const int32_t *x0, const int32_t *x1,
@@ -314,94 +327,151 @@ DT_HD void line_merge_class(int j, const uint64_t *l1, const uint64_t *l2,
   flat_recombine(r, lo, hi, M);
 }
 
-// Fp2 helpers for the cyclotomic square, on (x, y) word pairs.
-DT_HD void fp2_add_words(const uint64_t *a0, const uint64_t *a1,
-                         const uint64_t *b0, const uint64_t *b1,
-                         uint64_t *r0, uint64_t *r1, const Mod &M) {
-  add_mod(a0, b0, r0, M);
-  add_mod(a1, b1, r1, M);
+// Words of element e of an operand from x: the inverse of flat_load.
+DT_HD void flat_store(const uint64_t *x, uint64_t *base, int e, int stride) {
+  DT_UNROLL
+  for (int v = 0; v < N_WORDS; v++) base[(e * N_WORDS + v) * stride] = x[v];
 }
 
-DT_HD void fp2_sub_words(const uint64_t *a0, const uint64_t *a1,
-                         const uint64_t *b0, const uint64_t *b1,
-                         uint64_t *r0, uint64_t *r1, const Mod &M) {
-  sub_mod(a0, b0, r0, M);
-  sub_mod(a1, b1, r1, M);
+// B14 in chain form: k Granger-Scott cyclotomic squares of a flat Fp12
+// row (the function of ops/flat12.py _flat_cyclo_sqr_plain applied k
+// times, for any canonical input; it equals the square only on unitary
+// ones), split into shares that the threads of a row run between
+// barriers (K14).  Between squares the row stays in its six tower cells,
+// cell s (the cell at flat slot s) with x at element s and y at element
+// s + 6 of a buffer in flat_load's layout: cell s is x = lo + hi, y = hi
+// of the flat coefficients lo at s and hi at s + 6, and lo = x - y gives
+// them back.  Every value is canonical, so x - y + y = x: k squares in
+// cell form equal k flat squares bit for bit.
+
+// Flat coefficients -> cell s, in place (one share per slot s < 6).
+DT_HD void cyclo_to_cell(int s, uint64_t *a, int stride, const Mod &M) {
+  uint64_t lo[N_WORDS], hi[N_WORDS];
+  flat_load(a, s, stride, lo);
+  flat_load(a, s + 6, stride, hi);
+  add_mod(lo, hi, lo, M);
+  flat_store(lo, a, s, stride);
 }
 
-// Tower cell at flat slot s (0 <= s < 6) of a row of 12 limb vectors:
-// x = lo + hi, y = hi.
-DT_HD void flat_cell(const int32_t *row, int s, uint64_t *x, uint64_t *y,
-                     const Mod &M) {
-  uint64_t lo[N_WORDS];
-  load_words(row + s * N_LIMBS, lo);
-  load_words(row + (s + 6) * N_LIMBS, y);
-  add_mod(lo, y, x, M);
+// Cell s -> flat coefficients, in place.
+DT_HD void cyclo_to_flat(int s, uint64_t *a, int stride, const Mod &M) {
+  uint64_t x[N_WORDS], y[N_WORDS];
+  flat_load(a, s, stride, x);
+  flat_load(a, s + 6, stride, y);
+  sub_mod(x, y, x, M);
+  flat_store(x, a, s, stride);
 }
 
-// Writes the cell (x, y) at flat slot s: lo = x - y, hi = y.
-DT_HD void flat_put_cell(int32_t *row, int s, const uint64_t *x,
-                         const uint64_t *y, const Mod &M) {
-  uint64_t lo[N_WORDS];
-  sub_mod(x, y, lo, M);
-  store_words(lo, row + s * N_LIMBS);
-  store_words(y, row + (s + 6) * N_LIMBS);
-}
-
-// B14, one thread's share of the Granger-Scott cyclotomic square of a
-// flat Fp12 row (the function of ops/flat12.py _flat_cyclo_sqr_plain, for
-// any canonical input; it equals the square only on unitary ones).  The
-// tower cells are g0..g5 at slots 0, 2, 4, 1, 3, 5; the Fp4 groups are
-// A = (g0, g4), B = (g3, g2), C = (g1, g5).  Group g (0, 1, 2 for A, B,
-// C) squares the cells at slots (g, g + 3):
-//
-//   a2 = a^2, b2 = b^2, s2 = (a + b)^2
-//   re = a2 + xi b2, im = s2 - a2 - b2          (xi = 1 + u)
-//
-// and writes slot 2g as 3 re - 2 (cell at 2g), and slot (2g + 3) mod 6 as
-// 3 t + 2 (cell there), with t = im, or xi im for group C.
-DT_HD void cyclo_sqr_group(int g, const int32_t *in, int32_t *out,
-                           const Mod &M) {
-  uint64_t ax[N_WORDS], ay[N_WORDS], bx[N_WORDS], by[N_WORDS];
-  uint64_t sx[N_WORDS], sy[N_WORDS];
-  flat_cell(in, g, ax, ay, M);
-  flat_cell(in, g + 3, bx, by, M);
-  fp2_add_words(ax, ay, bx, by, sx, sy, M);
-  uint64_t a2x[N_WORDS], a2y[N_WORDS], b2x[N_WORDS], b2y[N_WORDS];
-  uint64_t s2x[N_WORDS], s2y[N_WORDS];
-  fp2_sqr_words(ax, ay, a2x, a2y, M);
-  fp2_sqr_words(bx, by, b2x, b2y, M);
-  fp2_sqr_words(sx, sy, s2x, s2y, M);
-  // re = a2 + xi b2, xi b2 = (b2x - b2y, b2x + b2y)
-  uint64_t rex[N_WORDS], rey[N_WORDS];
-  sub_mod(b2x, b2y, rex, M);
-  add_mod(b2x, b2y, rey, M);
-  fp2_add_words(a2x, a2y, rex, rey, rex, rey, M);
-  // im = (s2 - a2) - b2
-  uint64_t imx[N_WORDS], imy[N_WORDS];
-  fp2_sub_words(s2x, s2y, a2x, a2y, imx, imy, M);
-  fp2_sub_words(imx, imy, b2x, b2y, imx, imy, M);
-  if (g == 2) {                           // t = xi im
-    sub_mod(imx, imy, sx, M);
-    add_mod(imx, imy, imy, M);
-    DT_UNROLL
-    for (int v = 0; v < N_WORDS; v++) imx[v] = sx[v];
+// The Fp4 groups A, B, C (g = 0, 1, 2) square the cells at slots g and
+// g + 3.  Share q (0..8) of the squaring phase: of group g = q / 3, the
+// Fp2 square a^2 (q % 3 == 0, a = cell g), b^2 (1, b = cell g + 3) or
+// (a + b)^2 (2), into elements 2q (x) and 2q + 1 (y) of sq.
+DT_HD void cyclo_sqr_square(int q, const uint64_t *cells, uint64_t *sq,
+                            int stride, const Mod &M) {
+  const int g = q / 3, kind = q % 3, s = kind == 1 ? g + 3 : g;
+  uint64_t x0[N_WORDS], x1[N_WORDS], r0[N_WORDS], r1[N_WORDS];
+  flat_load(cells, s, stride, x0);
+  flat_load(cells, s + 6, stride, x1);
+  if (kind == 2) {
+    uint64_t y0[N_WORDS], y1[N_WORDS];
+    flat_load(cells, g + 3, stride, y0);
+    flat_load(cells, g + 9, stride, y1);
+    add_mod(x0, y0, x0, M);
+    add_mod(x1, y1, x1, M);
   }
-  uint64_t gx[N_WORDS], gy[N_WORDS], dx[N_WORDS], dy[N_WORDS];
-  // slot 2g: 3 re - 2 g = (d + d) + re, d = re - g
-  const int se = 2 * g;
-  flat_cell(in, se, gx, gy, M);
-  fp2_sub_words(rex, rey, gx, gy, dx, dy, M);
-  fp2_add_words(dx, dy, dx, dy, dx, dy, M);
-  fp2_add_words(dx, dy, rex, rey, dx, dy, M);
-  flat_put_cell(out, se, dx, dy, M);
-  // slot (2g + 3) mod 6: 3 t + 2 g = (s + s) + t, s = t + g
-  const int so = (2 * g + 3) % 6;
-  flat_cell(in, so, gx, gy, M);
-  fp2_add_words(imx, imy, gx, gy, dx, dy, M);
-  fp2_add_words(dx, dy, dx, dy, dx, dy, M);
-  fp2_add_words(dx, dy, imx, imy, dx, dy, M);
-  flat_put_cell(out, so, dx, dy, M);
+  fp2_sqr_words(x0, x1, r0, r1, M);
+  flat_store(r0, sq, 2 * q, stride);
+  flat_store(r1, sq, 2 * q + 1, stride);
+}
+
+// Share o (0..5) of the folding phase, in place: group g = o / 2, with
+//
+//   re = a^2 + xi b^2, im = (a + b)^2 - a^2 - b^2      (xi = 1 + u)
+//
+// writes slot 2g as 3 re - 2 (cell there) when o is even, and slot
+// (2g + 3) mod 6 as 3 t + 2 (cell there) when o is odd, t = im, or xi im
+// for group C.  The six shares write six distinct slots and each reads
+// only the cell it writes.
+DT_HD void cyclo_sqr_fold(int o, uint64_t *cells, const uint64_t *sq,
+                          int stride, const Mod &M) {
+  const int g = o / 2;
+  uint64_t ax[N_WORDS], ay[N_WORDS], bx[N_WORDS], by[N_WORDS];
+  uint64_t tx[N_WORDS], ty[N_WORDS], cx[N_WORDS], cy[N_WORDS];
+  flat_load(sq, 6 * g, stride, ax);
+  flat_load(sq, 6 * g + 1, stride, ay);
+  flat_load(sq, 6 * g + 2, stride, bx);
+  flat_load(sq, 6 * g + 3, stride, by);
+  const bool even = o % 2 == 0;
+  const int s = even ? 2 * g : (2 * g + 3) % 6;
+  if (even) {                             // t = re, xi b^2 = (bx - by, bx + by)
+    sub_mod(bx, by, tx, M);
+    add_mod(bx, by, ty, M);
+    add_mod(ax, tx, tx, M);
+    add_mod(ay, ty, ty, M);
+  } else {                                // t = im (xi im for C)
+    flat_load(sq, 6 * g + 4, stride, tx);
+    flat_load(sq, 6 * g + 5, stride, ty);
+    sub_mod(tx, ax, tx, M);
+    sub_mod(ty, ay, ty, M);
+    sub_mod(tx, bx, tx, M);
+    sub_mod(ty, by, ty, M);
+    if (g == 2) {
+      sub_mod(tx, ty, ax, M);
+      add_mod(tx, ty, ty, M);
+      DT_UNROLL
+      for (int v = 0; v < N_WORDS; v++) tx[v] = ax[v];
+    }
+  }
+  flat_load(cells, s, stride, cx);
+  flat_load(cells, s + 6, stride, cy);
+  // even: 3t - 2c = 2(t - c) + t; odd: 3t + 2c = 2(t + c) + t
+  if (even) {
+    sub_mod(tx, cx, cx, M);
+    sub_mod(ty, cy, cy, M);
+  } else {
+    add_mod(tx, cx, cx, M);
+    add_mod(ty, cy, cy, M);
+  }
+  add_mod(cx, cx, cx, M);
+  add_mod(cy, cy, cy, M);
+  add_mod(cx, tx, cx, M);
+  add_mod(cy, ty, cy, M);
+  flat_store(cx, cells, s, stride);
+  flat_store(cy, cells, s + 6, stride);
+}
+
+// One share of a flat product a * l by a sparse line l on LINE_IDX (its
+// six coefficients at the powers line_pow(0..5)): the function of
+// flat_mul_class(j, a, l, stride, flat_idx(LINE_IDX, 6), ...), with the
+// line's powers fixed at compile time.  A power k sums at most six
+// products (below 6 m^2) and k > 20 has none; each is reduced and
+// recombined as in flat_mul_class, so the two agree bit for bit.
+DT_HD void flat_mul_line_class(int j, const uint64_t *a, const uint64_t *l,
+                               int stride, uint64_t *lo, uint64_t *hi,
+                               const Mod &M) {
+  uint64_t r[4][N_WORDS];
+  DT_UNROLL
+  for (int q = 0; q < 4; q++) {
+    const int k = j + 6 * q;
+    if (k > FLAT - 1 + 9) {               // above the top power 11 + 9
+      DT_UNROLL
+      for (int v = 0; v < N_WORDS; v++) r[q][v] = 0;
+      continue;
+    }
+    uint64_t w[W_WORDS];
+    zero_wide(w);
+    DT_UNROLL
+    for (int m = 0; m < 6; m++) {
+      const int i = k - line_pow(m);
+      if (i < 0 || i >= FLAT) continue;
+      uint64_t x[N_WORDS], y[N_WORDS];
+      flat_load(a, i, stride, x);
+      flat_load(l, m, stride, y);
+      mul_acc(x, y, w);
+    }
+    redc_to(w, r[q], 2, M);
+  }
+  flat_recombine(r, lo, hi, M);
 }
 
 

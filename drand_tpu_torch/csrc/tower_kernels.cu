@@ -35,11 +35,18 @@
 //   24 products per thread, and each warp on one j, so the loops do not
 //   diverge.
 // K14 dt_cyclo_sqr -- replaces PallasField.cyclo_sqr (:647, body
-//   _cyclo_sqr_kernel :581).  The whole Granger-Scott square (cell
-//   extraction, nine Fp2 squares, the Fp4 recombination, the 3t +- 2g
-//   folds and the flat re-encoding) in one launch, three threads a row,
-//   one per Fp4 group, each reading the four cells it needs: 11.2k
-//   multiply-adds on 3 KB a row, bound by bytes.
+//   _cyclo_sqr_kernel :581), in chain form: k Granger-Scott squares in one
+//   launch (drand_tpu launches one a square; the port's final
+//   exponentiation passes each run of squares of its ladder to one call).
+//   A square is nine Fp2 squares and the Fp4 folds, 11,232 multiply-adds
+//   a row, so a chain of k is bound by operations at k >= 2 and by the
+//   3 KB a row it reads and writes at k = 1.  A block stages its 32 rows
+//   once, coalesced (stage.cuh), into shared memory as words in tower-cell
+//   form, squares k times there and writes once.  Each square is two
+//   phases with a barrier after each: nine threads a row, one per Fp2
+//   square (cyclo_sqr_square, each warp one square of 32 rows), then six,
+//   one per output cell (cyclo_sqr_fold, in place).  Shared memory: the
+//   cells and the nine squares, 46,080 bytes a block.
 
 // K7 dt_fp2_sqr_chain_mul -- replaces PallasField.fp2_sqr_chain_mul
 //   (:1326, body _fp2_sqr_chain_mul_kernel :1298).  The Fp2 addition-chain
@@ -74,6 +81,7 @@
 
 #include <cuda_runtime.h>
 
+#include "stage.cuh"
 #include "tower_arith.cuh"
 
 namespace {
@@ -178,14 +186,31 @@ __global__ void __launch_bounds__(FLAT_THREADS)
   dt::store_words(hi, out + (j + 6) * dt::N_LIMBS);
 }
 
-__global__ void k_cyclo_sqr(const int32_t *__restrict__ a,
-                            int32_t *__restrict__ o, long long rows,
-                            dt::Mod M) {
-  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (e >= 3 * rows) return;
-  const long long g = e / rows, r = e % rows;   // a warp shares its group
-  dt::cyclo_sqr_group((int)g, a + r * dt::FLAT * dt::N_LIMBS,
-                      o + r * dt::FLAT * dt::N_LIMBS, M);
+constexpr int CY_ROWS = 32;                    // rows of a K14 block
+constexpr int CY_THREADS = 9 * CY_ROWS;       // nine threads a row
+
+__global__ void __launch_bounds__(CY_THREADS, 2)
+    k_cyclo_sqr(const int32_t *__restrict__ a, int32_t *__restrict__ o,
+                long long rows, int k, dt::Mod M) {
+  // cell s of block row r: x at element s, y at element s + 6; square q
+  // at elements 2q, 2q + 1 (flat_load's layout, stride CY_ROWS)
+  __shared__ uint64_t cells[dt::FLAT * dt::N_WORDS * CY_ROWS];
+  __shared__ uint64_t sq[18 * dt::N_WORDS * CY_ROWS];
+  const long long row0 = (long long)blockIdx.x * CY_ROWS;
+  dt::stage_in<CY_ROWS>(a, dt::FLAT, row0, rows, cells);
+  __syncthreads();
+  const int j = threadIdx.x / CY_ROWS, r = threadIdx.x % CY_ROWS;
+  if (j < 6) dt::cyclo_to_cell(j, cells + r, CY_ROWS, M);
+  __syncthreads();
+  for (int i = 0; i < k; i++) {
+    dt::cyclo_sqr_square(j, cells + r, sq + r, CY_ROWS, M);
+    __syncthreads();
+    if (j < 6) dt::cyclo_sqr_fold(j, cells + r, sq + r, CY_ROWS, M);
+    __syncthreads();
+  }
+  if (j < 6) dt::cyclo_to_flat(j, cells + r, CY_ROWS, M);
+  __syncthreads();
+  dt::stage_out<CY_ROWS>(cells, dt::FLAT, row0, rows, o);
 }
 
 // K7, K8: coordinate c of row r at (c * rows + r) * 32.
@@ -279,13 +304,32 @@ int dt_line_merge(const int32_t *l1, const int32_t *l2, int32_t *o,
   return (int)cudaGetLastError();
 }
 
-int dt_cyclo_sqr(const int32_t *a, int32_t *o, long long rows,
+// k >= 1 squares in one launch.
+int dt_cyclo_sqr(const int32_t *a, int32_t *o, long long rows, int k,
                  const uint64_t *mod7, void *stream) {
-  if (rows <= 0) return 0;
-  k_cyclo_sqr<<<blocks(3 * rows, THREADS), THREADS, 0,
-                (cudaStream_t)stream>>>(a, o, rows,
+  if (rows <= 0 || k <= 0) return 0;
+  k_cyclo_sqr<<<blocks(rows, CY_ROWS), CY_THREADS, 0,
+                (cudaStream_t)stream>>>(a, o, rows, k,
                                         dt::mod_from_words(mod7));
   return (int)cudaGetLastError();
+}
+
+// K14's registers, local memory and shared memory a thread or block,
+// threads a block and resident blocks per SM on the current device:
+// out[0..4].
+int dt_cyclo_sqr_attrs(int *out) {
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, k_cyclo_sqr);
+  int per_sm = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k_cyclo_sqr,
+                                                      CY_THREADS, 0);
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  out[2] = (int)fa.sharedSizeBytes;
+  out[3] = CY_THREADS;
+  out[4] = per_sm;
+  return (int)e;
 }
 
 // t may be null: then x^(2^k).

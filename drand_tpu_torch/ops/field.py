@@ -79,14 +79,20 @@ def tail_segments(bits: str):
     return segs
 
 
-def segmented_ladder(segments, state, dbl_fn, add_fn):
+def segmented_ladder(segments, state, dbl_fn, add_fn, run_fn=None):
     """Run a static ladder: each zero run doubles only, each set bit
-    doubles then adds.  `state` is any value `dbl_fn`/`add_fn` accept."""
+    doubles then adds.  `state` is any value `dbl_fn`/`add_fn` accept.
+    With `run_fn`, every run of n > 0 doublings in a row (a zero run and
+    the doubling of the set bit after it) is one `run_fn(state, n)`."""
     for run, has_one in segments:
-        for _ in range(run):
-            state = dbl_fn(state)
+        n = run + has_one
+        if run_fn is not None and n:
+            state = run_fn(state, n)
+        else:
+            for _ in range(n):
+                state = dbl_fn(state)
         if has_one:
-            state = add_fn(dbl_fn(state))
+            state = add_fn(state)
     return state
 
 

@@ -5,7 +5,8 @@ is flattened onto {1, w, ..., w^11} over Fp (w^2 = v, v^3 = xi = 1 + u,
 u^2 = -1), so a product is a convolution of all coefficient pairs onto
 w-powers, a Montgomery reduction and a signed recombination through the
 minimal polynomial w^12 - 2 w^6 + 2 = 0.  On a GPU tensor the product
-(`flat_mul`, dense or sparse), the cyclotomic square, the conjugation,
+(`flat_mul`, dense or sparse), the cyclotomic square (a run of k in one
+launch), the conjugation,
 the Frobenius map, the slot-symmetric square and the product of two
 sparse lines are one hand-written CUDA kernel each (K13, K14, K15, K16,
 K17 and K20 in `ops/kernels.py`, as `drand_tpu` takes its Pallas kernels
@@ -325,19 +326,26 @@ def flat_inv(a):
     return flat_from_tower(T.fp12_inv(flat_to_tower(a)))
 
 
-def flat_cyclo_sqr(a):
-    """Granger-Scott cyclotomic squaring for UNITARY elements (everything
-    after the final exponentiation's easy part): 9 Fp2 squares instead of
-    the full flat square.  Kernel K14 on a GPU tensor."""
+def flat_cyclo_sqr(a, k: int = 1):
+    """k Granger-Scott cyclotomic squarings for UNITARY elements
+    (everything after the final exponentiation's easy part): 9 Fp2
+    squares each instead of the full flat square.  Kernel K14 on a GPU
+    tensor, all k squares in one launch."""
     if a.device.type == "cpu":
-        return _flat_cyclo_sqr_plain(a)
-    return K.cyclo_sqr(a, FP)
+        return _flat_cyclo_sqr_plain(a, k)
+    return K.cyclo_sqr(a, FP, k)
 
 
-def _flat_cyclo_sqr_plain(a):
-    """Plain version of K14: the 9 Fp2 squares in one stack, the rest in
-    stacked Fp2 adds and subtracts.  A fixed function of any canonical
-    input; it equals the square of `a` where `a` is unitary."""
+def _flat_cyclo_sqr_plain(a, k: int = 1):
+    """Plain version of K14: k times the 9 Fp2 squares in one stack and
+    the rest in stacked Fp2 adds and subtracts.  A fixed function of any
+    canonical input; it equals a^(2^k) where `a` is unitary."""
+    for _ in range(k):
+        a = _cyclo_sqr_once(a)
+    return a
+
+
+def _cyclo_sqr_once(a):
     hi = a[..., 6:, :]
     xs = FP.add(a[..., :6, :], hi)          # tower-cell x coordinates
 

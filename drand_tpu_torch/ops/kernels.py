@@ -15,8 +15,8 @@ error, and adds one to its kernel's `launches` where it launches (and
 counts the launch under its call in `calls`: field and shape for K1-K3,
 K21 and K22, and k and whether t is given for K4; shape and n for K5/K6;
 shape and b_idx for K13; shape, k and whether t is given for K7; shape
-for K8, K9, K11, K12, K14, K15, K17-K20; shape and with_double for K10;
-shape and n for K16).
+and k for K14; shape for K8, K9, K11, K12, K15, K17-K20; shape and
+with_double for K10; shape and n for K16).
 """
 
 from __future__ import annotations
@@ -135,7 +135,7 @@ _ARGTYPES = {
     "dt_fp2_products": [_P, _P, _P, _LL, _I, _P, _P],
     "dt_fp2_sqrs": [_P, _P, _LL, _I, _P, _P],
     "dt_flat_mul": [_P, _P, _P, _LL, _P, _I, _P, _P],
-    "dt_cyclo_sqr": [_P, _P, _LL, _P, _P],
+    "dt_cyclo_sqr": [_P, _P, _LL, _I, _P, _P],
     "dt_fp2_sqr_chain_mul": [_P, _P, _P, _LL, _I, _P, _P],
     "dt_fp2_sqr5_mul": [_P, _P, _P, _LL, _P, _P],
     "dt_g2_point_dbl": [_P, _P, _LL, _P, _P],
@@ -150,6 +150,9 @@ _ARGTYPES = {
     "dt_line_merge": [_P, _P, _P, _LL, _P, _P],
     "dt_add": [_P, _P, _P, _LL, _P, _P],
     "dt_sub": [_P, _P, _P, _LL, _P, _P],
+    "dt_cyclo_sqr_attrs": [_P],
+    "dt_miller_dbl_iter_attrs": [_P],
+    "dt_miller_add_iter_attrs": [_P],
 }
 
 _lock = threading.Lock()
@@ -227,6 +230,22 @@ def build() -> dict:
         lib.dt_error_string.restype = ctypes.c_char_p
         _state["lib"], _state["info"] = lib, info
         return info
+
+
+def kernel_attrs(name: str) -> dict:
+    """What `cudaFuncGetAttributes` and
+    `cudaOccupancyMaxActiveBlocksPerMultiprocessor` say of the kernel of
+    `name` on the current device, for the kernels that export them
+    (cyclo_sqr, miller_dbl_iter, miller_add_iter)."""
+    lib = _lib()
+    out = np.zeros(5, dtype=np.int32)
+    rc = getattr(lib, KERNELS[name].symbol + "_attrs")(out.ctypes.data)
+    if rc:
+        raise RuntimeError(f"{name} attributes: CUDA error {rc}: "
+                           f"{lib.dt_error_string(rc).decode()}")
+    return dict(zip(("num_regs", "local_bytes", "shared_bytes",
+                     "threads_per_block", "blocks_per_sm"),
+                    (int(v) for v in out)))
 
 
 def _lib():
@@ -400,17 +419,19 @@ def flat_mul(a: torch.Tensor, b: torch.Tensor, b_idx, field) -> torch.Tensor:
     return out
 
 
-def cyclo_sqr(a: torch.Tensor, field) -> torch.Tensor:
-    """K14: the Granger-Scott cyclotomic square of flat Fp12 [..., 12, 32]
-    (the function of `flat12._flat_cyclo_sqr_plain` on any canonical
-    input), canonical in and out."""
+def cyclo_sqr(a: torch.Tensor, field, k: int = 1) -> torch.Tensor:
+    """K14: k Granger-Scott cyclotomic squares of flat Fp12 [..., 12, 32]
+    in one launch (the function of `flat12._flat_cyclo_sqr_plain`, k
+    times, on any canonical input), canonical in and out."""
     a = a.contiguous()
     _shaped(a, "cyclo_sqr a", (12, 32))
+    if not 1 <= k < 2 ** 31:
+        raise ValueError(f"cyclo_sqr: k out of range: {k}")
     out = torch.empty_like(a)
     rows = a.numel() // (12 * 32)
     if rows:
-        _launch("cyclo_sqr", tuple(a.shape), a.device, a.data_ptr(),
-                out.data_ptr(), rows, field.kernel_arg.ctypes.data)
+        _launch("cyclo_sqr", (tuple(a.shape), k), a.device, a.data_ptr(),
+                out.data_ptr(), rows, k, field.kernel_arg.ctypes.data)
     return out
 
 
@@ -517,8 +538,8 @@ def _miller_check(f, T, P, masks, Q=None):
 def miller_dbl_iter(f, T, P, masks, field):
     """K11: one merged Miller doubling iteration of the two-pair check.
     f [..., 12, 32], T [..., 2, 6, 32], P [..., 2, 2, 32], masks [..., 2]
-    int32; returns (f^2 * l1 * l2, the doubled T), the two lines
-    multiplied together first."""
+    int32; returns (f^2 * l1 * l2, the doubled T), the lines multiplied
+    in one after the other."""
     f, T, P = f.contiguous(), T.contiguous(), P.contiguous()
     rows = _miller_check(f, T, P, masks)
     fo, To = torch.empty_like(f), torch.empty_like(T)

@@ -2,8 +2,9 @@
 
 Counterpart of `drand_tpu/ops/pairing.py` with both of its Miller-loop
 executors: the merged one for the two-pair check (one K11 or K12 launch
-per iteration on a GPU tensor, the two lines multiplied together first)
-and the trio one for any number of pairs (per
+per iteration on a GPU tensor, the two lines multiplied in one after the
+other; the plain versions merge them first, as `drand_tpu` does, which
+gives the same canonical element) and the trio one for any number of pairs (per
 iteration the shared square K17, the stacked pair steps K18 or K19 and
 one sparse product K13 per pair).  Jacobian line steps with
 denominator-cleared coefficients (no inversion in the loop), the Fp12
@@ -154,8 +155,7 @@ def _add_step_plain(Tj, Q, xp, yp):
 
 def miller_dbl_iter(f, Ts, P, masks):
     """One doubling iteration, f^2 * l_1 * ... * l_K and every pair's
-    doubling step, the first two lines multiplied together first: kernel
-    K11 (K = 2) on a GPU tensor."""
+    doubling step: kernel K11 (K = 2) on a GPU tensor."""
     if f.device.type == "cpu":
         return _miller_dbl_iter_plain(f, Ts, P, masks)
     return K.miller_dbl_iter(f, Ts, P, masks, FP)
@@ -184,7 +184,8 @@ def _pair_minor(coords):
 def _mul_lines(f, lines, masks):
     """f times every pair's line, the flat one where a pair is inactive,
     through the plain products: the first two lines multiplied together
-    first (the plain line merge), as K11 and K12 do."""
+    first (the plain line merge, `drand_tpu`'s default form; K11 and K12
+    multiply them in one after the other, the same element)."""
     a, b, c = lines
     flat = []
     for k in range(masks.shape[-1]):
@@ -345,9 +346,12 @@ def _miller_loop_trio(pairs, active):
 # ---------------------------------------------------------------------------
 
 def _unitary_pow_x_abs(f):
-    """f^|x| with cyclotomic squarings (post-easy-part elements only)."""
+    """f^|x| with cyclotomic squarings (post-easy-part elements only),
+    each run of squarings in a row one `flat_cyclo_sqr(acc, n)` (one K14
+    launch on a GPU tensor): runs of 1, 2, 3, 9, 32 and 16."""
     return segmented_ladder(_X_SEGMENTS, f, F.flat_cyclo_sqr,
-                            lambda acc: F.flat_mul(acc, f))
+                            lambda acc: F.flat_mul(acc, f),
+                            run_fn=F.flat_cyclo_sqr)
 
 
 def _pow_x(f):

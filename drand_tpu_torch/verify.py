@@ -125,16 +125,20 @@ class Verifier:
                              anchor_prev_sig: np.ndarray) -> np.ndarray:
         """Verify a contiguous chained segment [start_round, start_round+B):
         the previous signature of element i is sigs[i-1], of element 0 the
-        anchor, which must be a signature (a regular anchor)."""
+        anchor.  The anchor may have another length than a signature
+        (round 1 links to the 32-byte genesis seed): that first element's
+        message is sha256(anchor || be64(start_round)), of another length
+        than the rest, so it goes alone, one row in a bucket of its own on
+        the verifier's device, and the rest batches against sigs[0]."""
         sigs = np.asarray(sigs, dtype=np.uint8)
         anchor = np.asarray(anchor_prev_sig, dtype=np.uint8)
-        if sigs.shape[0] == 0:
+        n = sigs.shape[0]
+        if n == 0:
             return np.zeros(0, dtype=bool)
-        if anchor.shape[0] != sigs.shape[1]:
-            raise NotImplementedError(
-                "irregular anchor (round 1 links to the genesis seed) is "
-                "not ported yet: start the segment at round 2")
-        rounds = np.arange(start_round, start_round + sigs.shape[0],
-                           dtype=np.uint64)
-        prev = np.concatenate([anchor[None], sigs[:-1]], 0)
-        return self.verify_batch(rounds, sigs, prev)
+        rounds = np.arange(start_round, start_round + n, dtype=np.uint64)
+        if anchor.shape[0] == sigs.shape[1]:
+            prev = np.concatenate([anchor[None], sigs[:-1]], 0)
+            return self.verify_batch(rounds, sigs, prev)
+        first = self.verify_batch_async(rounds[:1], sigs[:1], anchor[None])
+        rest = self.verify_batch_async(rounds[1:], sigs[1:], sigs[:-1])
+        return np.concatenate([first(), rest()])

@@ -55,8 +55,33 @@ def test_chained_segment_verifies(chain):
     assert ok.shape == (8,) and ok.all()
 
 
-def test_irregular_anchor_is_not_ported(chain):
+def _golden_verdicts(pk, sigs, seed):
+    """drand_tpu's golden bls_verify of each round of a chained segment
+    from round 1: round r's message is sha256(prev || be64(r)), prev the
+    genesis seed for round 1 and round r-1's signature after it."""
+    prev, out = bytes(seed), []
+    for r, sig in enumerate(sigs, start=1):
+        msg = hashlib.sha256(prev + r.to_bytes(8, "big")).digest()
+        out.append(S.bls_verify(pk, msg, bytes(sig)))
+        prev = bytes(sig)
+    return out
+
+
+def test_genesis_anchor_verdicts_match_golden(chain):
+    """Rounds 1..9 against the genesis seed (the irregular anchor: round
+    1's message hashes the 32-byte seed), every verdict equal to the
+    golden bls_verify of its round; then with a byte of round 1's
+    signature flipped: False at round 1, and at round 2, whose message
+    hashes round 1's signature, True elsewhere, as the golden says."""
     pk, sigs = chain
     ver = V.Verifier(pk, V.SHAPE_CHAINED, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ver.verify_chain_segment(1, sigs, np.frombuffer(GENESIS_SEED, np.uint8))
+    seed = np.frombuffer(GENESIS_SEED, np.uint8)
+    ok = ver.verify_chain_segment(1, sigs, seed)
+    assert ok.shape == (9,)
+    assert ok.tolist() == _golden_verdicts(pk, sigs, GENESIS_SEED)
+    assert ok.all()
+    bad = sigs.copy()
+    bad[0, 40] ^= 0x01
+    ok = ver.verify_chain_segment(1, bad, seed)
+    assert ok.tolist() == _golden_verdicts(pk, bad, GENESIS_SEED)
+    assert ok.tolist() == [False, False] + [True] * 7

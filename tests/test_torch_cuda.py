@@ -99,6 +99,10 @@ def test_cyclo_sqr_kernel_matches_plain_version_on_card(cuda):
     rng = np.random.default_rng(13)
     a = _fp_rows(rng, (200, 12)).to(cuda)
     assert torch.equal(K.cyclo_sqr(a, FP), F._flat_cyclo_sqr_plain(a))
+    # the chain form: k squares in one launch, 200 rows a ragged last block
+    for k in (2, 9, 32):
+        assert torch.equal(K.cyclo_sqr(a, FP, k),
+                           F._flat_cyclo_sqr_plain(a, k))
     # unitary rows (the final exponentiation's easy part): the full square
     u = F.flat_mul(F.flat_conj(a), F.flat_inv(a))
     u = F.flat_mul(F.flat_frob(u, 2), u)

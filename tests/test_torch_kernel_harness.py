@@ -15,8 +15,9 @@ sparse, with the all-(p-1) stored-coefficient operand; K14
 unitary ones; K7/K8 (`towers._fp2_sqr_chain_mul_plain`); K9/K10 (the
 `ops/curve.py` formulas under `Fp2PlainOps`) on random coordinates with
 the doubling, cancelling and infinite cases among them; K11/K12
-(`pairing._miller_*_iter_plain`) with active and inactive pairs, and
-against f^2 (or f) times the two lines one after the other;
+(`pairing._miller_*_iter_plain`), K11's doubling step split into its
+shares, with active and inactive pairs, and against f^2 (or f) times the
+two lines one after the other;
 K15/K16 (`flat12._flat_conj_plain`, `_flat_frob_plain`); K17/K20
 (`flat12._flat_sqr_plain`, `_line_merge_plain`) with the all-(p-1) and
 zero operands; K18/K19 (`pairing._dbl_step_plain`, `_add_step_plain`)
@@ -62,15 +63,15 @@ def host_lib(tmp_path_factory):
     lib.dth_fp2_products.argtypes = [P_, P_, P_, LL, I, P_]
     lib.dth_fp2_sqrs.argtypes = [P_, P_, LL, I, P_]
     lib.dth_flat_mul.argtypes = [P_, P_, P_, LL, P_, I, P_]
-    lib.dth_cyclo_sqr.argtypes = [P_, P_, LL, P_]
+    lib.dth_cyclo_sqr.argtypes = [P_, P_, LL, I, I, P_]
     lib.dth_fp2_sqr_chain_mul.argtypes = [P_, P_, P_, LL, I, P_]
     lib.dth_fp2_sqr5_mul.argtypes = [P_, P_, P_, LL, P_]
     lib.dth_flat_conj.argtypes = [P_, P_, LL, P_]
     lib.dth_flat_frob.argtypes = [P_, P_, LL, P_, P_]
     lib.dth_g2_point_dbl.argtypes = [P_, P_, LL, P_]
     lib.dth_g2_point_add.argtypes = [P_, P_, P_, LL, I, P_, P_]
-    lib.dth_miller_dbl_iter.argtypes = [P_] * 6 + [LL, P_, P_]
-    lib.dth_miller_add_iter.argtypes = [P_] * 7 + [LL, P_, P_]
+    lib.dth_miller_dbl_iter.argtypes = [P_] * 6 + [LL, I, P_, P_]
+    lib.dth_miller_add_iter.argtypes = [P_] * 7 + [LL, I, P_, P_]
     lib.dth_flat_sqr.argtypes = [P_, P_, LL, P_]
     lib.dth_line_merge.argtypes = [P_, P_, P_, LL, P_]
     lib.dth_g2_dbl_line.argtypes = [P_, P_, P_, LL, P_]
@@ -219,15 +220,23 @@ def test_flat_mul(host_lib, b_idx):
                                b_idx).numpy())
 
 
-def test_cyclo_sqr(host_lib):
-    """K14 on random canonical rows (not unitary: the kernel must compute
-    the plain version's function everywhere) and on the all-(p-1) row."""
+@pytest.mark.parametrize("k", [1, 2, 3, 9, 16, 32])
+def test_cyclo_sqr(host_lib, k):
+    """K14's chain of k squares (the run lengths of the final
+    exponentiation's ladder), its shares in the kernel's order and in
+    reverse, on random canonical rows (not unitary: the kernel must
+    compute the plain version's function everywhere) and on the
+    all-(p-1) row, against k plain squares."""
     a = _fp_rows((9, 12), seed=10)
     a[0] = _max_flat()
     out = np.empty_like(a)
-    host_lib.dth_cyclo_sqr(_ptr(a), _ptr(out), len(a), _ptr(FP.kernel_arg))
-    np.testing.assert_array_equal(
-        out, F._flat_cyclo_sqr_plain(torch.as_tensor(a)).numpy())
+    want = torch.as_tensor(a)
+    for _ in range(k):
+        want = F._flat_cyclo_sqr_plain(want)
+    for reverse in (0, 1):
+        host_lib.dth_cyclo_sqr(_ptr(a), _ptr(out), len(a), k, reverse,
+                               _ptr(FP.kernel_arg))
+        np.testing.assert_array_equal(out, want.numpy())
 
 
 @pytest.mark.parametrize("k", [0, 1, 5, 13])
@@ -309,12 +318,15 @@ def test_g2_point_dbl_and_add(host_lib):
         np.testing.assert_array_equal(out, C.g2_pack(want).numpy())
 
 
-def test_miller_iterations(host_lib):
-    """K11 and K12 on random rows: f, T (Z = 1 in row 0, as at the loop's
-    start), P, Q, and masks with every active/inactive combination;
-    against their plain versions, and f' against f^2 (K11) or f (K12)
-    times the two masked lines one after the other: the merge gives the
-    same element."""
+@pytest.mark.parametrize("reverse", [0, 1])
+def test_miller_iterations(host_lib, reverse):
+    """K11 and K12 on random rows, the shares of each phase (K11's split
+    doubling step, the product classes) in the kernel's order and in
+    reverse: f, T (Z = 1 in row 0, as at the loop's start), P, Q, and
+    masks with every active/inactive combination; against their plain
+    versions (the lines merged first, as drand_tpu does), and f' against
+    f^2 (K11) or f (K12) times the two masked lines one after the other,
+    as the kernels multiply them."""
     rows = 8
     f = _fp_rows((rows, 12), seed=24)
     f[1] = _max_flat()
@@ -339,7 +351,7 @@ def test_miller_iterations(host_lib):
     Tj = ((X0, X1), (Y0, Y1), (Z0, Z1))
     xp, yp = PR._pair_major(tP)
     host_lib.dth_miller_dbl_iter(_ptr(f), _ptr(Ts), _ptr(P), _ptr(masks),
-                                 _ptr(fo), _ptr(To), rows,
+                                 _ptr(fo), _ptr(To), rows, reverse,
                                  _ptr(FP.kernel_one), _ptr(FP.kernel_arg))
     wf, wT = PR._miller_dbl_iter_plain(tf, tT, tP, tm)
     np.testing.assert_array_equal(fo, wf.numpy())
@@ -349,7 +361,8 @@ def test_miller_iterations(host_lib):
         fo, lines_one_by_one(F._flat_mul_plain(tf, tf), lines).numpy())
     host_lib.dth_miller_add_iter(_ptr(f), _ptr(Ts), _ptr(Q), _ptr(P),
                                  _ptr(masks), _ptr(fo), _ptr(To), rows,
-                                 _ptr(FP.kernel_one), _ptr(FP.kernel_arg))
+                                 reverse, _ptr(FP.kernel_one),
+                                 _ptr(FP.kernel_arg))
     wf, wT = PR._miller_add_iter_plain(tf, tT, tQ, tP, tm)
     np.testing.assert_array_equal(fo, wf.numpy())
     np.testing.assert_array_equal(To, wT.numpy())

@@ -223,6 +223,19 @@ def test_golden_pairing_copy_matches_drand_tpu():
     assert not TGP.pairing_check([(p1, q1), (p2, q2)])
 
 
+def test_final_exp_vs_golden():
+    """The port's final exponentiation (each run of cyclotomic squares of
+    its x ladder one flat_cyclo_sqr call, K14's chain on the card) on
+    two random rows, bit for bit against drand_tpu's golden final_exp."""
+    rng = random.Random(60)
+    vals = [tuple(tuple((rng.randrange(P), rng.randrange(P))
+                        for _ in range(3)) for _ in range(2))
+            for _ in range(2)]
+    got = TP.final_exp(TFL.flat_encode(vals))
+    want = TFL.flat_encode([JGP.final_exp(v) for v in vals])
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("name", ["fp", "fr"])
 def test_add_sub_plain_vs_drand_tpu(name):
     """K21's and K22's plain versions (Field.add, Field.sub) against
