@@ -9,18 +9,21 @@ Phases, each printing one JSON line:
   build   also each redesigned kernel's registers, local memory, shared
           memory and resident blocks per SM (cudaFuncGetAttributes and
           cudaOccupancyMaxActiveBlocksPerMultiprocessor, on a line of its
-          own): K11, K12, K14
+          own): K9, K11, K12, K14
   slice   drand_tpu_torch.verify.Verifier (drand_tpu's merged Miller
           executor) on the committed 16384-round pedersen-bls-unchained
           segment (all true; one flipped byte gives exactly one false;
           K14 launched at most 31 times, one chain of squares a run of
-          the final exponentiation's ladder, and K11 63 times) and on the
+          the final exponentiation's ladder, K9 19 times, one chain of
+          doublings a run of the three |x| ladders and one for [2]Q, and
+          K11 63 times) and on the
           committed pedersen-bls-chained segment from round 1 (rounds
           1-65 against the genesis seed, the irregular anchor: round 1 in
           a bucket of its own), with the launches of every kernel during
           the 16384-round batch, in total and by call (the key each
           wrapper in ops/kernels.py documents), and the calls of the
-          chained run
+          chained run; then the device kernels one more such batch
+          launches in all (torch.profiler) and their summed durations
   trio    the same 16384-round segment and flipped batch with drand_tpu's
           trio Miller executor (profiling.trio_batch_async: the verify
           path with merged=False): every verdict equal to the default's;
@@ -40,7 +43,8 @@ exponentiation's inversion (mont_mul, mont_sqr, sqr_chain_mul,
 fp2_products).
 
   parity  every kernel against its plain PyTorch version on the card, bit
-          for bit, at every call the batches above made and at fixed
+          for bit, at every call the batches above made (g2_point_dbl
+          and cyclo_sqr at each of their chain lengths) and at fixed
           cases: 16384 rows for Fp and Fr (sqr_chain_mul also at k = 1, 4,
           5, 9, 63 with and without t; mont_reduce also at the stacks
           [2, 16384, 64] and [16, 2, 16384, 64] the composite products
@@ -48,7 +52,8 @@ fp2_products).
           sparse on all-(p-1) coefficients, cyclo_sqr on unitary rows
           at k = 1 and 32 and on a ragged last block,
           fp2_sqr_chain_mul at k = 1, 5, 13, fp2_sqr5_mul, the G2 point
-          kernels with doubling, cancelling and infinite rows, the Miller
+          kernels with doubling, cancelling and infinite rows (g2_point_dbl
+          also at n = 1 and 9 on a ragged last block), the Miller
           iterations with every active/inactive pair mask (also on a
           ragged last block),
           flat_conj and flat_frob at n = 1, 2, 3, flat_sqr and line_merge
@@ -203,8 +208,8 @@ def work(name: str, call: tuple):
         rows = math.prod(call[1:-1])
         return 768 * rows, muladds_fp2(5, 1, 0) * rows
     if name == "g2_point_dbl":
-        rows = math.prod(call[1:-1])
-        return 12 * 128 * rows, muladds_fp2(*G2_DBL) * rows
+        (shape, n), rows = call, math.prod(call[0][1:-1])
+        return 12 * 128 * rows, n * muladds_fp2(*G2_DBL) * rows
     if name == "g2_point_add":
         (shape, with_double), rows = call, math.prod(call[0][1:-1])
         ops = muladds_fp2(*G2_ADD) + (muladds_fp2(*G2_DBL) if with_double
@@ -299,7 +304,8 @@ def main() -> int:
     emit(report["build"])
     report["occupancy"] = {"phase": "occupancy", **{
         name: K.kernel_attrs(name)
-        for name in ("miller_dbl_iter", "miller_add_iter", "cyclo_sqr")}}
+        for name in ("g2_point_dbl", "miller_dbl_iter", "miller_add_iter",
+                     "cyclo_sqr")}}
     emit(report["occupancy"])
 
     def pairing_rows(k_pairs: int, n: int):
@@ -414,10 +420,12 @@ def main() -> int:
         fail(f"valid 16384-round segment: {int(ok.sum())}/{BATCH} true")
     default_path = [name for name in K.KERNELS if name not in OFF_PATH + TRIO]
     check_path("default batch", launches, n_conv, default_path)
-    if launches["cyclo_sqr"] > 31 or launches["miller_dbl_iter"] != 63:
+    if launches["cyclo_sqr"] > 31 or launches["miller_dbl_iter"] != 63 or \
+            launches["g2_point_dbl"] != 19:
         fail(f"default batch: cyclo_sqr launched {launches['cyclo_sqr']} "
-             f"times (at most 31: one a run of squares), miller_dbl_iter "
-             f"{launches['miller_dbl_iter']} (63)")
+             f"times (at most 31: one a run of squares), g2_point_dbl "
+             f"{launches['g2_point_dbl']} (19: one a run of doublings), "
+             f"miller_dbl_iter {launches['miller_dbl_iter']} (63)")
 
     bad = sigs.copy()
     flip_at = 4321
@@ -428,6 +436,15 @@ def main() -> int:
     if ok_bad[flip_at] or int((~ok_bad).sum()) != 1:
         fail(f"flipped byte: {int((~ok_bad).sum())} false, "
              f"flipped row {bool(ok_bad[flip_at])}")
+
+    # every device kernel of one more default batch, torch's own included
+    from torch.profiler import ProfilerActivity, profile
+
+    from drand_tpu_torch.profiling import device_kernels
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        verifier.verify_batch(rounds, sigs)
+        torch.cuda.synchronize()
+    batch_kernels = device_kernels(prof)
 
     chained = V.Verifier(pk, V.SHAPE_CHAINED)
     ok_c, t_chain, chain_launches, chain_calls, n_conv = drive(
@@ -443,6 +460,8 @@ def main() -> int:
         "batch_wall_s": t_batch, "dispatch_s": t_dispatch[0],
         "flipped_batch_wall_s": t_bad, "chained_65_wall_s": t_chain,
         "launches": launches,
+        "batch_device_kernels": len(batch_kernels),
+        "batch_busy_s": sum(d for _, d in batch_kernels),
         "off_path": {"mont_reduce": "0 launches: the composite products "
                                     "that reduced through it are K5, K6, "
                                     "K13, K14",
@@ -642,7 +661,9 @@ def main() -> int:
         if name == "fp2_sqr5_mul":
             return field_rows(FP, call), field_rows(FP, call)
         if name == "g2_point_dbl":
-            return (field_rows(FP, call),)
+            p = field_rows(FP, call[0])
+            p[4:, 5:9] = 0                          # infinite rows
+            return (p,)
         if name == "g2_point_add":
             return g2_pair(call[0])
         if name in ("miller_dbl_iter", "miller_add_iter"):
@@ -708,9 +729,8 @@ def main() -> int:
             return (K.fp2_sqr5_mul(*args, FP) if kernel
                     else TW._fp2_sqr_chain_mul_plain(args[0], 5, args[1]))
         if name == "g2_point_dbl":
-            return (K.g2_point_dbl(args[0], FP) if kernel
-                    else DC.g2_pack(DC._point_double_formula(
-                        DC.g2_unpack(args[0]), DC.Fp2PlainOps)))
+            return (K.g2_point_dbl(args[0], FP, call[1]) if kernel
+                    else DC._g2_point_dbl_plain(args[0], call[1]))
         if name == "g2_point_add":
             return (K.g2_point_add(*args, call[1], FP) if kernel
                     else DC.g2_pack(DC._point_add_formula(
@@ -783,7 +803,9 @@ def main() -> int:
         for with_t in (False, True):
             cases["fp2_sqr_chain_mul"].add(((fp2_rows, k, with_t), "random"))
     cases["fp2_sqr5_mul"].add((fp2_rows, "random"))
-    cases["g2_point_dbl"].add(((6, BATCH, 32), "random"))
+    for shape, n in (((6, BATCH, 32), 1), ((6, 100, 32), 1),
+                     ((6, 100, 32), 9)):
+        cases["g2_point_dbl"].add(((shape, n), "random"))
     for with_double in (False, True):
         cases["g2_point_add"].add((((6, BATCH, 32), with_double), "random"))
     for shape in (flat12, (100, 12, 32)):
@@ -821,7 +843,7 @@ def main() -> int:
     # times: K1, K2 and the window step (K4, k = 4, the sqr4_mul call) at
     # [16384, 32], K3 at the [2, 16384, 64] stack of one Fp2 product and
     # at [16, 2, 16384, 64], K4 at the path's longest chain and at k = 63;
-    # K14 at the path's longest chain of squares, then at each of its
+    # K9 and K14 at the path's longest chain, then at each of their
     # other chains; the others at the path's most common call, and K13
     # also at its most common dense call
     main_path_calls = {name: trio_calls[name] if name in TRIO
@@ -837,8 +859,10 @@ def main() -> int:
     main_calls["fp2_sqr5_mul"] = fp2_rows
     main_calls["line_merge"] = flat12
     main_calls["add"] = main_calls["sub"] = ("fp", flat32)
-    cyclo = sorted(path_calls["cyclo_sqr"], key=lambda c: (-c[1], repr(c)))
-    main_calls["cyclo_sqr"] = cyclo[0]
+    chains = {name: sorted(path_calls[name], key=lambda c: (-c[1], repr(c)))
+              for name in ("g2_point_dbl", "cyclo_sqr")}
+    for name, calls in chains.items():
+        main_calls[name] = calls[0]
     main_calls.update({name: most_common(name) for name in K.KERNELS
                        if name not in main_calls})
     longest = max(path_calls["sqr_chain_mul"], key=lambda c: (c[2], c[3]))
@@ -847,7 +871,8 @@ def main() -> int:
         ("sqr_chain_mul", longest),
         ("sqr_chain_mul", ("fp", flat32, 63, True)),
         ("flat_mul", most_common("flat_mul", lambda c: len(c[1]) == 12))
-    ] + [("cyclo_sqr", call) for call in cyclo[1:]]
+    ] + [(name, call) for name, calls in chains.items()
+         for call in calls[1:]]
     timings, per_kernel = [], {}
     for name, call in timed:
         args = inputs(name, call)

@@ -42,7 +42,9 @@ DT_HD G2J g2_select(bool c, const G2J &a, const G2J &b) {
           f2_select(c, a.Z, b.Z)};
 }
 
-// B9: dbl-2009-l (ops/curve.py point_double); Z3 = 2YZ keeps infinity.
+// dbl-2009-l (ops/curve.py point_double) in one thread: B10's doubling
+// of P where P + P.  B9 runs the same formula split over three threads
+// (g2_dbl_share).  Z3 = 2YZ keeps infinity.
 DT_HD G2J g2_dbl(const G2J &p, const Mod &M) {
   const F2 a = f2_sqr(p.X, M), b = f2_sqr(p.Y, M), yz = f2_mul(p.Y, p.Z, M);
   const F2 xb = f2_add(p.X, b, M);
@@ -92,42 +94,10 @@ DT_HD G2J g2_add(const G2J &p1, const G2J &p2, bool with_double,
   return g2_select(inf2 && !inf1, p1, out);
 }
 
-// A line a + b w^2 + c w^3 as the six flat coefficients of the w-powers
-// LINE_IDX = (0, 2, 3, 6, 8, 9) (ops/pairing.py line_to_flat): the cell
-// x + y u at slot s is (x - y) w^s + y w^(s+6).
-struct Line {
-  uint64_t c[6][N_WORDS];
-};
-
-// The same line as its Fp2 triple (a, b, c): what a Miller step returns.
+// A Miller step's line a + b w^2 + c w^3 as its Fp2 triple (a, b, c).
 struct LineF2 {
   F2 a, b, c;
 };
-
-DT_HD Line line_flat(const LineF2 &t, const Mod &M) {
-  Line l;
-  sub_mod(t.a.x, t.a.y, l.c[0], M);
-  sub_mod(t.b.x, t.b.y, l.c[1], M);
-  sub_mod(t.c.x, t.c.y, l.c[2], M);
-  DT_UNROLL
-  for (int v = 0; v < N_WORDS; v++) {
-    l.c[3][v] = t.a.y[v];
-    l.c[4][v] = t.b.y[v];
-    l.c[5][v] = t.c.y[v];
-  }
-  return l;
-}
-
-// The line of an inactive pair: the flat one.
-DT_HD Line line_one(const One &one) {
-  Line l;
-  DT_UNROLL
-  for (int q = 0; q < 6; q++) {
-    DT_UNROLL
-    for (int v = 0; v < N_WORDS; v++) l.c[q][v] = q == 0 ? one.w[v] : 0;
-  }
-  return l;
-}
 
 // The Miller doubling step (ops/pairing.py _dbl_step): T <- 2T, and the
 // line scaled by 2YZ^3, a = 3X^3 - 2Y^2, b = -3X^2 Z^2 xp, c = 2YZ^3 yp.
@@ -204,31 +174,6 @@ DT_HD void g2_store6(const G2J &p, int32_t *c, long long cs) {
   f2_store(p.Z, c + 4 * cs, c + 5 * cs);
 }
 
-// One pair's step of a Miller iteration: the doubling step (q == nullptr)
-// or the mixed addition with Q = q, on T (6 coordinates at t), writing the
-// new T at t_out and returning the pair's flat line -- the flat one where
-// the pair is inactive, whose T the addition then leaves as it was
-// (ops/pairing.py: masked lines in both halves, T selected in add_half).
-DT_HD Line miller_pair_step(const int32_t *t, const int32_t *p,
-                            const int32_t *q, int32_t mask, int32_t *t_out,
-                            const One &one, const Mod &M) {
-  G2J T = g2_load6(t, N_LIMBS);
-  uint64_t xp[N_WORDS], yp[N_WORDS];
-  load_words(p, xp);
-  load_words(p + N_LIMBS, yp);
-  LineF2 l;
-  if (q == nullptr) {
-    l = miller_dbl_step(T, xp, yp, M);
-  } else {
-    const G2J old = T;
-    l = miller_add_step(T, f2_load(q, q + N_LIMBS),
-                        f2_load(q + 2 * N_LIMBS, q + 3 * N_LIMBS), xp, yp, M);
-    T = g2_select(mask != 0, T, old);
-  }
-  g2_store6(T, t_out, N_LIMBS);
-  return mask != 0 ? line_flat(l, M) : line_one(one);
-}
-
 // B18 (q == nullptr) and B19, one stacked row of the trio loop's step: in
 // holds T (X0 X1 Y0 Y1 Z0 Z1), for B19 Q (xq0 xq1 yq0 yq1), then P (xp
 // yp), 32 limbs each; T' goes to t_out and the line triple a0 a1 b0 b1 c0
@@ -252,17 +197,6 @@ DT_HD void miller_line_step(const int32_t *in, bool add, int32_t *t_out,
   f2_store(l.c, l_out + 4 * N_LIMBS, l_out + 5 * N_LIMBS);
 }
 
-// Word v of line coefficient c at dst[(c * 6 + v) * stride]: the sparse
-// operand layout flat_mul_class reads.
-DT_HD void line_stage(const Line &l, uint64_t *dst, int stride) {
-  DT_UNROLL
-  for (int c = 0; c < 6; c++) {
-    DT_UNROLL
-    for (int v = 0; v < N_WORDS; v++)
-      dst[(c * N_WORDS + v) * stride] = l.c[c][v];
-  }
-}
-
 DT_HD void flat_unstage(const uint64_t *lo, const uint64_t *hi, int j,
                         uint64_t *dst, int stride) {
   DT_UNROLL
@@ -283,7 +217,7 @@ DT_HD void flat_unstage(const uint64_t *lo, const uint64_t *hi, int j,
 //   t   T, elements X0 X1 Y0 Y1 Z0 Z1 (read at levels 0 and 1)
 //   s1  level 0's XX YY ZZ YZ, elements 0-7
 //   s2  level 1's X3c C YZ3 S2 XXZZ F, elements 0-11
-//   l   the flat line, elements 0-5 on LINE_IDX in line_flat's order,
+//   l   the flat line, elements 0-5 on LINE_IDX (line_put_cell),
 //       written at level 2 (it may alias t: level 2 reads no T)
 //
 // Share j of each level (the work of one thread, in Fp2 products and
@@ -319,9 +253,20 @@ DT_HD F2 f2_triple(const F2 &a, const Mod &M) {
   return f2_add(f2_dbl(a, M), a, M);
 }
 
-// Cell i (0, 1, 2 for a, b, c) of a pair's flat line: x - y at element
-// i and y at element i + 3 (line_flat), or the flat one's (Montgomery
-// one at element 0, zero elsewhere) where the pair is inactive.
+// Half h of the Fp2 product a b: its x (h = 0) or its y (h = 1).
+DT_HD void f2_mul_half(int h, const F2 &a, const F2 &b, uint64_t *r,
+                       const Mod &M) {
+  if (h == 0)
+    fp2_mul_re(a.x, a.y, b.x, b.y, r, M);
+  else
+    fp2_mul_im(a.x, a.y, b.x, b.y, r, M);
+}
+
+// Cell i (0, 1, 2 for a, b, c) of a pair's flat line on the w-powers
+// LINE_IDX = (0, 2, 3, 6, 8, 9) (ops/pairing.py line_to_flat: the cell
+// x + y u at slot s is (x - y) w^s + y w^(s+6)): x - y at element i and y
+// at element i + 3, or the flat one's (Montgomery one at element 0, zero
+// elsewhere) where the pair is inactive.
 DT_HD void line_put_cell(const F2 &c, int i, bool active, const One &one,
                          uint64_t *l, int stride, const Mod &M) {
   uint64_t lo[N_WORDS], hi[N_WORDS];
@@ -336,13 +281,19 @@ DT_HD void line_put_cell(const F2 &c, int i, bool active, const One &one,
 }
 
 // A row's buffer in a merged Miller iteration (K11, K12 and the host
-// harness), in elements: f at MB_F (12); T at MB_L (12: pair k's at
+// harness), in elements.  K11: f at MB_F (12); T at MB_L (12: pair k's at
 // MB_L + 6k), then the two lines over it; level 0's values at MB_S1 (pair
-// k's at MB_S1 + 8k); level 1's at MB_S2 (pair k's at MB_S2 + 12k).  The
-// products go where nothing is read any more: K11's f^2 at MB_S1, f^2 l1
-// at MB_F, f' at MB_S2; K12's f l1 at MB_S1, f' at MB_F.
+// k's at MB_S1 + 8k); level 1's at MB_S2 (pair k's at MB_S2 + 12k); the
+// products go where nothing is read any more: f^2 at MB_S1, f^2 l1 at
+// MB_F, f' at MB_S2.  K12: T at MA_T (12: pair k's at MA_T + 6k), Q at
+// MA_Q (8: pair k's at MA_Q + 4k), pair k's level values at MA_S +
+// MA_SW k (miller_add_share), its line over the first six of them; after
+// the steps f is staged at MA_F (over T), f l1 goes to MA_MID (over pair
+// 0's level values) and f' over f.
 constexpr int MB_F = 0, MB_L = 12, MB_S1 = 24, MB_S2 = 40;
-constexpr int MB_DBL = 64, MB_ADD = 36;   // elements K11, K12 use
+constexpr int MA_T = 0, MA_Q = 12, MA_S = 20, MA_SW = 24;
+constexpr int MA_F = 0, MA_MID = MA_S + 6;
+constexpr int MB_DBL = 64, MB_ADD = MA_S + 2 * MA_SW;   // elements K11, K12 use
 
 // p: the pair's P (xp then yp, 32 limbs each); active: the pair's mask.
 DT_HD void miller_dbl_share(int level, int j, const uint64_t *t,
@@ -405,6 +356,202 @@ DT_HD void miller_dbl_share(int level, int j, const uint64_t *t,
     const F2 Y2 = f2_sub(Et, f2_dbl(f2_dbl(f2_dbl(C, M), M), M), M);
     if (t_out != nullptr)
       f2_store(Y2, t_out + 2 * N_LIMBS, t_out + 3 * N_LIMBS);
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// B12's mixed-addition step split over three threads of a pair (K12), as
+// miller_dbl_share splits B11's: the formula of miller_add_step by its
+// dependency levels, a barrier between levels.  Per pair, in flat_load's
+// layout:
+//
+//   t   T, elements X0 X1 Y0 Y1 Z0 Z1 (read only: T' goes to t_out)
+//   q   Q, elements xq0 xq1 yq0 yq1
+//   s   the level values, elements: ZZ 0-1, yqZ 2-3 (then ZH2 from level
+//       2 on), H 4-5, HH 6-7, r 8-9, HZ2 = 2 H Z 10-11, rr 12-13, the
+//       line's b 14-15, J 16-17, V 18-19, the line's c 20-21, hzyq 22-23;
+//       the flat line over elements 0-5, written at level 4
+//
+// Share j of each level (Fp2 products 1776 multiply-adds, a product's
+// half 888, squares 1248, Fp products 600):
+//
+//   level 0: j = 0, 1: yqZ = yq Z, its x or y half; 2: ZZ = Z^2
+//   level 1: j = 0, 1: H = xq ZZ - X, its x or y half; 2: r = 2 (yqZ ZZ
+//            - Y)
+//   level 2: j = 0: HH = H^2, ZH2 = (Z + H)^2; 1: HZ2; 2: rr = r^2 and
+//            the line's b = -r xp
+//   level 3: with I = 4 HH: j = 0: J = H I and c's x, 2 HZ.x yp; 1: V =
+//            X I and c's y; 2: hzyq = HZ2 yq, and Z' = ZH2 - ZZ - HH
+//   level 4: with X' = rr - J - 2V: j = 0, 1: Y' = r (V - X') - 2 Y J,
+//            its x or y half; 2: X', rxq = r xq, and the line: a = rxq -
+//            hzyq, b, c
+//
+// so no level holds more than 2,496 multiply-adds on a thread (one
+// thread alone: 25,152 a step).  T' goes to t_out (6 x 32 limbs), T where
+// the pair is inactive, and the line is the flat one there.  Every
+// intermediate is canonical, so the shares give miller_add_step's outputs
+// bit for bit.
+// ---------------------------------------------------------------------------
+
+// p: the pair's P (xp then yp, 32 limbs each); active: the pair's mask.
+DT_HD void miller_add_share(int level, int j, const uint64_t *t,
+                            const uint64_t *q, uint64_t *s, const int32_t *p,
+                            bool active, int32_t *t_out, const One &one,
+                            int stride, const Mod &M) {
+  uint64_t h[N_WORDS], u[N_WORDS], w[N_WORDS];
+  if (level == 0) {
+    const F2 Z = f2_at(t, 4, stride);
+    if (j < 2) {
+      f2_mul_half(j, f2_at(q, 2, stride), Z, h, M);
+      flat_store(h, s, 2 + j, stride);
+    } else {
+      f2_put(f2_sqr(Z, M), s, 0, stride);
+    }
+  } else if (level == 1) {
+    const F2 ZZ = f2_at(s, 0, stride);
+    if (j < 2) {
+      f2_mul_half(j, f2_at(q, 0, stride), ZZ, u, M);
+      flat_load(t, j, stride, w);
+      sub_mod(u, w, h, M);
+      flat_store(h, s, 4 + j, stride);
+    } else {
+      const F2 S2 = f2_mul(f2_at(s, 2, stride), ZZ, M);
+      f2_put(f2_dbl(f2_sub(S2, f2_at(t, 2, stride), M), M), s, 8, stride);
+    }
+  } else if (level == 2) {
+    const F2 H = f2_at(s, 4, stride);
+    if (j == 0) {
+      f2_put(f2_sqr(H, M), s, 6, stride);
+      f2_put(f2_sqr(f2_add(f2_at(t, 4, stride), H, M), M), s, 2, stride);
+    } else if (j == 1) {
+      f2_put(f2_dbl(f2_mul(H, f2_at(t, 4, stride), M), M), s, 10, stride);
+    } else {
+      const F2 r = f2_at(s, 8, stride);
+      f2_put(f2_sqr(r, M), s, 12, stride);
+      load_words(p, w);
+      f2_put(f2_mul_fp(f2_neg(r, M), w, M), s, 14, stride);
+    }
+  } else if (level == 3) {
+    const F2 I = f2_dbl(f2_dbl(f2_at(s, 6, stride), M), M);
+    if (j < 2) {
+      const F2 HX = j == 0 ? f2_at(s, 4, stride) : f2_at(t, 0, stride);
+      f2_put(f2_mul(HX, I, M), s, 16 + 2 * j, stride);
+      load_words(p + N_LIMBS, w);
+      flat_load(s, 10 + j, stride, u);
+      mont_mul_words(u, w, h, M);
+      flat_store(h, s, 20 + j, stride);
+    } else {
+      f2_put(f2_mul(f2_at(s, 10, stride), f2_at(q, 2, stride), M), s, 22,
+             stride);
+      const F2 Z2 = f2_sub(f2_at(s, 2, stride),
+                           f2_add(f2_at(s, 0, stride), f2_at(s, 6, stride), M),
+                           M);
+      f2_store(f2_select(active, Z2, f2_at(t, 4, stride)),
+               t_out + 4 * N_LIMBS, t_out + 5 * N_LIMBS);
+    }
+  } else {
+    const F2 r = f2_at(s, 8, stride), J = f2_at(s, 16, stride),
+             V = f2_at(s, 18, stride);
+    const F2 X2 = f2_sub(f2_sub(f2_at(s, 12, stride), J, M), f2_dbl(V, M), M);
+    if (j < 2) {
+      const F2 Y = f2_at(t, 2, stride);
+      f2_mul_half(j, r, f2_sub(V, X2, M), u, M);
+      f2_mul_half(j, Y, J, w, M);
+      add_mod(w, w, w, M);
+      sub_mod(u, w, h, M);
+      flat_load(t, 2 + j, stride, w);
+      DT_UNROLL
+      for (int v = 0; v < N_WORDS; v++) h[v] = active ? h[v] : w[v];
+      store_words(h, t_out + (2 + j) * N_LIMBS);
+    } else {
+      f2_store(f2_select(active, X2, f2_at(t, 0, stride)), t_out,
+               t_out + N_LIMBS);
+      const F2 a = f2_sub(f2_mul(r, f2_at(q, 0, stride), M),
+                          f2_at(s, 22, stride), M);
+      line_put_cell(a, 0, active, one, s, stride, M);
+      line_put_cell(f2_at(s, 14, stride), 1, active, one, s, stride, M);
+      line_put_cell(f2_at(s, 20, stride), 2, active, one, s, stride, M);
+    }
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// B9 in chain form (K9): n dbl-2009-l doublings of a row's point, the
+// function of g2_dbl applied n times, split over three threads of the row
+// by dependency level as miller_dbl_share splits B11's step, a barrier
+// between levels.  Per row, in flat_load's layout:
+//
+//   t   the point, elements X0 X1 Y0 Y1 Z0 Z1, doubled in place at level
+//       2 (which reads no T)
+//   s   the level values, elements: A = X^2 0-1 in even doublings and
+//       2-3 in odd ones, B = Y^2 4-5, YZ 6-7, C = B^2 8-9,
+//       S2 = (X + B)^2 10-11, F = (3A)^2 12-13
+//
+// Share j of each level of doubling i of n (squares 1248 multiply-adds,
+// a product's half 888):
+//
+//   level 0: j = 0: B; 1, 2: YZ = Y Z, its x or y half -- in the first
+//            doubling 1: YZ whole and 2: A (later ones have theirs)
+//   level 1: j = 0: C; 1: S2; 2: F
+//   level 2: with D = 2 (S2 - A - C) and X' = F - 2D: j = 0, 1: Y' =
+//            3A (D - X') - 8C, its x or y half; 2: X', Z' = 2 YZ and,
+//            unless this doubling is the last, the next one's A = X'^2
+//
+// Level 2's only product is split by halves, and its third thread begins
+// the next doubling, so every level holds at most one square (1248) on a
+// thread: 3,744 a doubling on the longest path against 9,792 in all.
+// Infinity (Z = 0) stays infinity: Z' = 2 YZ.  Every intermediate is
+// canonical, so n rounds of shares give g2_dbl's output n times over bit
+// for bit.
+// ---------------------------------------------------------------------------
+
+constexpr int G2_DBL_BUF = 20;          // elements of a row: t (6), s (14)
+
+DT_HD void g2_dbl_share(int level, int j, int i, int n, uint64_t *t,
+                        uint64_t *s, int stride, const Mod &M) {
+  const int a_at = 2 * (i & 1);
+  uint64_t h[N_WORDS];
+  if (level == 0) {
+    const F2 Y = f2_at(t, 2, stride);
+    if (j == 0) {
+      f2_put(f2_sqr(Y, M), s, 4, stride);
+    } else if (i > 0) {
+      f2_mul_half(j - 1, Y, f2_at(t, 4, stride), h, M);
+      flat_store(h, s, 5 + j, stride);
+    } else if (j == 1) {
+      f2_put(f2_mul(Y, f2_at(t, 4, stride), M), s, 6, stride);
+    } else {
+      f2_put(f2_sqr(f2_at(t, 0, stride), M), s, a_at, stride);
+    }
+  } else if (level == 1) {
+    if (j == 0)
+      f2_put(f2_sqr(f2_at(s, 4, stride), M), s, 8, stride);
+    else if (j == 1)
+      f2_put(f2_sqr(f2_add(f2_at(t, 0, stride), f2_at(s, 4, stride), M), M),
+             s, 10, stride);
+    else
+      f2_put(f2_sqr(f2_triple(f2_at(s, a_at, stride), M), M), s, 12, stride);
+  } else {
+    const F2 A = f2_at(s, a_at, stride);
+    F2 D = f2_sub(f2_at(s, 10, stride), f2_add(A, f2_at(s, 8, stride), M), M);
+    D = f2_dbl(D, M);
+    const F2 X2 = f2_sub(f2_at(s, 12, stride), f2_dbl(D, M), M);
+    if (j < 2) {
+      f2_mul_half(j, f2_triple(A, M), f2_sub(D, X2, M), h, M);
+      uint64_t c8[N_WORDS];               // 8C, half j
+      flat_load(s, 8 + j, stride, c8);
+      add_mod(c8, c8, c8, M);
+      add_mod(c8, c8, c8, M);
+      add_mod(c8, c8, c8, M);
+      sub_mod(h, c8, h, M);
+      flat_store(h, t, 2 + j, stride);
+    } else {
+      f2_put(X2, t, 0, stride);
+      f2_put(f2_dbl(f2_at(s, 6, stride), M), t, 4, stride);
+      if (i + 1 < n) f2_put(f2_sqr(X2, M), s, 2 - a_at, stride);
+    }
   }
 }
 

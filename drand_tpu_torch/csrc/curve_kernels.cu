@@ -10,9 +10,21 @@
 // cudaGetLastError() of its launch.
 //
 // K9 dt_g2_point_dbl -- replaces PallasField.g2_point_dbl
-//   (drand_tpu/ops/pallas_field.py:1705, body _g2_point_dbl_kernel :1587).
-//   dbl-2009-l, one thread a row: 2 Fp2 products and 5 squares,
-//   ~9.9k multiply-adds on 1.5 KB, bound by operations.
+//   (drand_tpu/ops/pallas_field.py:1705, body _g2_point_dbl_kernel :1587),
+//   in chain form: n dbl-2009-l doublings in one launch ([2^n]P; drand_tpu
+//   launches one a doubling, the port's ladders pass each run of
+//   doublings to one call).  A doubling is 2 Fp2 products and 5 squares,
+//   ~9.8k multiply-adds a row, so a chain is bound by operations at
+//   every n (at n = 1 the 1.5 KB a row it reads and writes take 0.8 of
+//   the time of its operations).  A block takes 32 rows with three
+//   threads a row, one warp a share: the point is staged once, coalesced
+//   (stage.cuh: each coordinate of the stack [6, rows, 32] is one
+//   contiguous [rows, 32] block), into shared memory as words, doubled n
+//   times there by the level shares of curve_arith.cuh g2_dbl_share with
+//   a barrier after each level, and written once.  Shared memory: the
+//   point and the level values, 30,720 bytes a block; four blocks (12
+//   warps) a SM, so 16384 rows (512 blocks) are resident at once on 132
+//   SMs.
 // K10 dt_g2_point_add -- replaces PallasField.g2_point_add (:1720, body
 //   :1617).  The general addition with every case branchless (and the
 //   doubling of P where with_double), one thread a row: 11 Fp2 products
@@ -28,9 +40,10 @@
 // K19 dt_g2_add_line -- replaces PallasField.g2_add_line (:1551, body
 //   :1450, rows :1460).  The mixed addition step, in [rows, 12, 32] (T,
 //   xq0 xq1 yq0 yq1, xp yp): 4 squares, 10 products and 4 Fp products,
-//   ~25.2k multiply-adds on 3 KB, bound by operations.  Both run the step
-//   functions K11 and K12 run (curve_arith.cuh miller_dbl_step,
-//   miller_add_step), so the merged and trio loops share one formula.
+//   ~25.2k multiply-adds on 3 KB, bound by operations.  Both run the
+//   one-thread step functions (curve_arith.cuh miller_dbl_step,
+//   miller_add_step) whose formulas K11's and K12's level shares split,
+//   so the merged and trio loops share one formula.
 //
 // The file is compiled twice, in parallel (ops/kernels.py SOURCES):
 // -DDT_CURVE_PART=0 gives K9 and K10, =1 K18 and K19.  Each pair takes
@@ -40,6 +53,7 @@
 #include <cuda_runtime.h>
 
 #include "curve_arith.cuh"
+#include "stage.cuh"
 
 #if !defined(DT_CURVE_PART)
 #error "compile with -DDT_CURVE_PART=0 (K9, K10) or -DDT_CURVE_PART=1 (K18, K19)"
@@ -54,13 +68,32 @@ unsigned blocks(long long n, int threads) {
 }
 
 #if DT_CURVE_PART == 0
-__global__ void k_g2_point_dbl(const int32_t *__restrict__ p,
-                               int32_t *__restrict__ o, long long rows,
-                               dt::Mod M) {
-  const long long r = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  const long long cs = rows * dt::N_LIMBS, at = r * dt::N_LIMBS;
-  dt::g2_store6(dt::g2_dbl(dt::g2_load6(p + at, cs), M), o + at, cs);
+constexpr int DBL_ROWS = 32;               // rows of a K9 block
+constexpr int DBL_THREADS = 3 * DBL_ROWS;  // three threads a row
+
+__global__ void __launch_bounds__(DBL_THREADS, 4)
+    k_g2_point_dbl(const int32_t *__restrict__ p, int32_t *__restrict__ o,
+                   long long rows, int n, dt::Mod M) {
+  // element e of block row r, word v at [(e * 6 + v) * DBL_ROWS + r]:
+  // the point (6), then the level values
+  constexpr int SLOT = dt::N_WORDS * DBL_ROWS;   // words of one element
+  __shared__ uint64_t sm[dt::G2_DBL_BUF * SLOT];
+  const long long row0 = (long long)blockIdx.x * DBL_ROWS;
+  const long long cs = rows * dt::N_LIMBS;
+  for (int c = 0; c < 6; c++)
+    dt::stage_in<DBL_ROWS>(p + c * cs, 1, row0, rows, sm + c * SLOT);
+  __syncthreads();
+  const int j = threadIdx.x / DBL_ROWS, r = threadIdx.x % DBL_ROWS;
+  for (int i = 0; i < n; i++) {
+#pragma unroll
+    for (int level = 0; level < 3; level++) {
+      dt::g2_dbl_share(level, j, i, n, sm + r, sm + 6 * SLOT + r, DBL_ROWS,
+                       M);
+      __syncthreads();
+    }
+  }
+  for (int c = 0; c < 6; c++)
+    dt::stage_out<DBL_ROWS>(sm + c * SLOT, 1, row0, rows, o + c * cs);
 }
 
 __global__ void k_g2_point_add(const int32_t *__restrict__ p1,
@@ -94,13 +127,33 @@ __global__ void k_g2_line_step(const int32_t *__restrict__ in,
 extern "C" {
 
 #if DT_CURVE_PART == 0
-int dt_g2_point_dbl(const int32_t *p, int32_t *o, long long rows,
+// n >= 1 doublings in one launch.
+int dt_g2_point_dbl(const int32_t *p, int32_t *o, long long rows, int n,
                     const uint64_t *mod7, void *stream) {
-  if (rows <= 0) return 0;
-  k_g2_point_dbl<<<blocks(rows, THREADS), THREADS, 0,
-                   (cudaStream_t)stream>>>(p, o, rows,
+  if (rows <= 0 || n <= 0) return 0;
+  k_g2_point_dbl<<<blocks(rows, DBL_ROWS), DBL_THREADS, 0,
+                   (cudaStream_t)stream>>>(p, o, rows, n,
                                            dt::mod_from_words(mod7));
   return (int)cudaGetLastError();
+}
+
+// K9's registers, local memory and shared memory a thread or block,
+// threads a block and resident blocks per SM on the current device:
+// out[0..4].
+int dt_g2_point_dbl_attrs(int *out) {
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, k_g2_point_dbl);
+  int per_sm = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k_g2_point_dbl,
+                                                      DBL_THREADS, 0);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  out[2] = (int)fa.sharedSizeBytes;
+  out[3] = DBL_THREADS;
+  out[4] = per_sm;
+  return 0;
 }
 
 // one6: Montgomery one, 6 words, host memory.

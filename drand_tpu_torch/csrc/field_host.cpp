@@ -188,13 +188,25 @@ void dth_flat_frob(const int32_t *a, int32_t *o, long long rows,
                          o + r * dt::FLAT * dt::N_LIMBS, s, F, M);
 }
 
-void dth_g2_point_dbl(const int32_t *p, int32_t *o, long long rows,
-                      const uint64_t *mod7) {
+// K9's chain: per row n doublings, the shares of each level in turn (in
+// reverse order when `reverse`, as in dth_cyclo_sqr), on one row's words
+// laid out with stride 1.
+void dth_g2_point_dbl(const int32_t *p, int32_t *o, long long rows, int n,
+                      int reverse, const uint64_t *mod7) {
   const dt::Mod M = dt::mod_from_words(mod7);
-  const long long cs = rows * dt::N_LIMBS;
-  for (long long r = 0; r < rows; r++)
-    dt::g2_store6(dt::g2_dbl(dt::g2_load6(p + r * dt::N_LIMBS, cs), M),
-                  o + r * dt::N_LIMBS, cs);
+  const int W = dt::N_WORDS;
+  uint64_t buf[dt::G2_DBL_BUF * dt::N_WORDS];
+  for (long long r = 0; r < rows; r++) {
+    for (int c = 0; c < 6; c++)
+      dt::load_words(p + (c * rows + r) * dt::N_LIMBS, buf + c * W);
+    for (int i = 0; i < n; i++)
+      for (int level = 0; level < 3; level++)
+        for (int s = 0; s < 3; s++)
+          dt::g2_dbl_share(level, reverse ? 2 - s : s, i, n, buf, buf + 6 * W,
+                           1, M);
+    for (int c = 0; c < 6; c++)
+      dt::store_words(buf + c * W, o + (c * rows + r) * dt::N_LIMBS);
+  }
 }
 
 void dth_g2_point_add(const int32_t *p1, const int32_t *p2, int32_t *o,
@@ -246,9 +258,9 @@ void dth_sub(const int32_t *a, const int32_t *b, int32_t *o, long long n,
                       o + e * dt::N_LIMBS, true, M);
 }
 
-// K11 (q == nullptr) and K12 row by row: the kernel's phases in its
-// order on one row's buffer (curve_arith.cuh MB_*, stride 1), the shares
-// of each phase in turn, in reverse order when `reverse` (as in
+// K11 (Q == nullptr) and K12 row by row: the kernel's phases in its
+// order on one row's buffer (curve_arith.cuh MB_* and MA_*, stride 1), the
+// shares of each phase in turn, in reverse order when `reverse` (as in
 // dth_cyclo_sqr).
 static void miller_iter(const int32_t *f, const int32_t *T, const int32_t *Q,
                         const int32_t *P, const int32_t *mask, int32_t *fo,
@@ -257,52 +269,61 @@ static void miller_iter(const int32_t *f, const int32_t *T, const int32_t *Q,
   const dt::Mod M = dt::mod_from_words(mod7);
   const dt::One one = dt::one_from_words(one6);
   const int W = dt::N_WORDS;
-  uint64_t buf[dt::MB_DBL * dt::N_WORDS], lo[dt::N_WORDS], hi[dt::N_WORDS];
+  constexpr int E = dt::MB_DBL > dt::MB_ADD ? dt::MB_DBL : dt::MB_ADD;
+  uint64_t buf[E * dt::N_WORDS], lo[dt::N_WORDS], hi[dt::N_WORDS];
   auto at = [&](int e) { return buf + e * W; };
+  const bool add = Q != nullptr;
   for (long long r = 0; r < rows; r++) {
-    for (int i = 0; i < dt::FLAT; i++) {
-      dt::load_words(f + (r * dt::FLAT + i) * dt::N_LIMBS, at(dt::MB_F + i));
-      if (Q == nullptr)
-        dt::load_words(T + (r * 12 + i) * dt::N_LIMBS, at(dt::MB_L + i));
-    }
-    int cur = dt::MB_F, mid = dt::MB_S1, out = dt::MB_F;
-    if (Q == nullptr) {
-      for (int level = 0; level < 3; level++)
-        for (int s = 0; s < 6; s++) {
-          const int js = reverse ? 5 - s : s, j = js / 2, k = js % 2;
-          const long long pk = r * 2 + k;
+    for (int i = 0; i < 12; i++)
+      dt::load_words(T + (r * 12 + i) * dt::N_LIMBS,
+                     at((add ? dt::MA_T : dt::MB_L) + i));
+    for (int i = 0; add && i < 8; i++)
+      dt::load_words(Q + (r * 8 + i) * dt::N_LIMBS, at(dt::MA_Q + i));
+    if (!add)
+      for (int i = 0; i < dt::FLAT; i++)
+        dt::load_words(f + (r * dt::FLAT + i) * dt::N_LIMBS, at(dt::MB_F + i));
+    for (int level = 0; level < (add ? 5 : 3); level++)
+      for (int s = 0; s < 6; s++) {
+        const int js = reverse ? 5 - s : s, j = js / 2, k = js % 2;
+        const long long pk = r * 2 + k;
+        if (add)
+          dt::miller_add_share(level, j, at(dt::MA_T + 6 * k),
+                               at(dt::MA_Q + 4 * k),
+                               at(dt::MA_S + dt::MA_SW * k),
+                               P + pk * 2 * dt::N_LIMBS, mask[pk] != 0,
+                               To + pk * 6 * dt::N_LIMBS, one, 1, M);
+        else
           dt::miller_dbl_share(level, j, at(dt::MB_L + 6 * k),
                                at(dt::MB_S1 + 8 * k), at(dt::MB_S2 + 12 * k),
                                at(dt::MB_L + 6 * k), P + pk * 2 * dt::N_LIMBS,
                                mask[pk] != 0, To + pk * 6 * dt::N_LIMBS, one,
                                1, M);
-        }
+      }
+    int cur = dt::MA_F, l1 = dt::MA_S, l2 = dt::MA_S + dt::MA_SW,
+        mid = dt::MA_MID, out = dt::MA_F;
+    if (add) {
+      for (int i = 0; i < dt::FLAT; i++)
+        dt::load_words(f + (r * dt::FLAT + i) * dt::N_LIMBS, at(dt::MA_F + i));
+    } else {
       for (int s = 0; s < 6; s++) {
         const int c = reverse ? 5 - s : s;
         dt::flat_sqr_class(c, at(dt::MB_F), 1, lo, hi, M);
         dt::flat_unstage(lo, hi, c, at(dt::MB_S1), 1);
       }
       cur = dt::MB_S1;
+      l1 = dt::MB_L;
+      l2 = dt::MB_L + 6;
       mid = dt::MB_F;
       out = dt::MB_S2;
-    } else {
-      for (int k = 0; k < 2; k++) {
-        const long long pk = r * 2 + k;
-        const dt::Line l = dt::miller_pair_step(
-            T + pk * 6 * dt::N_LIMBS, P + pk * 2 * dt::N_LIMBS,
-            Q + pk * 4 * dt::N_LIMBS, mask[pk], To + pk * 6 * dt::N_LIMBS,
-            one, M);
-        dt::line_stage(l, at(dt::MB_L + 6 * k), 1);
-      }
     }
     for (int s = 0; s < 6; s++) {
       const int c = reverse ? 5 - s : s;
-      dt::flat_mul_line_class(c, at(cur), at(dt::MB_L), 1, lo, hi, M);
+      dt::flat_mul_line_class(c, at(cur), at(l1), 1, lo, hi, M);
       dt::flat_unstage(lo, hi, c, at(mid), 1);
     }
     for (int s = 0; s < 6; s++) {
       const int c = reverse ? 5 - s : s;
-      dt::flat_mul_line_class(c, at(mid), at(dt::MB_L + 6), 1, lo, hi, M);
+      dt::flat_mul_line_class(c, at(mid), at(l2), 1, lo, hi, M);
       dt::flat_unstage(lo, hi, c, at(out), 1);
     }
     for (int i = 0; i < dt::FLAT; i++)

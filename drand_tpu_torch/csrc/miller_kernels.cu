@@ -23,26 +23,25 @@
 // sparse products and two mixed additions (~25k each).
 //
 // A block takes 32 rows with six threads a row, and keeps its rows on
-// chip from one phase to the next: f and T are staged once, coalesced
-// (stage.cuh), into dynamic shared memory as words; f' goes out the same
-// way.  The lines are multiplied in one after the other, f^2 * l1 then
-// * l2, each a sparse product on LINE_IDX (flat_mul_line_class): on this
-// card that does fewer word products than merging the lines first
-// (drand_tpu's default form, K20's body), and its canonical output is
-// the same element bit for bit.  In the product phases thread j of a row
-// owns the convolution classes k = j (mod 6) as K13 does, each warp on
-// one j.
+// chip from one phase to the next: the operands are staged once,
+// coalesced (stage.cuh), into dynamic shared memory as words; f' goes out
+// the same way.  The lines are multiplied in one after the other, f^2 *
+// l1 then * l2 (K12: f * l1 * l2), each a sparse product on LINE_IDX
+// (flat_mul_line_class): on this card that does fewer word products than
+// merging the lines first (drand_tpu's default form, K20's body), and its
+// canonical output is the same element bit for bit.  In the product
+// phases thread j of a row owns the convolution classes k = j (mod 6) as
+// K13 does, each warp on one j.
 //
-// K11's steps run on all six threads of a row, three a pair: the shares
-// of curve_arith.cuh miller_dbl_share, three dependency levels with a
-// barrier after each, each warp on one (share, pair), so no thread holds
-// a whole point and its temporaries.  Shared memory, in elements of 32
-// rows x 6 words: f (12) | T, then the lines over it (12) | level 0's
-// values (2 x 8), then f^2 | level 1's (2 x 12), then f', 64 elements,
-// 98,304 bytes a block; two blocks (12 warps) a SM.  K12 keeps one
-// thread a pair for its steps (miller_pair_step, the other four threads
-// of a row waiting at the barrier): f (12) | the lines (12) | f * l1
-// (12), 55,296 bytes.
+// The steps run on all six threads of a row, three a pair, each warp on
+// one (share, pair), so no thread holds a whole point and its
+// temporaries: K11 the shares of curve_arith.cuh miller_dbl_share (three
+// dependency levels), K12 those of miller_add_share (five), a barrier
+// after each level, the values between levels in shared memory (the
+// buffer map MB_*, MA_* of curve_arith.cuh).  K11 stages f and T, K12 T
+// and Q and, once its steps are done, f over T.  Shared memory, in
+// elements of 32 rows x 6 words: K11 64 (98,304 bytes a block), K12 68
+// (104,448 bytes); two blocks (12 warps) a SM each.
 //
 // The file is compiled twice, in parallel (ops/kernels.py SOURCES), one
 // kernel each: -DDT_MILLER_ADD=0 for K11 (dt_miller_dbl_iter) and =1 for
@@ -63,17 +62,13 @@ constexpr bool IS_ADD = DT_MILLER_ADD != 0;  // this compile's kernel
 constexpr int MR = 32;                 // rows of a block
 constexpr int MT = 6 * MR;             // threads of a block
 constexpr int SLOT = dt::N_WORDS * MR; // words of one element of a block
-// the row buffer of curve_arith.cuh (MB_*), 32 rows of it
-constexpr int E_F = dt::MB_F, E_L = dt::MB_L, E_S1 = dt::MB_S1,
-              E_S2 = dt::MB_S2;
 constexpr int SMEM = (IS_ADD ? dt::MB_ADD : dt::MB_DBL) * SLOT *
                      (int)sizeof(uint64_t);
 
-// K11: 12 warps a SM (two blocks), so at most 168 registers a thread; K12
-// leaves the one-thread addition step its registers.  A template, so the
-// two kernels keep apart names in a profile.
+// 12 warps a SM (two blocks), so at most 168 registers a thread.  A
+// template, so the two kernels keep apart names in a profile.
 template <bool ADD>
-__global__ void __launch_bounds__(MT, ADD ? 1 : 2)
+__global__ void __launch_bounds__(MT, 2)
     k_miller_iter(const int32_t *__restrict__ f,
                   const int32_t *__restrict__ T,
                   const int32_t *__restrict__ Q,
@@ -84,57 +79,64 @@ __global__ void __launch_bounds__(MT, ADD ? 1 : 2)
   extern __shared__ uint64_t sm[];
   const long long row0 = (long long)blockIdx.x * MR;
   const int t = threadIdx.x, r = t % MR;
-  dt::stage_in<MR>(f, dt::FLAT, row0, rows, sm + E_F * SLOT);
-  if constexpr (!ADD) dt::stage_in<MR>(T, 12, row0, rows, sm + E_L * SLOT);
-  __syncthreads();
-
-  const long long row = row0 + r;
-  const int c = t / MR;                // product phases: class c
-  uint64_t lo[dt::N_WORDS], hi[dt::N_WORDS];
-  const uint64_t *cur = sm + E_F * SLOT + r;   // f, or f^2 for K11
-  if constexpr (!ADD) {
-    // steps: share j of pair k
-    const int j = t / (2 * MR), k = (t / MR) % 2;
-    const long long pk = row * 2 + k;
-    uint64_t *tk = sm + (E_L + 6 * k) * SLOT + r;
-#pragma unroll
-    for (int level = 0; level < 3; level++) {
-      if (row < rows)
-        dt::miller_dbl_share(level, j, tk, sm + (E_S1 + 8 * k) * SLOT + r,
-                             sm + (E_S2 + 12 * k) * SLOT + r, tk,
-                             P + pk * 2 * dt::N_LIMBS, mask[pk] != 0,
-                             To + pk * 6 * dt::N_LIMBS, one, MR, M);
-      __syncthreads();
-    }
-    // f^2 over the level-0 values
-    dt::flat_sqr_class(c, sm + E_F * SLOT + r, MR, lo, hi, M);
-    dt::flat_unstage(lo, hi, c, sm + E_S1 * SLOT + r, MR);
-    cur = sm + E_S1 * SLOT + r;
-  } else if (t < 2 * MR) {             // one thread per pair k = t / MR
-    const int k = t / MR;
-    const long long pk = row * 2 + k;
-    dt::Line l = dt::line_one(one);
-    if (row < rows)
-      l = dt::miller_pair_step(T + pk * 6 * dt::N_LIMBS,
-                               P + pk * 2 * dt::N_LIMBS,
-                               Q + pk * 4 * dt::N_LIMBS, mask[pk],
-                               To + pk * 6 * dt::N_LIMBS, one, M);
-    dt::line_stage(l, sm + (E_L + 6 * k) * SLOT + r, MR);
+  if constexpr (ADD) {
+    dt::stage_in<MR>(T, 12, row0, rows, sm + dt::MA_T * SLOT);
+    dt::stage_in<MR>(Q, 8, row0, rows, sm + dt::MA_Q * SLOT);
+  } else {
+    dt::stage_in<MR>(f, dt::FLAT, row0, rows, sm + dt::MB_F * SLOT);
+    dt::stage_in<MR>(T, 12, row0, rows, sm + dt::MB_L * SLOT);
   }
   __syncthreads();
-  // f^2 * l1 (K12: f * l1), over f (K11, whose f^2 is elsewhere) or
-  // into K12's third block
-  uint64_t *mid = sm + (ADD ? E_S1 : E_F) * SLOT + r;
-  dt::flat_mul_line_class(c, cur, sm + E_L * SLOT + r, MR, lo, hi, M);
-  dt::flat_unstage(lo, hi, c, mid, MR);
+
+  // steps: share j of pair k
+  const long long row = row0 + r;
+  const int j = t / (2 * MR), k = (t / MR) % 2;
+  const long long pk = row * 2 + k;
+#pragma unroll
+  for (int level = 0; level < (ADD ? 5 : 3); level++) {
+    if (row < rows) {
+      if constexpr (ADD)
+        dt::miller_add_share(level, j, sm + (dt::MA_T + 6 * k) * SLOT + r,
+                             sm + (dt::MA_Q + 4 * k) * SLOT + r,
+                             sm + (dt::MA_S + dt::MA_SW * k) * SLOT + r,
+                             P + pk * 2 * dt::N_LIMBS, mask[pk] != 0,
+                             To + pk * 6 * dt::N_LIMBS, one, MR, M);
+      else
+        dt::miller_dbl_share(level, j, sm + (dt::MB_L + 6 * k) * SLOT + r,
+                             sm + (dt::MB_S1 + 8 * k) * SLOT + r,
+                             sm + (dt::MB_S2 + 12 * k) * SLOT + r,
+                             sm + (dt::MB_L + 6 * k) * SLOT + r,
+                             P + pk * 2 * dt::N_LIMBS, mask[pk] != 0,
+                             To + pk * 6 * dt::N_LIMBS, one, MR, M);
+    }
+    __syncthreads();
+  }
+
+  const int c = t / MR;                // product phases: class c
+  uint64_t lo[dt::N_WORDS], hi[dt::N_WORDS];
+  // f^2 * l1 * l2 (K11) or f * l1 * l2 (K12): where f (or f^2), the
+  // lines, f * l1 and f' are (curve_arith.cuh MB_*, MA_*)
+  constexpr int CUR = ADD ? dt::MA_F : dt::MB_S1;
+  constexpr int L1 = ADD ? dt::MA_S : dt::MB_L;
+  constexpr int L2 = ADD ? dt::MA_S + dt::MA_SW : dt::MB_L + 6;
+  constexpr int MID = ADD ? dt::MA_MID : dt::MB_F;
+  constexpr int OUT = ADD ? dt::MA_F : dt::MB_S2;
+  if constexpr (ADD) {
+    dt::stage_in<MR>(f, dt::FLAT, row0, rows, sm + dt::MA_F * SLOT);
+  } else {
+    dt::flat_sqr_class(c, sm + dt::MB_F * SLOT + r, MR, lo, hi, M);
+    dt::flat_unstage(lo, hi, c, sm + dt::MB_S1 * SLOT + r, MR);
+  }
   __syncthreads();
-  // * l2, into a block nothing reads any more
-  uint64_t *out = sm + (ADD ? E_F : E_S2) * SLOT;
-  dt::flat_mul_line_class(c, mid, sm + (E_L + 6) * SLOT + r, MR, lo, hi,
-                          M);
-  dt::flat_unstage(lo, hi, c, out + r, MR);
+  dt::flat_mul_line_class(c, sm + CUR * SLOT + r, sm + L1 * SLOT + r, MR, lo,
+                          hi, M);
+  dt::flat_unstage(lo, hi, c, sm + MID * SLOT + r, MR);
   __syncthreads();
-  dt::stage_out<MR>(out, dt::FLAT, row0, rows, fo);
+  dt::flat_mul_line_class(c, sm + MID * SLOT + r, sm + L2 * SLOT + r, MR, lo,
+                          hi, M);
+  dt::flat_unstage(lo, hi, c, sm + OUT * SLOT + r, MR);
+  __syncthreads();
+  dt::stage_out<MR>(sm + OUT * SLOT, dt::FLAT, row0, rows, fo);
 }
 
 }  // namespace

@@ -76,11 +76,11 @@ DT_HD void redc_to(uint64_t *w, uint64_t *r, int subs, const Mod &M) {
   for (int s = 1; s < subs; s++) cond_sub(r, 0, M);
 }
 
-// B5: (r0, r1) = (x0 y0 - x1 y1, x0 y1 + x1 y0) * 2^-384 mod m, two REDCs
-// of wide sums.  The outputs must not alias the inputs.
-DT_HD void fp2_mul_words(const uint64_t *x0, const uint64_t *x1,
-                         const uint64_t *y0, const uint64_t *y1,
-                         uint64_t *r0, uint64_t *r1, const Mod &M) {
+// The two halves of B5, each one REDC of a wide sum: r0 = (x0 y0 - x1 y1)
+// * 2^-384 mod m, r1 = (x0 y1 + x1 y0) * 2^-384 mod m.
+DT_HD void fp2_mul_re(const uint64_t *x0, const uint64_t *x1,
+                      const uint64_t *y0, const uint64_t *y1, uint64_t *r0,
+                      const Mod &M) {
   uint64_t t[W_WORDS], u[W_WORDS];
   zero_wide(t);
   mul_acc(x0, y0, t);
@@ -88,10 +88,25 @@ DT_HD void fp2_mul_words(const uint64_t *x0, const uint64_t *x1,
   mul_acc(x1, y1, u);
   wide_sub(t, u, M);                      // [0, m 2^384)
   redc_to(t, r0, 1, M);
+}
+
+DT_HD void fp2_mul_im(const uint64_t *x0, const uint64_t *x1,
+                      const uint64_t *y0, const uint64_t *y1, uint64_t *r1,
+                      const Mod &M) {
+  uint64_t t[W_WORDS];
   zero_wide(t);
   mul_acc(x0, y1, t);
   mul_acc(x1, y0, t);                     // < 2 m^2
   redc_to(t, r1, 1, M);
+}
+
+// B5: (r0, r1) = (x0 y0 - x1 y1, x0 y1 + x1 y0) * 2^-384 mod m.  The
+// outputs must not alias the inputs.
+DT_HD void fp2_mul_words(const uint64_t *x0, const uint64_t *x1,
+                         const uint64_t *y0, const uint64_t *y1,
+                         uint64_t *r0, uint64_t *r1, const Mod &M) {
+  fp2_mul_re(x0, x1, y0, y1, r0, M);
+  fp2_mul_im(x0, x1, y0, y1, r1, M);
 }
 
 // The two halves of B6, each one REDC: r0 = (x0^2 - x1^2) * 2^-384 mod m

@@ -5,8 +5,8 @@ are Jacobian (X, Y, Z) tuples of Montgomery limb tensors; Z == 0 encodes
 infinity.  All control flow is masked selects over the batch.  A G2
 doubling or addition on a GPU tensor is one hand-written CUDA kernel (K9,
 K10 in `ops/kernels.py`, as `drand_tpu` takes its Pallas kernels on its
-chip); the formulas below, under `Fp2PlainOps`, are their plain
-versions.
+chip), and so is each run of doublings of a ladder (K9 in chain form);
+the formulas below, under `Fp2PlainOps`, are their plain versions.
 """
 
 from __future__ import annotations
@@ -112,6 +112,15 @@ def point_double(pt, ops):
     return _point_double_formula(pt, ops)
 
 
+def _g2_point_dbl_plain(st, n: int = 1):
+    """[2^n]P of packed G2 points [6, ..., 32]: n doublings by the formula
+    under Fp2PlainOps (the plain version of K9's chain)."""
+    pt = g2_unpack(st)
+    for _ in range(n):
+        pt = _point_double_formula(pt, Fp2PlainOps)
+    return g2_pack(pt)
+
+
 def _point_double_formula(pt, ops):
     """dbl-2009-l in staged stacked products (the plain version of K9
     under Fp2PlainOps)."""
@@ -206,16 +215,22 @@ def point_mul_const(pt, k: int, ops):
     """Scalar mul by a static sparse scalar: statically segmented
     double-and-add (zero runs double only, set bits add), no doubling
     fallback in the add (acc = m*pt with 2 <= m < order never equals
-    +-pt for pt of odd prime order)."""
+    +-pt for pt of odd prime order).  On a GPU tensor each run of
+    doublings is one K9 launch."""
     if k <= 0:
         raise ValueError("point_mul_const takes k >= 1")
     segments = tail_segments(bin(k)[3:])
     if ops is Fp2Ops and _on_card(pt):
         # the ladder's state stays packed: one stack in, one view out
         base = g2_pack(pt)
+
+        def doublings(acc, n=1):
+            return K.g2_point_dbl(acc, FP, n)
+
         return g2_unpack(segmented_ladder(
-            segments, base, lambda acc: K.g2_point_dbl(acc, FP),
-            lambda acc: K.g2_point_add(acc, base, False, FP)))
+            segments, base, doublings,
+            lambda acc: K.g2_point_add(acc, base, False, FP),
+            run_fn=doublings))
     return segmented_ladder(
         segments, pt,  # starting from pt consumes the leading 1 bit
         lambda acc: point_double(acc, ops),

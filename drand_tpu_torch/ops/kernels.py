@@ -15,8 +15,8 @@ error, and adds one to its kernel's `launches` where it launches (and
 counts the launch under its call in `calls`: field and shape for K1-K3,
 K21 and K22, and k and whether t is given for K4; shape and n for K5/K6;
 shape and b_idx for K13; shape, k and whether t is given for K7; shape
-and k for K14; shape for K8, K9, K11, K12, K15, K17-K20; shape and
-with_double for K10; shape and n for K16).
+and k for K14; shape and n for K9; shape for K8, K11, K12, K15,
+K17-K20; shape and with_double for K10; shape and n for K16).
 """
 
 from __future__ import annotations
@@ -138,7 +138,7 @@ _ARGTYPES = {
     "dt_cyclo_sqr": [_P, _P, _LL, _I, _P, _P],
     "dt_fp2_sqr_chain_mul": [_P, _P, _P, _LL, _I, _P, _P],
     "dt_fp2_sqr5_mul": [_P, _P, _P, _LL, _P, _P],
-    "dt_g2_point_dbl": [_P, _P, _LL, _P, _P],
+    "dt_g2_point_dbl": [_P, _P, _LL, _I, _P, _P],
     "dt_g2_point_add": [_P, _P, _P, _LL, _I, _P, _P, _P],
     "dt_miller_dbl_iter": [_P, _P, _P, _P, _P, _P, _LL, _P, _P, _P],
     "dt_miller_add_iter": [_P, _P, _P, _P, _P, _P, _P, _LL, _P, _P, _P],
@@ -151,6 +151,7 @@ _ARGTYPES = {
     "dt_add": [_P, _P, _P, _LL, _P, _P],
     "dt_sub": [_P, _P, _P, _LL, _P, _P],
     "dt_cyclo_sqr_attrs": [_P],
+    "dt_g2_point_dbl_attrs": [_P],
     "dt_miller_dbl_iter_attrs": [_P],
     "dt_miller_add_iter_attrs": [_P],
 }
@@ -236,7 +237,7 @@ def kernel_attrs(name: str) -> dict:
     """What `cudaFuncGetAttributes` and
     `cudaOccupancyMaxActiveBlocksPerMultiprocessor` say of the kernel of
     `name` on the current device, for the kernels that export them
-    (cyclo_sqr, miller_dbl_iter, miller_add_iter)."""
+    (g2_point_dbl, miller_dbl_iter, miller_add_iter, cyclo_sqr)."""
     lib = _lib()
     out = np.zeros(5, dtype=np.int32)
     rc = getattr(lib, KERNELS[name].symbol + "_attrs")(out.ctypes.data)
@@ -486,15 +487,18 @@ def fp2_sqr5_mul(x: torch.Tensor, t: torch.Tensor, field) -> torch.Tensor:
     return out
 
 
-def g2_point_dbl(p: torch.Tensor, field) -> torch.Tensor:
-    """K9: Jacobian doubling of G2 points [6, ..., 32] (X0 X1 Y0 Y1 Z0
-    Z1), canonical in and out."""
+def g2_point_dbl(p: torch.Tensor, field, n: int = 1) -> torch.Tensor:
+    """K9: n Jacobian doublings ([2^n]P) of G2 points [6, ..., 32] (X0 X1
+    Y0 Y1 Z0 Z1) in one launch (the function of
+    `curve._g2_point_dbl_plain`), canonical in and out."""
     p = p.contiguous()
     rows = _lead_check(p, "g2_point_dbl p", 6)
+    if not 1 <= n < 2 ** 31:
+        raise ValueError(f"g2_point_dbl: n out of range: {n}")
     out = torch.empty_like(p)
     if rows:
-        _launch("g2_point_dbl", tuple(p.shape), p.device, p.data_ptr(),
-                out.data_ptr(), rows, field.kernel_arg.ctypes.data)
+        _launch("g2_point_dbl", (tuple(p.shape), n), p.device, p.data_ptr(),
+                out.data_ptr(), rows, n, field.kernel_arg.ctypes.data)
     return out
 
 

@@ -191,6 +191,36 @@ def test_g2_point_kernels_match_plain_versions_on_card(cuda):
             C._point_add_formula(C.g2_unpack(p1), C.g2_unpack(p2), ops, wd)))
 
 
+@pytest.mark.parametrize("n", [1, 2, 3, 9, 16, 32])
+def test_g2_point_dbl_chain_matches_plain_version_on_card(cuda, n):
+    """K9's chain of n doublings (each run length of the path's ladders)
+    on a row count that leaves a partial block, infinite rows among
+    them, against n plain doublings."""
+    from drand_tpu_torch.ops import curve as C
+    from drand_tpu_torch.ops import kernels as K
+    from drand_tpu_torch.ops.field import FP
+    p = _fp_rows(np.random.default_rng(20 + n), (6, 100))
+    p[4:, 5:9] = 0
+    p = p.to(cuda)
+    assert torch.equal(K.g2_point_dbl(p, FP, n), C._g2_point_dbl_plain(p, n))
+
+
+def test_x_ladder_runs_one_k9_launch_a_run_on_card(cuda):
+    """[|x|]Q on the card: one K9 launch for each of the ladder's six
+    runs of doublings and one K10 launch for each of its five additions,
+    equal to the ladder on the CPU."""
+    from drand_tpu_torch.ops import curve as C
+    from drand_tpu_torch.ops import kernels as K
+    pt = C.g2_unpack(_fp_rows(np.random.default_rng(21), (6, 64)))
+    want = C.g2_pack(C.g2_mul_x_abs(pt))
+    K.reset_launches()
+    got = C.g2_pack(C.g2_mul_x_abs(tuple(tuple(c.to(cuda) for c in xy)
+                                         for xy in pt)))
+    assert K.launch_counts()["g2_point_dbl"] == 6
+    assert K.launch_counts()["g2_point_add"] == 5
+    assert torch.equal(got.cpu(), want)
+
+
 def test_miller_kernels_match_plain_versions_on_card(cuda):
     """K11 and K12 on random rows (a row count that leaves a partial
     block), every active/inactive pair combination among them."""

@@ -1,5 +1,6 @@
-"""The plain versions of the port's Fp2 chain, G2 point and Miller
-iteration kernels (K7-K12) against drand_tpu, limb for limb.
+"""The plain versions of the port's Fp2 chain, G2 point (K9 also as a
+chain of doublings) and Miller iteration kernels (K7-K12) against
+drand_tpu, limb for limb.
 
 The same inputs (numpy, fixed seed) go through the port's plain version
 on the CPU -- what the kernel is held against on the card -- and through
@@ -116,6 +117,22 @@ def test_g2_point_formulas_plain_vs_composite(with_double):
         want = jax.jit(lambda a: JC.point_double(_jpt(a), JC.Fp2Ops))(p1)
         got = TC._point_double_formula(TC.g2_unpack(torch.as_tensor(p1)),
                                        TC.Fp2PlainOps)
+        for w, g in zip(want, got):
+            _eq(w[0], g[0])
+            _eq(w[1], g[1])
+
+
+@pytest.mark.parametrize("n", [2, 9])
+def test_g2_point_dbl_chain_plain_vs_composite(n):
+    """K9's chain plain version ([2^n]P in one call) against drand_tpu's
+    generic Fp2 point_double applied n times, on random, doubling,
+    cancelling and infinite rows."""
+    dbl = jax.jit(lambda a: JC.point_double(a, JC.Fp2Ops))
+    for p in _points(46):
+        want = _jpt(p)
+        for _ in range(n):
+            want = dbl(want)
+        got = TC.g2_unpack(TC._g2_point_dbl_plain(torch.as_tensor(p), n))
         for w, g in zip(want, got):
             _eq(w[0], g[0])
             _eq(w[1], g[1])

@@ -14,10 +14,11 @@ sparse, with the all-(p-1) stored-coefficient operand; K14
 (`flat12._flat_cyclo_sqr_plain`) on random canonical rows, not only
 unitary ones; K7/K8 (`towers._fp2_sqr_chain_mul_plain`); K9/K10 (the
 `ops/curve.py` formulas under `Fp2PlainOps`) on random coordinates with
-the doubling, cancelling and infinite cases among them; K11/K12
-(`pairing._miller_*_iter_plain`), K11's doubling step split into its
-shares, with active and inactive pairs, and against f^2 (or f) times the
-two lines one after the other;
+the doubling, cancelling and infinite cases among them, K9 also as its
+chain of n doublings split into level shares; K11/K12
+(`pairing._miller_*_iter_plain`), their steps split into shares, with
+active and inactive pairs, and against f^2 (or f) times the two lines
+one after the other;
 K15/K16 (`flat12._flat_conj_plain`, `_flat_frob_plain`); K17/K20
 (`flat12._flat_sqr_plain`, `_line_merge_plain`) with the all-(p-1) and
 zero operands; K18/K19 (`pairing._dbl_step_plain`, `_add_step_plain`)
@@ -68,7 +69,7 @@ def host_lib(tmp_path_factory):
     lib.dth_fp2_sqr5_mul.argtypes = [P_, P_, P_, LL, P_]
     lib.dth_flat_conj.argtypes = [P_, P_, LL, P_]
     lib.dth_flat_frob.argtypes = [P_, P_, LL, P_, P_]
-    lib.dth_g2_point_dbl.argtypes = [P_, P_, LL, P_]
+    lib.dth_g2_point_dbl.argtypes = [P_, P_, LL, I, I, P_]
     lib.dth_g2_point_add.argtypes = [P_, P_, P_, LL, I, P_, P_]
     lib.dth_miller_dbl_iter.argtypes = [P_] * 6 + [LL, I, P_, P_]
     lib.dth_miller_add_iter.argtypes = [P_] * 7 + [LL, I, P_, P_]
@@ -304,7 +305,8 @@ def test_g2_point_dbl_and_add(host_lib):
     p1, p2 = _g2_cases(seed=23)
     out = np.empty_like(p1)
     rows = p1.shape[1]
-    host_lib.dth_g2_point_dbl(_ptr(p1), _ptr(out), rows, _ptr(FP.kernel_arg))
+    host_lib.dth_g2_point_dbl(_ptr(p1), _ptr(out), rows, 1, 0,
+                              _ptr(FP.kernel_arg))
     want = C._point_double_formula(C.g2_unpack(torch.as_tensor(p1)),
                                    C.Fp2PlainOps)
     np.testing.assert_array_equal(out, C.g2_pack(want).numpy())
@@ -316,6 +318,24 @@ def test_g2_point_dbl_and_add(host_lib):
                                     C.g2_unpack(torch.as_tensor(p2)),
                                     C.Fp2PlainOps, with_double)
         np.testing.assert_array_equal(out, C.g2_pack(want).numpy())
+
+
+@pytest.mark.parametrize("reverse", [0, 1])
+@pytest.mark.parametrize("n", [1, 2, 3, 9, 32])
+def test_g2_point_dbl_chain(host_lib, n, reverse):
+    """K9's chain of n doublings split into its level shares, run in the
+    kernel's order and in reverse, on the _g2_cases rows (infinite ones
+    among them), against n plain doublings."""
+    for p in _g2_cases(seed=45):
+        out = np.empty_like(p)
+        host_lib.dth_g2_point_dbl(_ptr(p), _ptr(out), p.shape[1], n, reverse,
+                                  _ptr(FP.kernel_arg))
+        pt = C.g2_unpack(torch.as_tensor(p))
+        for _ in range(n):
+            pt = C._point_double_formula(pt, C.Fp2PlainOps)
+        np.testing.assert_array_equal(out, C.g2_pack(pt).numpy())
+        inf = (p[4:] == 0).all(axis=(0, 2))
+        assert inf.any() and (out[4:, inf] == 0).all()
 
 
 @pytest.mark.parametrize("reverse", [0, 1])
