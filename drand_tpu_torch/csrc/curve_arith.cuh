@@ -30,70 +30,6 @@ struct G2J {
   F2 X, Y, Z;                             // Z = 0 encodes infinity
 };
 
-DT_HD F2 f2_one(const One &one) {
-  F2 r = f2_zero();
-  DT_UNROLL
-  for (int v = 0; v < N_WORDS; v++) r.x[v] = one.w[v];
-  return r;
-}
-
-DT_HD G2J g2_select(bool c, const G2J &a, const G2J &b) {
-  return {f2_select(c, a.X, b.X), f2_select(c, a.Y, b.Y),
-          f2_select(c, a.Z, b.Z)};
-}
-
-// dbl-2009-l (ops/curve.py point_double) in one thread: B10's doubling
-// of P where P + P.  B9 runs the same formula split over three threads
-// (g2_dbl_share).  Z3 = 2YZ keeps infinity.
-DT_HD G2J g2_dbl(const G2J &p, const Mod &M) {
-  const F2 a = f2_sqr(p.X, M), b = f2_sqr(p.Y, M), yz = f2_mul(p.Y, p.Z, M);
-  const F2 xb = f2_add(p.X, b, M);
-  const F2 c = f2_sqr(b, M), s2 = f2_sqr(xb, M);
-  const F2 e = f2_add(f2_dbl(a, M), a, M);
-  F2 d = f2_sub(s2, f2_add(a, c, M), M);
-  d = f2_dbl(d, M);
-  const F2 f = f2_sqr(e, M);
-  G2J r;
-  r.X = f2_sub(f, f2_dbl(d, M), M);
-  const F2 y3t = f2_mul(e, f2_sub(d, r.X, M), M);
-  r.Y = f2_sub(y3t, f2_dbl(f2_dbl(f2_dbl(c, M), M), M), M);
-  r.Z = f2_dbl(yz, M);
-  return r;
-}
-
-// B10: general Jacobian addition with every case branchless
-// (ops/curve.py point_add): infinities, P + P (the doubling, when
-// with_double), P + (-P) = infinity.
-DT_HD G2J g2_add(const G2J &p1, const G2J &p2, bool with_double,
-                 const One &one, const Mod &M) {
-  const F2 z1z1 = f2_sqr(p1.Z, M), z2z2 = f2_sqr(p2.Z, M);
-  const F2 y1z2 = f2_mul(p1.Y, p2.Z, M), y2z1 = f2_mul(p2.Y, p1.Z, M);
-  const F2 u1 = f2_mul(p1.X, z2z2, M), u2 = f2_mul(p2.X, z1z1, M);
-  const F2 s1 = f2_mul(y1z2, z2z2, M), s2 = f2_mul(y2z1, z1z1, M);
-  const F2 h = f2_sub(u2, u1, M);
-  const F2 h2 = f2_dbl(h, M);
-  const F2 rr = f2_dbl(f2_sub(s2, s1, M), M);
-  const F2 z12 = f2_add(p1.Z, p2.Z, M);
-  const F2 i = f2_sqr(h2, M), rr2 = f2_sqr(rr, M), z12sq = f2_sqr(z12, M);
-  const F2 j = f2_mul(h, i, M), v = f2_mul(u1, i, M);
-  G2J out;
-  out.X = f2_sub(f2_sub(rr2, j, M), f2_dbl(v, M), M);
-  const F2 zz = f2_sub(z12sq, f2_add(z1z1, z2z2, M), M);
-  const F2 y3t = f2_mul(rr, f2_sub(v, out.X, M), M);
-  const F2 s1j = f2_mul(s1, j, M);
-  out.Z = f2_mul(zz, h, M);
-  out.Y = f2_sub(y3t, f2_dbl(s1j, M), M);
-
-  const bool inf1 = f2_is_zero(p1.Z), inf2 = f2_is_zero(p2.Z);
-  const bool eq_u = f2_eq(u1, u2) && !inf1 && !inf2;
-  const bool eq_s = f2_eq(s1, s2);
-  if (with_double) out = g2_select(eq_u && eq_s, g2_dbl(p1, M), out);
-  const G2J inf = {f2_one(one), f2_one(one), f2_zero()};
-  out = g2_select(eq_u && !eq_s, inf, out);
-  out = g2_select(inf1, p2, out);
-  return g2_select(inf2 && !inf1, p1, out);
-}
-
 // A Miller step's line a + b w^2 + c w^3 as its Fp2 triple (a, b, c).
 struct LineF2 {
   F2 a, b, c;
@@ -478,10 +414,11 @@ DT_HD void miller_add_share(int level, int j, const uint64_t *t,
 
 
 // ---------------------------------------------------------------------------
-// B9 in chain form (K9): n dbl-2009-l doublings of a row's point, the
-// function of g2_dbl applied n times, split over three threads of the row
-// by dependency level as miller_dbl_share splits B11's step, a barrier
-// between levels.  Per row, in flat_load's layout:
+// B9 in chain form (K9): n dbl-2009-l doublings of a row's point (the
+// formula of ops/curve.py point_double, n times), split over three
+// threads of the row by dependency level as miller_dbl_share splits B11's
+// step, a barrier between levels.  K10 runs the same shares at n = 1 for
+// its doubling of P1 (g2_add_share).  Per row, in flat_load's layout:
 //
 //   t   the point, elements X0 X1 Y0 Y1 Z0 Z1, doubled in place at level
 //       2 (which reads no T)
@@ -503,8 +440,8 @@ DT_HD void miller_add_share(int level, int j, const uint64_t *t,
 // the next doubling, so every level holds at most one square (1248) on a
 // thread: 3,744 a doubling on the longest path against 9,792 in all.
 // Infinity (Z = 0) stays infinity: Z' = 2 YZ.  Every intermediate is
-// canonical, so n rounds of shares give g2_dbl's output n times over bit
-// for bit.
+// canonical, so n rounds of shares give the formula's output n times
+// over bit for bit.
 // ---------------------------------------------------------------------------
 
 constexpr int G2_DBL_BUF = 20;          // elements of a row: t (6), s (14)
@@ -552,6 +489,250 @@ DT_HD void g2_dbl_share(int level, int j, int i, int n, uint64_t *t,
       f2_put(f2_dbl(f2_at(s, 6, stride), M), t, 4, stride);
       if (i + 1 < n) f2_put(f2_sqr(X2, M), s, 2 - a_at, stride);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B10 (K10): the general Jacobian addition P1 + P2 of ops/curve.py
+// point_add, every case branchless (infinities, P + (-P) = infinity and,
+// where with_double, P + P the doubling of P1), split over three threads
+// of the row by the dependency levels the Pallas kernel stacks, a barrier
+// after each level.  Every Fp2 product and square of the addition is
+// taken as two half-products (fp2_half, 888 multiply-adds each, squares
+// as products), and share j of a level is a short list of them (ga_task)
+// run through one fp2_half body in a loop, so the kernel holds one copy
+// of the product code: 42k instructions, where these levels written
+// with their products inlined took 101k and, without the doubling, ran
+// 1.4x slower, their code far past the instruction cache.  With
+// h = u2 - u1 and rr = 2 (s2 - s1):
+//
+//   level 0: j = 0, 1: Z1^2 or Z2^2, and Y1 Z2's x or y half; 2: Y2 Z1
+//   level 1: j = 0, 1: u1 = X1 Z2^2 or u2 = X2 Z1^2, and s1 = Y1 Z2 Z2^2's
+//            x or y half; 2: s2 = Y2 Z1 Z1^2
+//   level 2: j = 0: i = (2h)^2; 1, 2: zz = (Z1 + Z2)^2 - Z1^2 - Z2^2, its
+//            x or y half
+//   level 3: j = 0: j = h i; 1, 2: v = u1 i and rr2 = rr^2, their x or y
+//            halves; and every thread the cases: inf1, inf2 (Z = 0),
+//            u1 = u2, s1 = s2
+//   level 4: with X3 = rr2 - j - 2v: j = 0, 1: Y3 = rr (v - X3) - 2 s1 j,
+//            its x or y half; 2: X3 and Z3 = zz h; then each thread picks
+//            its elements of the sum by the cases, P2's read from device
+//            memory
+//
+// With with_double the doubling of P1 runs beside them: g2_dbl_share's
+// level 0 at level 1 (share (3 - j) % 3, so the thread with the lighter
+// addition share takes YZ), its level 1 at level 2, and its level 2 at
+// level 4, where share j writes into P1 exactly the elements that thread
+// j owns: each thread reads its elements of P1 before that.  No thread
+// carries more than three half-products in a level, 2,664 multiply-adds
+// (3,912 with the doubling, level 1); the longest path over the threads
+// is 10,656 of 28,416 a row (14,040 of 38,208 with the doubling).
+//
+// A row's buffer, in flat_load's layout, 36 elements (GA_BUF) with or
+// without the doubling, each slot taken again once what it held is
+// read for the last time:
+//
+//   0-5    P1 (X1 Y1 Z1), the sum over it at level 4
+//   6-7    Z2 (P2's X2 and Y2 are staged into the doubling's slots)
+//   8-11   Z1^2, Z2^2 (level 0); j, v over them (level 3)
+//   12-13  Y2 Z1 (level 0); i over it (level 2)
+//   14-21  u1, u2, s1, s2 (level 1)
+//   22-35  g2_dbl_share's level values at n = 1 (GA_DBL): A 22, B 26,
+//          YZ 28 (its level 0, at level 1), C 30, S2 32, F 34 (its
+//          level 1, at level 2); and the addition's zz 24 (in the slot
+//          the doubling's odd steps use), rr2 26 (over B, level 3), X2
+//          30 and Y2 32 (read at levels 1 and 0), Y1 Z2 34 (level 0)
+//
+// Every intermediate is canonical, so the shares give the formula's
+// output bit for bit.
+// ---------------------------------------------------------------------------
+
+constexpr int GA_P1 = 0, GA_Z2 = 6, GA_Z1Z1 = 8, GA_Z2Z2 = 10;
+constexpr int GA_Y2Z1 = 12, GA_U1 = 14, GA_U2 = 16, GA_S1 = 18, GA_S2 = 20;
+constexpr int GA_DBL = 22, GA_ZZ = GA_DBL + 2, GA_RR2 = GA_DBL + 4;
+constexpr int GA_X2 = GA_DBL + 8, GA_Y2 = GA_DBL + 10, GA_Y1Z2 = GA_DBL + 12;
+constexpr int GA_I = GA_Y2Z1, GA_J = GA_Z1Z1, GA_V = GA_Z2Z2;
+constexpr int GA_BUF = GA_DBL + 14;                // elements of a row
+
+// The element P2's coordinate c (X0 X1 Y0 Y1 Z0 Z1) is staged into.
+DT_HD int ga_p2_at(int c) {
+  return c < 2 ? GA_X2 + c : c < 4 ? GA_Y2 + c - 2 : GA_Z2 + c - 4;
+}
+
+// The cases of a row, found at level 3 and used at level 4.
+struct G2AddCase {
+  bool inf1, inf2, eq_u, eq_s;
+};
+
+DT_HD F2 ga_h(const uint64_t *b, int stride, const Mod &M) {
+  return f2_sub(f2_at(b, GA_U2, stride), f2_at(b, GA_U1, stride), M);
+}
+
+DT_HD F2 ga_rr(const uint64_t *b, int stride, const Mod &M) {
+  return f2_dbl(f2_sub(f2_at(b, GA_S2, stride), f2_at(b, GA_S1, stride), M),
+                M);
+}
+
+// X3 = rr2 - j - 2v, from level 3's values
+DT_HD F2 ga_x3(const uint64_t *b, int stride, const Mod &M) {
+  return f2_sub(f2_sub(f2_at(b, GA_RR2, stride), f2_at(b, GA_J, stride), M),
+                f2_dbl(f2_at(b, GA_V, stride), M), M);
+}
+
+// Operands of K10's half-products: an element of the buffer (e >= 0, the
+// Fp2 value at e and e + 1), or one formed from level values.
+constexpr int GA_OP_H = -1, GA_OP_2H = -2, GA_OP_RR = -3, GA_OP_Z12 = -4,
+              GA_OP_VX3 = -5;
+// What a half-product's result becomes: a buffer element (>= 0), the x
+// or y half of zz = (Z1 + Z2)^2 - Z1^2 - Z2^2, or a register of level 4.
+constexpr int GA_TO_ZZ = -1, GA_TO_ACC = -2, GA_TO_Y3 = -3, GA_TO_Z3Y = -4;
+
+DT_HD F2 ga_operand(int src, const uint64_t *b, int stride, const Mod &M) {
+  switch (src) {
+    case GA_OP_H:
+      return ga_h(b, stride, M);
+    case GA_OP_2H:
+      return f2_dbl(ga_h(b, stride, M), M);
+    case GA_OP_RR:
+      return ga_rr(b, stride, M);
+    case GA_OP_Z12:
+      return f2_add(f2_at(b, GA_P1 + 4, stride), f2_at(b, GA_Z2, stride), M);
+    case GA_OP_VX3:
+      return f2_sub(f2_at(b, GA_V, stride), ga_x3(b, stride, M), M);
+    default:
+      return f2_at(b, src, stride);
+  }
+}
+
+// Half-product t of share j at `level` (the schedule above): operands a
+// and b, half h, destination `to`.  False past the share's last one.
+struct GaTask {
+  int a, b, h, to;
+};
+
+DT_HD bool ga_task(int level, int j, int t, GaTask &k) {
+  constexpr int X1 = GA_P1, Y1 = GA_P1 + 2, Z1 = GA_P1 + 4;
+  const int q = j < 2 ? j : 0;            // the half a share j < 2 takes
+  switch (level * 3 + j) {
+    case 0:                               // Z1^2, Y1 Z2's x
+    case 1:                               // Z2^2, Y1 Z2's y
+      if (t < 2) k = {j ? GA_Z2 : Z1, j ? GA_Z2 : Z1, t, GA_Z1Z1 + 2 * j + t};
+      else k = {Y1, GA_Z2, q, GA_Y1Z2 + q};
+      return t < 3;
+    case 2:                               // Y2 Z1
+      k = {GA_Y2, Z1, t, GA_Y2Z1 + t};
+      return t < 2;
+    case 3:                               // u1, s1's x
+    case 4:                               // u2, s1's y
+      if (t < 2)
+        k = {j ? GA_X2 : X1, j ? GA_Z1Z1 : GA_Z2Z2, t, GA_U1 + 2 * j + t};
+      else k = {GA_Y1Z2, GA_Z2Z2, q, GA_S1 + q};
+      return t < 3;
+    case 5:                               // s2
+      k = {GA_Y2Z1, GA_Z1Z1, t, GA_S2 + t};
+      return t < 2;
+    case 6:                               // i = (2h)^2
+      k = {GA_OP_2H, GA_OP_2H, t, GA_I + t};
+      return t < 2;
+    case 7:                               // zz's x
+    case 8:                               // zz's y
+      k = {GA_OP_Z12, GA_OP_Z12, j - 1, GA_TO_ZZ};
+      return t < 1;
+    case 9:                               // j = h i
+      k = {GA_OP_H, GA_I, t, GA_J + t};
+      return t < 2;
+    case 10:                              // v's and rr2's x
+    case 11:                              // v's and rr2's y
+      if (t == 0) k = {GA_U1, GA_I, j - 1, GA_V + j - 1};
+      else k = {GA_OP_RR, GA_OP_RR, j - 1, GA_RR2 + j - 1};
+      return t < 2;
+    case 12:                              // Y3's x: rr (v - X3), 2 s1 j
+    case 13:                              // Y3's y
+      if (t == 0) k = {GA_OP_RR, GA_OP_VX3, j, GA_TO_ACC};
+      else k = {GA_S1, GA_J, j, GA_TO_Y3};
+      return t < 2;
+    default:                              // Z3 = zz h
+      k = {GA_ZZ, GA_OP_H, t, t ? GA_TO_Z3Y : GA_TO_ACC};
+      return t < 2;
+  }
+}
+
+// Element e of the sum, written over P1's: the addition's value `sum`,
+// or by the cases the doubling's (in P1's slot by then, where it ran),
+// (1, 1, 0), P2's (coordinate e of the row in device memory, p2 + e * cs
+// limbs; zero where p2 is null, a row past the end) or P1's (`p1`, read
+// before the doubling wrote there).
+DT_HD void ga_pick(int e, const uint64_t *sum, const uint64_t *p1,
+                   const int32_t *p2, long long cs, bool with_double,
+                   const G2AddCase &c, const One &one, uint64_t *b,
+                   int stride) {
+  uint64_t d[N_WORDS], q[N_WORDS] = {0, 0, 0, 0, 0, 0}, r[N_WORDS];
+  flat_load(b, GA_P1 + e, stride, d);
+  if (p2 != nullptr) load_words(p2 + e * cs, q);
+  const bool use_dbl = with_double && c.eq_u && c.eq_s;
+  const bool cancel = c.eq_u && !c.eq_s;
+  const bool one_el = e == 0 || e == 2;   // X0 and Y0 of (1, 1, 0)
+  DT_UNROLL
+  for (int v = 0; v < N_WORDS; v++) {
+    uint64_t x = use_dbl ? d[v] : sum[v];
+    x = cancel ? (one_el ? one.w[v] : 0) : x;
+    x = c.inf1 ? q[v] : x;
+    r[v] = c.inf2 && !c.inf1 ? p1[v] : x;
+  }
+  flat_store(r, b, GA_P1 + e, stride);
+}
+
+// p2: the row's P2 in device memory (coordinate c at p2 + c * cs limbs),
+// null for a row past the end; read only by the picks of level 4.
+DT_HD void g2_add_share(int level, int j, bool with_double, uint64_t *b,
+                        G2AddCase &c, const int32_t *p2, long long cs,
+                        const One &one, int stride, const Mod &M) {
+  uint64_t *dbl = b + GA_DBL * N_WORDS * stride;
+  if (with_double && level == 1)
+    g2_dbl_share(0, (3 - j) % 3, 0, 1, b, dbl, stride, M);
+  if (with_double && level == 2) g2_dbl_share(1, j, 0, 1, b, dbl, stride, M);
+  uint64_t acc[N_WORDS] = {}, sum[N_WORDS] = {}, r[N_WORDS], w[N_WORDS];
+  GaTask k;
+  for (int t = 0; ga_task(level, j, t, k); t++) {
+    fp2_half(k.h, ga_operand(k.a, b, stride, M), ga_operand(k.b, b, stride, M),
+             r, M);
+    if (k.to >= 0) {
+      flat_store(r, b, k.to, stride);
+    } else if (k.to == GA_TO_ZZ) {
+      flat_load(b, GA_Z1Z1 + k.h, stride, acc);
+      flat_load(b, GA_Z2Z2 + k.h, stride, w);
+      add_mod(acc, w, acc, M);
+      sub_mod(r, acc, r, M);
+      flat_store(r, b, GA_ZZ + k.h, stride);
+    } else if (k.to == GA_TO_Y3) {        // Y3 = rr (v - X3) - 2 s1 j
+      add_mod(r, r, r, M);
+      sub_mod(acc, r, sum, M);
+    } else {
+      DT_UNROLL
+      for (int v = 0; v < N_WORDS; v++) {
+        acc[v] = k.to == GA_TO_ACC ? r[v] : acc[v];
+        sum[v] = k.to == GA_TO_Z3Y ? r[v] : sum[v];
+      }
+    }
+  }
+  if (level == 3) {
+    c.inf1 = f2_is_zero(f2_at(b, GA_P1 + 4, stride));
+    c.inf2 = f2_is_zero(f2_at(b, GA_Z2, stride));
+    c.eq_u = f2_eq(f2_at(b, GA_U1, stride), f2_at(b, GA_U2, stride)) &&
+             !c.inf1 && !c.inf2;
+    c.eq_s = f2_eq(f2_at(b, GA_S1, stride), f2_at(b, GA_S2, stride));
+  } else if (level == 4 && j < 2) {       // Y3's half j
+    flat_load(b, GA_P1 + 2 + j, stride, w);
+    if (with_double) g2_dbl_share(2, j, 0, 1, b, dbl, stride, M);
+    ga_pick(2 + j, sum, w, p2, cs, with_double, c, one, b, stride);
+  } else if (level == 4) {                // X3, and Z3 = (acc, sum)
+    const F2 X3 = ga_x3(b, stride, M);
+    const F2 X1 = f2_at(b, GA_P1, stride), Z1 = f2_at(b, GA_P1 + 4, stride);
+    if (with_double) g2_dbl_share(2, 2, 0, 1, b, dbl, stride, M);
+    ga_pick(0, X3.x, X1.x, p2, cs, with_double, c, one, b, stride);
+    ga_pick(1, X3.y, X1.y, p2, cs, with_double, c, one, b, stride);
+    ga_pick(4, acc, Z1.x, p2, cs, with_double, c, one, b, stride);
+    ga_pick(5, sum, Z1.y, p2, cs, with_double, c, one, b, stride);
   }
 }
 

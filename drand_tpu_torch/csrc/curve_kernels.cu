@@ -27,9 +27,22 @@
 //   SMs.
 // K10 dt_g2_point_add -- replaces PallasField.g2_point_add (:1720, body
 //   :1617).  The general addition with every case branchless (and the
-//   doubling of P where with_double), one thread a row: 11 Fp2 products
-//   and 5 squares (+ K9's work with the doubling), ~26k multiply-adds on
-//   2.3 KB, bound by operations.
+//   doubling of P1 where with_double): 11 Fp2 products and 5 squares
+//   (+ K9's doubling), ~25.8k multiply-adds (35.6k) on 2.3 KB a row,
+//   bound by operations.  K9's launch shape: 32 rows a block, three
+//   threads a row, one warp a share; both points are staged once,
+//   coalesced, into shared memory as words, the five dependency levels
+//   of curve_arith.cuh g2_add_share run with a barrier after each (the
+//   doubling's three levels of g2_dbl_share beside levels 1, 2 and 4),
+//   and the sum, written over P1, is staged out once.  The levels run in
+//   a loop (not unrolled) and each share's half-products through one
+//   product body, which keeps the kernel's code small enough for the
+//   instruction cache.  A row's level values take 36 elements with or
+//   without the doubling (each slot taken again once read for the last
+//   time; P2 is read again from device memory at the last level), 55,296
+//   bytes of dynamic shared memory a block: four blocks (12 warps) a SM,
+//   so 16384 rows (512 blocks) are resident at once on 132 SMs in both
+//   forms.
 // K18 dt_g2_dbl_line -- replaces PallasField.g2_dbl_line (:1538, body
 //   _g2_dbl_line_kernel :1392, rows _g2_dbl_line_rows :1401).  The Miller
 //   doubling step of the trio loop over the K pairs stacked on the rows,
@@ -46,9 +59,8 @@
 //   so the merged and trio loops share one formula.
 //
 // The file is compiled twice, in parallel (ops/kernels.py SOURCES):
-// -DDT_CURVE_PART=0 gives K9 and K10, =1 K18 and K19.  Each pair takes
-// nvcc minutes (255 registers of straight-line Fp2 arithmetic), so the
-// build waits for the slower one instead of both.
+// -DDT_CURVE_PART=0 gives K9 and K10, =1 K18 and K19, so the build waits
+// for the slower half instead of both.
 
 #include <cuda_runtime.h>
 
@@ -96,17 +108,43 @@ __global__ void __launch_bounds__(DBL_THREADS, 4)
     dt::stage_out<DBL_ROWS>(sm + c * SLOT, 1, row0, rows, o + c * cs);
 }
 
-__global__ void k_g2_point_add(const int32_t *__restrict__ p1,
-                               const int32_t *__restrict__ p2,
-                               int32_t *__restrict__ o, long long rows,
-                               int with_double, dt::One one, dt::Mod M) {
-  const long long r = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  const long long cs = rows * dt::N_LIMBS, at = r * dt::N_LIMBS;
-  dt::g2_store6(dt::g2_add(dt::g2_load6(p1 + at, cs),
-                           dt::g2_load6(p2 + at, cs), with_double != 0, one,
-                           M),
-                o + at, cs);
+constexpr int ADD_ROWS = 32;               // rows of a K10 block
+constexpr int ADD_THREADS = 3 * ADD_ROWS;  // three threads a row
+
+// the level values of a block: 55,296 bytes, dynamic (over 48 KB)
+constexpr int ADD_SMEM =
+    dt::GA_BUF * dt::N_WORDS * ADD_ROWS * sizeof(uint64_t);
+
+__global__ void __launch_bounds__(ADD_THREADS, 4)
+    k_g2_point_add(const int32_t *__restrict__ p1,
+                   const int32_t *__restrict__ p2, int32_t *__restrict__ o,
+                   long long rows, int with_double, dt::One one, dt::Mod M) {
+  // element e of block row r, word v at [(e * 6 + v) * ADD_ROWS + r]
+  // (curve_arith.cuh GA_*)
+  extern __shared__ uint64_t sm[];
+  constexpr int SLOT = dt::N_WORDS * ADD_ROWS;
+  const long long row0 = (long long)blockIdx.x * ADD_ROWS;
+  const long long cs = rows * dt::N_LIMBS;
+  for (int c = 0; c < 6; c++) {
+    dt::stage_in<ADD_ROWS>(p1 + c * cs, 1, row0, rows,
+                           sm + (dt::GA_P1 + c) * SLOT);
+    dt::stage_in<ADD_ROWS>(p2 + c * cs, 1, row0, rows,
+                           sm + dt::ga_p2_at(c) * SLOT);
+  }
+  __syncthreads();
+  const int j = threadIdx.x / ADD_ROWS, r = threadIdx.x % ADD_ROWS;
+  const int32_t *p2_row =
+      row0 + r < rows ? p2 + (row0 + r) * dt::N_LIMBS : nullptr;
+  dt::G2AddCase cases;
+#pragma unroll 1
+  for (int level = 0; level < 5; level++) {
+    dt::g2_add_share(level, j, with_double != 0, sm + r, cases, p2_row, cs,
+                     one, ADD_ROWS, M);
+    __syncthreads();
+  }
+  for (int c = 0; c < 6; c++)
+    dt::stage_out<ADD_ROWS>(sm + (dt::GA_P1 + c) * SLOT, 1, row0, rows,
+                            o + c * cs);
 }
 #else
 template <bool ADD>
@@ -161,11 +199,34 @@ int dt_g2_point_add(const int32_t *p1, const int32_t *p2, int32_t *o,
                     long long rows, int with_double, const uint64_t *one6,
                     const uint64_t *mod7, void *stream) {
   if (rows <= 0) return 0;
-  k_g2_point_add<<<blocks(rows, THREADS), THREADS, 0,
+  cudaError_t e = cudaFuncSetAttribute(
+      k_g2_point_add, cudaFuncAttributeMaxDynamicSharedMemorySize, ADD_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  k_g2_point_add<<<blocks(rows, ADD_ROWS), ADD_THREADS, ADD_SMEM,
                    (cudaStream_t)stream>>>(p1, p2, o, rows, with_double,
                                            dt::one_from_words(one6),
                                            dt::mod_from_words(mod7));
   return (int)cudaGetLastError();
+}
+
+// K10's attributes as dt_g2_point_dbl_attrs gives K9's; out[2] counts
+// the dynamic shared memory.
+int dt_g2_point_add_attrs(int *out) {
+  cudaError_t e = cudaFuncSetAttribute(
+      k_g2_point_add, cudaFuncAttributeMaxDynamicSharedMemorySize, ADD_SMEM);
+  cudaFuncAttributes fa;
+  int per_sm = 0;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, k_g2_point_add);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k_g2_point_add,
+                                                      ADD_THREADS, ADD_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  out[2] = (int)fa.sharedSizeBytes + ADD_SMEM;
+  out[3] = ADD_THREADS;
+  out[4] = per_sm;
+  return 0;
 }
 #else
 int dt_g2_dbl_line(const int32_t *in, int32_t *to, int32_t *lo,

@@ -152,22 +152,40 @@ void dth_cyclo_sqr(const int32_t *a, int32_t *o, long long rows, int k,
   }
 }
 
+// K7's chain: per row the two lanes' halves of each square and of the
+// product in turn (in reverse order when `reverse`), each lane writing
+// its own half, then both halves swapped in, as the kernel's shuffle
+// does.
 void dth_fp2_sqr_chain_mul(const int32_t *x, const int32_t *t, int32_t *o,
-                           long long rows, int k, const uint64_t *mod7) {
+                           long long rows, int k, int reverse,
+                           const uint64_t *mod7) {
   const dt::Mod M = dt::mod_from_words(mod7);
+  dt::F2 cur, tt;
+  uint64_t nxt[2][dt::N_WORDS];
   for (long long r = 0; r < rows; r++) {
-    const long long c0 = r * dt::N_LIMBS, c1 = c0 + rows * dt::N_LIMBS;
-    dt::F2 tt;
-    if (t != nullptr) tt = dt::f2_load(t + c0, t + c1);
-    dt::f2_store(dt::fp2_sqr_chain_mul(dt::f2_load(x + c0, x + c1),
-                                       t != nullptr ? &tt : nullptr, k, M),
-                 o + c0, o + c1);
+    cur = dt::f2_load(x + r * dt::N_LIMBS, x + (rows + r) * dt::N_LIMBS);
+    if (t != nullptr)
+      tt = dt::f2_load(t + r * dt::N_LIMBS, t + (rows + r) * dt::N_LIMBS);
+    for (int s = 0; s < k + (t != nullptr); s++) {   // k squares, the product
+      for (int l = 0; l < 2; l++) {
+        const int h = reverse ? 1 - l : l;
+        if (s < k)
+          dt::fp2_sqr_lane(h, cur.x, cur.y, nxt[h], M);
+        else
+          dt::fp2_half(h, cur, tt, nxt[h], M);
+      }
+      for (int v = 0; v < dt::N_WORDS; v++) {
+        cur.x[v] = nxt[0][v];
+        cur.y[v] = nxt[1][v];
+      }
+    }
+    dt::f2_store(cur, o + r * dt::N_LIMBS, o + (rows + r) * dt::N_LIMBS);
   }
 }
 
 void dth_fp2_sqr5_mul(const int32_t *x, const int32_t *t, int32_t *o,
                       long long rows, const uint64_t *mod7) {
-  dth_fp2_sqr_chain_mul(x, t, o, rows, 5, mod7);
+  dth_fp2_sqr_chain_mul(x, t, o, rows, 5, 0, mod7);
 }
 
 void dth_flat_conj(const int32_t *a, int32_t *o, long long rows,
@@ -209,18 +227,31 @@ void dth_g2_point_dbl(const int32_t *p, int32_t *o, long long rows, int n,
   }
 }
 
+// K10: per row the shares of each level in turn (in reverse order when
+// `reverse`), on one row's buffer (curve_arith.cuh GA_*) with stride 1;
+// each share keeps its own cases, as each thread does in registers.
 void dth_g2_point_add(const int32_t *p1, const int32_t *p2, int32_t *o,
-                      long long rows, int with_double, const uint64_t *one6,
-                      const uint64_t *mod7) {
+                      long long rows, int with_double, int reverse,
+                      const uint64_t *one6, const uint64_t *mod7) {
   const dt::Mod M = dt::mod_from_words(mod7);
   const dt::One one = dt::one_from_words(one6);
+  const int W = dt::N_WORDS;
+  uint64_t buf[dt::GA_BUF * dt::N_WORDS];
+  dt::G2AddCase cases[3];
   const long long cs = rows * dt::N_LIMBS;
   for (long long r = 0; r < rows; r++) {
-    const long long at = r * dt::N_LIMBS;
-    dt::g2_store6(dt::g2_add(dt::g2_load6(p1 + at, cs),
-                             dt::g2_load6(p2 + at, cs), with_double != 0,
-                             one, M),
-                  o + at, cs);
+    for (int c = 0; c < 6; c++) {
+      dt::load_words(p1 + c * cs + r * dt::N_LIMBS, buf + (dt::GA_P1 + c) * W);
+      dt::load_words(p2 + c * cs + r * dt::N_LIMBS, buf + dt::ga_p2_at(c) * W);
+    }
+    for (int level = 0; level < 5; level++)
+      for (int s = 0; s < 3; s++) {
+        const int j = reverse ? 2 - s : s;
+        dt::g2_add_share(level, j, with_double != 0, buf, cases[j],
+                         p2 + r * dt::N_LIMBS, cs, one, 1, M);
+      }
+    for (int c = 0; c < 6; c++)
+      dt::store_words(buf + (dt::GA_P1 + c) * W, o + c * cs + r * dt::N_LIMBS);
   }
 }
 

@@ -580,11 +580,61 @@ DT_HD void f2_store(const F2 &a, int32_t *c0, int32_t *c1) {
   store_words(a.y, c1);
 }
 
-// B7 (B8 at k = 5): x^(2^k) * t in Fp2, or x^(2^k) when t is null; every
-// step canonical.
-DT_HD F2 fp2_sqr_chain_mul(F2 x, const F2 *t, int k, const Mod &M) {
-  for (int s = 0; s < k; s++) x = f2_sqr(x, M);
-  return t != nullptr ? f2_mul(x, *t, M) : x;
+// B7 (B8 at k = 5), x^(2^k) * t or x^(2^k) in Fp2, over the two threads
+// (lanes) of a row: lane h owns half h of the running value (x for
+// h = 0, y for h = 1).  Half h of the square of a + b u is one Montgomery
+// product whose operands h picks,
+//
+//   h = 0: (a + b)(a - b) = a^2 - b^2,   h = 1: a (2b) = 2ab,
+//
+// so both lanes of a row run the same mont_mul_words and do not diverge;
+// half h of the product with t is fp2_half (below).  Each half is the
+// unique canonical residue of its quantity, so k squares and the product
+// give f2_sqr k times and f2_mul bit for bit.  r must not alias the
+// operands.
+DT_HD void fp2_sqr_lane(int h, const uint64_t *a, const uint64_t *b,
+                        uint64_t *r, const Mod &M) {
+  uint64_t s[N_WORDS], d[N_WORDS], b2[N_WORDS];
+  add_mod(a, b, s, M);
+  sub_mod(a, b, d, M);
+  add_mod(b, b, b2, M);
+  DT_UNROLL
+  for (int v = 0; v < N_WORDS; v++) {
+    s[v] = h ? a[v] : s[v];
+    d[v] = h ? b2[v] : d[v];
+  }
+  mont_mul_words(s, d, r, M);
+}
+
+// Half h of the Fp2 product a b: h = 0: a.x b.x - a.y b.y, h = 1: a.x b.y
+// + a.y b.x, each one REDC of a wide sum: fp2_mul_re and fp2_mul_im in
+// one body, the operands picked by h, so the threads that call it with
+// either h share its code (K7's two lanes, every half-product of K10).
+DT_HD void fp2_half(int h, const F2 &a, const F2 &b, uint64_t *r,
+                    const Mod &M) {
+  uint64_t c0[N_WORDS], c1[N_WORDS], t[W_WORDS], u[W_WORDS];
+  DT_UNROLL
+  for (int v = 0; v < N_WORDS; v++) {
+    c0[v] = h ? b.y[v] : b.x[v];
+    c1[v] = h ? b.x[v] : b.y[v];
+  }
+  zero_wide(t);
+  mul_acc(a.x, c0, t);
+  zero_wide(u);
+  mul_acc(a.y, c1, u);
+  if (h) {                                // t + u < 2 m^2
+    uint64_t carry = 0;
+    DT_UNROLL
+    for (int i = 0; i < W_WORDS; i++) {
+      const uint64_t s = t[i] + u[i];
+      const uint64_t over = s < t[i];
+      t[i] = s + carry;
+      carry = over | (t[i] < s);
+    }
+  } else {
+    wide_sub(t, u, M);                    // [0, m 2^384)
+  }
+  redc_to(t, r, 1, M);
 }
 
 // ---------------------------------------------------------------------------

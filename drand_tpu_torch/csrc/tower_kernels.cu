@@ -50,11 +50,20 @@
 
 // K7 dt_fp2_sqr_chain_mul -- replaces PallasField.fp2_sqr_chain_mul
 //   (:1326, body _fp2_sqr_chain_mul_kernel :1298).  The Fp2 addition-chain
-//   step x^(2^k) * t (or x^(2^k)), one thread a row, every square and the
-//   product canonical in words (no lazy band, so no _WIDE_NEG_OFF_LAZY):
-//   k * 1248 + 1776 multiply-adds on 384 bytes, bound by operations.
+//   step x^(2^k) * t (or x^(2^k)), every square and the product canonical
+//   in words (no lazy band, so no _WIDE_NEG_OFF_LAZY): k * 1248 + 1776
+//   multiply-adds on 384 bytes a row, bound by operations.  Two threads
+//   a row, neighbouring lanes of one warp: lane h owns half h of the
+//   running value, each square is one Montgomery product a lane on
+//   operands the lane picks (tower_arith.cuh fp2_sqr_lane: (a+b)(a-b) or
+//   a(2b)), and the two halves are swapped with __shfl_xor_sync after
+//   each square (six 64-bit words); the product with t is one REDC of a
+//   wide sum a lane (fp2_half), and lane h writes half h.  A square is
+//   then 600 multiply-adds on a lane's path where one thread took
+//   1,248.  32 rows (64 threads) a block: 16384 rows are 512 blocks, all
+//   resident at once on 132 SMs.
 // K8 dt_fp2_sqr5_mul -- replaces PallasField.fp2_sqr5_mul (:1348, body
-//   :1286).  The window step x^32 * t of the same device function at k = 5.
+//   :1286).  The window step x^32 * t: K7's kernel at k = 5.
 // K15 dt_flat_conj -- replaces PallasField.flat_conj (:1812, body :1804).
 //   f^(p^6), the odd w-powers negated, one thread per coefficient: 3 KB a
 //   row, bound by bytes.
@@ -213,19 +222,50 @@ __global__ void __launch_bounds__(CY_THREADS, 2)
   dt::stage_out<CY_ROWS>(cells, dt::FLAT, row0, rows, o);
 }
 
-// K7, K8: coordinate c of row r at (c * rows + r) * 32.
-__global__ void k_fp2_sqr_chain_mul(const int32_t *__restrict__ x,
-                                    const int32_t *__restrict__ t,
-                                    int32_t *__restrict__ o, long long rows,
-                                    int k, dt::Mod M) {
-  const long long r = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  const long long c0 = r * dt::N_LIMBS, c1 = c0 + rows * dt::N_LIMBS;
-  dt::F2 tt;
-  if (t != nullptr) tt = dt::f2_load(t + c0, t + c1);
-  const dt::F2 out = dt::fp2_sqr_chain_mul(
-      dt::f2_load(x + c0, x + c1), t != nullptr ? &tt : nullptr, k, M);
-  dt::f2_store(out, o + c0, o + c1);
+constexpr int F2C_ROWS = 32;                  // rows of a K7 block
+constexpr int F2C_THREADS = 2 * F2C_ROWS;     // two threads a row
+
+// The Fp2 value whose half h this lane holds in `mine`, the other half
+// from the neighbouring lane.
+__device__ __forceinline__ void swap_halves(const uint64_t *mine, int h,
+                                            dt::F2 &a) {
+#pragma unroll
+  for (int v = 0; v < dt::N_WORDS; v++) {
+    const uint64_t other = (uint64_t)__shfl_xor_sync(
+        0xffffffffu, (unsigned long long)mine[v], 1);
+    a.x[v] = h ? other : mine[v];
+    a.y[v] = h ? mine[v] : other;
+  }
+}
+
+// K7, K8: coordinate c of row r at (c * rows + r) * 32.  Lanes of rows
+// past the end compute on zeros (every lane of a warp takes part in the
+// shuffles) and store nothing.
+__global__ void __launch_bounds__(F2C_THREADS)
+    k_fp2_sqr_chain_mul(const int32_t *__restrict__ x,
+                        const int32_t *__restrict__ t,
+                        int32_t *__restrict__ o, long long rows, int k,
+                        dt::Mod M) {
+  const long long r = (long long)blockIdx.x * F2C_ROWS + threadIdx.x / 2;
+  const int h = threadIdx.x & 1;
+  const bool in = r < rows;
+  const long long at = (h * rows + r) * dt::N_LIMBS;   // half h of row r
+  uint64_t mine[dt::N_WORDS] = {0, 0, 0, 0, 0, 0};
+  dt::F2 a;
+  if (in) dt::load_words(x + at, mine);
+  swap_halves(mine, h, a);
+  for (int s = 0; s < k; s++) {
+    dt::fp2_sqr_lane(h, a.x, a.y, mine, M);
+    swap_halves(mine, h, a);
+  }
+  if (t != nullptr) {
+    uint64_t tt[dt::N_WORDS] = {0, 0, 0, 0, 0, 0};
+    dt::F2 c;
+    if (in) dt::load_words(t + at, tt);
+    swap_halves(tt, h, c);
+    dt::fp2_half(h, a, c, mine, M);
+  }
+  if (in) dt::store_words(mine, o + at);
 }
 
 __global__ void k_flat_conj(const int32_t *__restrict__ a,
@@ -337,7 +377,7 @@ int dt_fp2_sqr_chain_mul(const int32_t *x, const int32_t *t, int32_t *o,
                          long long rows, int k, const uint64_t *mod7,
                          void *stream) {
   if (rows <= 0) return 0;
-  k_fp2_sqr_chain_mul<<<blocks(rows, THREADS), THREADS, 0,
+  k_fp2_sqr_chain_mul<<<blocks(rows, F2C_ROWS), F2C_THREADS, 0,
                         (cudaStream_t)stream>>>(x, t, o, rows, k,
                                                 dt::mod_from_words(mod7));
   return (int)cudaGetLastError();
@@ -345,11 +385,24 @@ int dt_fp2_sqr_chain_mul(const int32_t *x, const int32_t *t, int32_t *o,
 
 int dt_fp2_sqr5_mul(const int32_t *x, const int32_t *t, int32_t *o,
                     long long rows, const uint64_t *mod7, void *stream) {
-  if (rows <= 0) return 0;
-  k_fp2_sqr_chain_mul<<<blocks(rows, THREADS), THREADS, 0,
-                        (cudaStream_t)stream>>>(x, t, o, rows, 5,
-                                                dt::mod_from_words(mod7));
-  return (int)cudaGetLastError();
+  return dt_fp2_sqr_chain_mul(x, t, o, rows, 5, mod7, stream);
+}
+
+// K7's (and K8's) attributes, as dt_cyclo_sqr_attrs gives K14's.
+int dt_fp2_sqr_chain_mul_attrs(int *out) {
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, k_fp2_sqr_chain_mul);
+  int per_sm = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, k_fp2_sqr_chain_mul, F2C_THREADS, 0);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  out[2] = (int)fa.sharedSizeBytes;
+  out[3] = F2C_THREADS;
+  out[4] = per_sm;
+  return 0;
 }
 
 int dt_flat_conj(const int32_t *a, int32_t *o, long long rows,

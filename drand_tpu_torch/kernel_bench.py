@@ -2,13 +2,18 @@
 
     python -m drand_tpu_torch.kernel_bench [--walls N]
 
-Without --walls: the registers and spill of K9, K11 and K12 (`-Xptxas -v`
-in the build log), then K9 at n = 1, 2, 3, 9, 16, 32, K11 and K12 on
-16384 rows, each held bit for bit against its plain version (exit 1
-otherwise) and timed as the mean ms of 40 back-to-back launches between
-two CUDA events.  With --walls N: N default 16384-round batches of the
-committed unchained fixture after two warm-up batches, each timed on the
-host clock up to its verdicts on the host.
+Without --walls: the registers and spill of K7, K9, K10, K11 and K12
+(`-Xptxas -v` in the build log) and the SASS instructions of each and of
+K14 (`cuobjdump -sass`, null without it), then K9 at n = 1, 2, 3, 9, 16, 32, K10
+without and with the doubling, K11 and K12 on 16384 rows, and K7 on
+[2, 16384] at k = 6 and at the longest k of the calls one default batch
+makes (`Kernel.calls`), each with t, each held bit for bit against its
+plain version (exit 1 otherwise) and timed as the mean ms of 40
+back-to-back launches between two CUDA events, queued behind a device
+sleep so that the host's issue time between launches does not count.
+With --walls N: N default 16384-round batches of the committed unchained
+fixture after two warm-up batches, each timed on the host clock up to
+its verdicts on the host.
 
 It imports drand_tpu_torch from the current directory, so two trees are
 compared on one card by running this file from each tree's root in turn
@@ -21,19 +26,30 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
+import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 ROUNDS = 16384
+# the kernels whose registers, spill and code size are reported: the
+# split-step ones, then K14 for comparison
+KERNEL_NAMES = ("k_fp2_sqr_chain_mul", "k_g2_point_dbl", "k_g2_point_add",
+                "k_miller_iterILb0", "k_miller_iterILb1", "k_cyclo_sqr")
 FIXTURE = "aot/fixtures/bench_sigs_unchained_16384_d6a762f2_ff8a2cc7.npy"
 
 
 def _event_ms(fn, reps: int = 40) -> float:
+    """Mean device ms of `reps` back-to-back calls: a device sleep goes
+    first, so every launch is queued before the start event runs and the
+    host's issue time between launches does not count."""
     fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)           # ~25 ms at the boost clock
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -44,16 +60,44 @@ def _event_ms(fn, reps: int = 40) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _sass_sizes(lib: Path) -> dict | None:
+    """SASS instructions of each kernel in the built library
+    (`cuobjdump -sass`), or None where the toolkit has no cuobjdump."""
+    tool = Path("/usr/local/cuda/bin/cuobjdump")
+    if not tool.exists():
+        return None
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True, check=True).stdout
+    sizes, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            mangled = line.split("Function :")[1].strip()
+            name = next((k for k in KERNEL_NAMES if k in mangled), mangled)
+            sizes[name] = 0
+        elif name and re.search(r"/\*[0-9a-f]{4,}\*/ ", line):
+            sizes[name] += 1
+    return sizes
+
+
+def _verifier():
+    from drand_tpu_torch import fixtures as FX
+    from drand_tpu_torch import verify as V
+    _sk, pk = FX.fixture_keypair()
+    return (V.Verifier(pk, V.SHAPE_UNCHAINED), np.load(FIXTURE),
+            np.arange(1, ROUNDS + 1, dtype=np.uint64))
+
+
 def kernels(dev) -> dict:
     from drand_tpu_torch.ops import curve as C
     from drand_tpu_torch.ops import kernels as K
     from drand_tpu_torch.ops import pairing as PR
+    from drand_tpu_torch.ops import towers as TW
     from drand_tpu_torch.ops.field import FP
-    log = K.build()["log"].splitlines()
+    # the build's nvcc log, also when an earlier process built the library
+    log = (Path(K.build()["dir"]) / "nvcc.log").read_text().splitlines()
     ptxas = {}
-    names = ("k_g2_point_dbl", "k_miller_iterILb0", "k_miller_iterILb1")
     for i, line in enumerate(log):
-        for name in names:
+        for name in KERNEL_NAMES[:5]:
             if "Function properties" in line and name in line:
                 ptxas[name] = " ".join(x.strip() for x in log[i + 1:i + 3])
     rng = np.random.default_rng(1)
@@ -70,7 +114,30 @@ def kernels(dev) -> dict:
     Q = rows((ROUNDS, 2, 4))
     masks = torch.from_numpy(rng.integers(0, 2, size=(ROUNDS, 2),
                                           dtype=np.int32)).to(dev)
+    # the K7 chains one default batch runs
+    verifier, sigs, rounds = _verifier()
+    K.reset_launches()
+    verifier.verify_batch(rounds, sigs)
+    longest = max(k for _s, k, _t in K.KERNELS["fp2_sqr_chain_mul"].calls)
+    x, t = rows((2, ROUNDS)), rows((2, ROUNDS))
+    q = rows((6, ROUNDS))
+    q[:, :64] = p[:, :64]                        # P + P
+    q[4:, 64:72] = 0                             # P + infinity
     ms = {}
+    for k in sorted({6, longest}):
+        if not torch.equal(K.fp2_sqr_chain_mul(x, k, t, FP),
+                           TW._fp2_sqr_chain_mul_plain(x, k, t)):
+            sys.exit(f"fp2_sqr_chain_mul k={k}: kernel != plain")
+        ms[f"fp2_sqr_chain_mul k={k}"] = _event_ms(
+            lambda: K.fp2_sqr_chain_mul(x, k, t, FP))
+    for with_double in (False, True):
+        want = C.g2_pack(C._point_add_formula(
+            C.g2_unpack(p), C.g2_unpack(q), C.Fp2PlainOps, with_double))
+        if not torch.equal(K.g2_point_add(p, q, with_double, FP), want):
+            sys.exit(f"g2_point_add with_double={with_double}: "
+                     f"kernel != plain")
+        ms[f"g2_point_add with_double={with_double}"] = _event_ms(
+            lambda: K.g2_point_add(p, q, with_double, FP))
     for n in (1, 2, 3, 9, 16, 32):
         if not torch.equal(K.g2_point_dbl(p, FP, n),
                            C._g2_point_dbl_plain(p, n)):
@@ -84,16 +151,14 @@ def kernels(dev) -> dict:
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             sys.exit(f"{name}: kernel != plain")
         ms[name] = _event_ms(lambda: getattr(K, name)(*args, FP))
-    return {"ptxas": ptxas, "ms": ms}
+    sass = _sass_sizes(Path(K.build()["dir"]) / K.LIB_NAME)
+    return {"ptxas": ptxas, "ms": ms,
+            "sass_instructions": sass and {k: sass[k] for k in KERNEL_NAMES
+                                           if k in sass}}
 
 
 def walls(n: int) -> list:
-    from drand_tpu_torch import fixtures as FX
-    from drand_tpu_torch import verify as V
-    _sk, pk = FX.fixture_keypair()
-    verifier = V.Verifier(pk, V.SHAPE_UNCHAINED)
-    sigs = np.load(FIXTURE)
-    rounds = np.arange(1, ROUNDS + 1, dtype=np.uint64)
+    verifier, sigs, rounds = _verifier()
     out = []
     for i in range(n + 2):
         torch.cuda.synchronize()

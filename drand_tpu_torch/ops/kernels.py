@@ -151,7 +151,9 @@ _ARGTYPES = {
     "dt_add": [_P, _P, _P, _LL, _P, _P],
     "dt_sub": [_P, _P, _P, _LL, _P, _P],
     "dt_cyclo_sqr_attrs": [_P],
+    "dt_fp2_sqr_chain_mul_attrs": [_P],
     "dt_g2_point_dbl_attrs": [_P],
+    "dt_g2_point_add_attrs": [_P],
     "dt_miller_dbl_iter_attrs": [_P],
     "dt_miller_add_iter_attrs": [_P],
 }
@@ -237,7 +239,8 @@ def kernel_attrs(name: str) -> dict:
     """What `cudaFuncGetAttributes` and
     `cudaOccupancyMaxActiveBlocksPerMultiprocessor` say of the kernel of
     `name` on the current device, for the kernels that export them
-    (g2_point_dbl, miller_dbl_iter, miller_add_iter, cyclo_sqr)."""
+    (fp2_sqr_chain_mul, g2_point_dbl, g2_point_add, miller_dbl_iter,
+    miller_add_iter, cyclo_sqr)."""
     lib = _lib()
     out = np.zeros(5, dtype=np.int32)
     rc = getattr(lib, KERNELS[name].symbol + "_attrs")(out.ctypes.data)

@@ -121,24 +121,35 @@ class Verifier:
         uint8 for the chained scheme.  Returns bool[B]."""
         return self.verify_batch_async(rounds, sigs, prev_sigs)()
 
-    def verify_chain_segment(self, start_round: int, sigs: np.ndarray,
-                             anchor_prev_sig: np.ndarray) -> np.ndarray:
-        """Verify a contiguous chained segment [start_round, start_round+B):
-        the previous signature of element i is sigs[i-1], of element 0 the
-        anchor.  The anchor may have another length than a signature
-        (round 1 links to the 32-byte genesis seed): that first element's
-        message is sha256(anchor || be64(start_round)), of another length
-        than the rest, so it goes alone, one row in a bucket of its own on
-        the verifier's device, and the rest batches against sigs[0]."""
+    def verify_chain_segment_async(self, start_round: int, sigs: np.ndarray,
+                                   anchor_prev_sig: np.ndarray):
+        """Queue the verify of a contiguous chained segment [start_round,
+        start_round+B) without waiting for the device: the previous
+        signature of element i is sigs[i-1], of element 0 the anchor.
+        Returns a zero-arg callable that waits and yields bool[B]; every
+        batch of the segment is issued when this returns.
+
+        The anchor may have another length than a signature (round 1
+        links to the 32-byte genesis seed): that first element's message
+        is sha256(anchor || be64(start_round)), of another length than
+        the rest, so it goes alone, one row in a bucket of its own on the
+        verifier's device, and the rest batches against sigs[0]; both
+        batches are issued before either is resolved."""
         sigs = np.asarray(sigs, dtype=np.uint8)
         anchor = np.asarray(anchor_prev_sig, dtype=np.uint8)
         n = sigs.shape[0]
         if n == 0:
-            return np.zeros(0, dtype=bool)
+            return lambda: np.zeros(0, dtype=bool)
         rounds = np.arange(start_round, start_round + n, dtype=np.uint64)
         if anchor.shape[0] == sigs.shape[1]:
             prev = np.concatenate([anchor[None], sigs[:-1]], 0)
-            return self.verify_batch(rounds, sigs, prev)
+            return self.verify_batch_async(rounds, sigs, prev)
         first = self.verify_batch_async(rounds[:1], sigs[:1], anchor[None])
         rest = self.verify_batch_async(rounds[1:], sigs[1:], sigs[:-1])
-        return np.concatenate([first(), rest()])
+        return lambda: np.concatenate([first(), rest()])
+
+    def verify_chain_segment(self, start_round: int, sigs: np.ndarray,
+                             anchor_prev_sig: np.ndarray) -> np.ndarray:
+        """The blocking form of `verify_chain_segment_async`: bool[B]."""
+        return self.verify_chain_segment_async(start_round, sigs,
+                                               anchor_prev_sig)()

@@ -152,6 +152,29 @@ def test_chained_segment_on_card(cuda):
     assert ok.all()
 
 
+def test_chained_segment_async_on_card(cuda):
+    """Two segments queued, then resolved in reverse order: rounds 1-65
+    from the genesis seed (round 1 alone in a bucket of its own) and
+    rounds 20-26 with round 22's signature flipped; each equals the
+    blocking form."""
+    from drand_tpu_torch import fixtures as FX
+    from drand_tpu_torch import verify as V
+    _, pk = FX.fixture_keypair()
+    sigs, _, seed = FX.load_chained_fixture()
+    seed = np.frombuffer(seed, np.uint8)
+    ver = V.Verifier(pk, V.SHAPE_CHAINED)
+    bad = sigs[19:26].copy()
+    bad[2, 40] ^= 0x01
+    first = ver.verify_chain_segment_async(1, sigs, seed)
+    second = ver.verify_chain_segment_async(20, bad, sigs[18])
+    ok2, ok1 = second(), first()
+    assert ok1.shape == (65,) and ok1.all()
+    assert ok2.tolist() == [True, True, False, False, True, True, True]
+    np.testing.assert_array_equal(ok1, ver.verify_chain_segment(1, sigs, seed))
+    np.testing.assert_array_equal(
+        ok2, ver.verify_chain_segment(20, bad, sigs[18]))
+
+
 @pytest.mark.parametrize("k", [1, 5, 13])
 def test_fp2_chain_kernels_match_plain_versions_on_card(cuda, k):
     from drand_tpu_torch.ops import kernels as K

@@ -12,10 +12,11 @@ at the edge of its input contract; K5/K6 (`towers._fp2_*_plain`) on
 random values plus 0, 1 and p-1; K13 (`flat12._flat_mul_plain`) dense and
 sparse, with the all-(p-1) stored-coefficient operand; K14
 (`flat12._flat_cyclo_sqr_plain`) on random canonical rows, not only
-unitary ones; K7/K8 (`towers._fp2_sqr_chain_mul_plain`); K9/K10 (the
-`ops/curve.py` formulas under `Fp2PlainOps`) on random coordinates with
-the doubling, cancelling and infinite cases among them, K9 also as its
-chain of n doublings split into level shares; K11/K12
+unitary ones; K7/K8 (`towers._fp2_sqr_chain_mul_plain`), K7 as its two
+lanes; K9/K10 (the `ops/curve.py` formulas under `Fp2PlainOps`) on random
+coordinates with the doubling, cancelling and infinite cases among them,
+K9 as its chain of n doublings and K10 as its addition, each split into
+level shares; K11/K12
 (`pairing._miller_*_iter_plain`), their steps split into shares, with
 active and inactive pairs, and against f^2 (or f) times the two lines
 one after the other;
@@ -65,12 +66,12 @@ def host_lib(tmp_path_factory):
     lib.dth_fp2_sqrs.argtypes = [P_, P_, LL, I, P_]
     lib.dth_flat_mul.argtypes = [P_, P_, P_, LL, P_, I, P_]
     lib.dth_cyclo_sqr.argtypes = [P_, P_, LL, I, I, P_]
-    lib.dth_fp2_sqr_chain_mul.argtypes = [P_, P_, P_, LL, I, P_]
+    lib.dth_fp2_sqr_chain_mul.argtypes = [P_, P_, P_, LL, I, I, P_]
     lib.dth_fp2_sqr5_mul.argtypes = [P_, P_, P_, LL, P_]
     lib.dth_flat_conj.argtypes = [P_, P_, LL, P_]
     lib.dth_flat_frob.argtypes = [P_, P_, LL, P_, P_]
     lib.dth_g2_point_dbl.argtypes = [P_, P_, LL, I, I, P_]
-    lib.dth_g2_point_add.argtypes = [P_, P_, P_, LL, I, P_, P_]
+    lib.dth_g2_point_add.argtypes = [P_, P_, P_, LL, I, I, P_, P_]
     lib.dth_miller_dbl_iter.argtypes = [P_] * 6 + [LL, I, P_, P_]
     lib.dth_miller_add_iter.argtypes = [P_] * 7 + [LL, I, P_, P_]
     lib.dth_flat_sqr.argtypes = [P_, P_, LL, P_]
@@ -242,22 +243,46 @@ def test_cyclo_sqr(host_lib, k):
 
 @pytest.mark.parametrize("k", [0, 1, 5, 13])
 def test_fp2_sqr_chain_mul(host_lib, k):
-    """K7 with and without t (x^(2^k) * t, x^(2^k)); K8 = K7 at k = 5."""
+    """K7 with and without t (x^(2^k) * t, x^(2^k)), its lanes in the
+    kernel's order and in reverse; K8 = K7 at k = 5."""
     x = _fp_rows((2, 9), seed=20)
     t = np.ascontiguousarray(_fp_rows((2, 9), seed=21)[:, ::-1])
     out = np.empty_like(x)
     for tt in ((None, t) if k else (t,)):
-        host_lib.dth_fp2_sqr_chain_mul(
-            _ptr(x), None if tt is None else _ptr(tt), _ptr(out), 9, k,
-            _ptr(FP.kernel_arg))
         want = T._fp2_sqr_chain_mul_plain(
             torch.as_tensor(x), k, None if tt is None else torch.as_tensor(tt))
-        np.testing.assert_array_equal(out, want.numpy())
+        for reverse in (0, 1):
+            host_lib.dth_fp2_sqr_chain_mul(
+                _ptr(x), None if tt is None else _ptr(tt), _ptr(out), 9, k,
+                reverse, _ptr(FP.kernel_arg))
+            np.testing.assert_array_equal(out, want.numpy())
     if k == 5:
         host_lib.dth_fp2_sqr5_mul(_ptr(x), _ptr(t), _ptr(out), 9,
                                   _ptr(FP.kernel_arg))
         np.testing.assert_array_equal(out, T._fp2_sqr_chain_mul_plain(
             torch.as_tensor(x), 5, torch.as_tensor(t)).numpy())
+
+
+@pytest.mark.parametrize("reverse", [0, 1])
+@pytest.mark.parametrize("k", [1, 2, 5, 6, 13, 63])
+def test_fp2_sqr_chain_lanes(host_lib, k, reverse):
+    """K7's two-lane chain (half h of each square and of the product on
+    lane h, the halves swapped after each square) at the chain lengths of
+    the path's addition chains and at k = 63, with and without t, its
+    lanes in the kernel's order and in reverse (a lane that read the
+    half its partner writes in the same step would fail), on 0, 1, p-1
+    and random coordinates, against the plain chain."""
+    x = _fp_rows((2, 12), seed=60 + k)
+    x[:, 3] = x[:, 4]                     # a = b
+    t = np.ascontiguousarray(_fp_rows((2, 12), seed=61 + k)[:, ::-1])
+    out = np.empty_like(x)
+    for tt in (None, t):
+        host_lib.dth_fp2_sqr_chain_mul(
+            _ptr(x), None if tt is None else _ptr(tt), _ptr(out), 12, k,
+            reverse, _ptr(FP.kernel_arg))
+        want = T._fp2_sqr_chain_mul_plain(
+            torch.as_tensor(x), k, None if tt is None else torch.as_tensor(tt))
+        np.testing.assert_array_equal(out, want.numpy())
 
 
 @pytest.mark.parametrize("n", [1, 2, 3])
@@ -312,12 +337,38 @@ def test_g2_point_dbl_and_add(host_lib):
     np.testing.assert_array_equal(out, C.g2_pack(want).numpy())
     for with_double in (False, True):
         host_lib.dth_g2_point_add(_ptr(p1), _ptr(p2), _ptr(out), rows,
-                                  int(with_double), _ptr(FP.kernel_one),
+                                  int(with_double), 0, _ptr(FP.kernel_one),
                                   _ptr(FP.kernel_arg))
         want = C._point_add_formula(C.g2_unpack(torch.as_tensor(p1)),
                                     C.g2_unpack(torch.as_tensor(p2)),
                                     C.Fp2PlainOps, with_double)
         np.testing.assert_array_equal(out, C.g2_pack(want).numpy())
+
+
+@pytest.mark.parametrize("seed", [46, 47])
+@pytest.mark.parametrize("reverse", [0, 1])
+@pytest.mark.parametrize("with_double", [False, True])
+def test_g2_point_add_shares(host_lib, with_double, reverse, seed):
+    """K10's level shares, in the kernel's order and in reverse (a share
+    that read what another share of its level writes would fail), with
+    and without the doubling, on the _g2_cases rows (P1 = P2, P2 = -P1,
+    the same point under another Z, either or both points infinite) and
+    on the pairs swapped, against the formula of ops/curve.py under
+    Fp2PlainOps."""
+    p1, p2 = _g2_cases(seed=seed)
+    rows = p1.shape[1]
+    out = np.empty_like(p1)
+    for a, b in ((p1, p2), (p2, p1)):
+        host_lib.dth_g2_point_add(_ptr(a), _ptr(b), _ptr(out), rows,
+                                  int(with_double), reverse,
+                                  _ptr(FP.kernel_one), _ptr(FP.kernel_arg))
+        want = C._point_add_formula(C.g2_unpack(torch.as_tensor(a)),
+                                    C.g2_unpack(torch.as_tensor(b)),
+                                    C.Fp2PlainOps, with_double)
+        np.testing.assert_array_equal(out, C.g2_pack(want).numpy())
+    # the row P1 = P2 doubles only with the doubling (without it h = 0,
+    # so Z = 0)
+    np.testing.assert_array_equal(out[4:, 6] == 0, not with_double)
 
 
 @pytest.mark.parametrize("reverse", [0, 1])
