@@ -9,7 +9,7 @@ Phases, each printing one JSON line:
   build   also each redesigned kernel's registers, local memory, shared
           memory and resident blocks per SM (cudaFuncGetAttributes and
           cudaOccupancyMaxActiveBlocksPerMultiprocessor, on a line of its
-          own): K7, K9, K10, K11, K12, K14
+          own): K5, K7, K13 (its dense instance), K9, K10, K11, K12, K14
   slice   drand_tpu_torch.verify.Verifier (drand_tpu's merged Miller
           executor) on the committed 16384-round pedersen-bls-unchained
           segment (all true; one flipped byte gives exactly one false;
@@ -48,8 +48,12 @@ fp2_products).
           cases: 16384 rows for Fp and Fr (sqr_chain_mul also at k = 1, 4,
           5, 9, 63 with and without t; mont_reduce also at the stacks
           [2, 16384, 64] and [16, 2, 16384, 64] the composite products
-          gave it), fp2_products and fp2_sqrs at n = 9, flat_mul dense and
-          sparse on all-(p-1) coefficients, cyclo_sqr on unitary rows
+          gave it), fp2_products and fp2_sqrs at n = 9, fp2_products
+          also at n = 1-5 on 16384 and on a ragged 100 rows, flat_mul
+          dense and sparse on all-(p-1) coefficients, and on 16384, 100
+          and 8 rows with all-(p-1) and zero operands on both sides of
+          every 32-row block edge (also on three other sparse layouts),
+          cyclo_sqr on unitary rows
           at k = 1 and 32 and on a ragged last block,
           fp2_sqr_chain_mul at k = 1, 5, 13 and 63 and, on a ragged 100
           rows, at every (k, t given) of the default batch,
@@ -66,12 +70,19 @@ fp2_products).
           zero rows; on random values plus 0, 1, m-1 (mont_reduce: wide
           values up to the top of its input contract, in limbs up to
           2^14 - 1); then the device time of kernel and plain version at
-          the path's most common call: the summed durations of the device
+          the path's most common call (flat_mul also at the trio path's):
+          the summed durations of the device
           kernels a call launches (torch.profiler), so host time between
           launches does not count (CUDA events behind a device sleep
           where the profiler saw none; each timing row names its timer)
 
-then a {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
+then a {"kernels": [...]} line, each kernel also with path_ms (its device
+ms in one more profiled batch of its path: the trio batch for flat_sqr,
+g2_dbl_line and g2_add_line, the default one for the others),
+bound_ms_batch (its bound summed over every call that path's batch made)
+and loss_ms (the difference), path_ms and loss_ms null where none of up
+to four profiled sessions saw every launch of the kernel, and, last,
+{"ok": true, "device": ...}.
 Any mismatch or error exits non-zero before the last line.  It imports
 nothing of JAX or drand_tpu.  Details go to chiprun_out/chip_smoke.json.
 """
@@ -83,6 +94,7 @@ import json
 import math
 import os
 import random
+import re
 import subprocess
 import sys
 import time
@@ -135,13 +147,18 @@ def muladds_fp2(sqrs: int, muls: int, fp_muls: int) -> int:
 
 
 def muladds_flat(b_idx, a_idx=tuple(range(12))) -> int:
-    """A flat Fp12 product of a on the w-powers a_idx by b on b_idx, one
-    REDC per power the product reaches (K13's work; K20's with both on
-    LINE_IDX)."""
+    """A flat Fp12 product of a on the w-powers a_idx by b on b_idx as
+    schoolbook, one REDC per power the product reaches (K13's work on a
+    sparse b; K20's with both on LINE_IDX)."""
     coeffs = len({i + j for i in a_idx for j in b_idx})
     return len(a_idx) * len(b_idx) * MULADDS_WIDE + coeffs * MULADDS_REDC
 
 
+# K13 dense: the least the function needs of one Karatsuba level on the
+# w^6 split, 108 products and 23 REDCs (P0, P1 and the middle product
+# combined wide before reducing; the schoolbook takes 144 and 23, the
+# kernel's phases 108 and 33)
+MULADDS_FLAT_KARATSUBA = 108 * MULADDS_WIDE + 23 * MULADDS_REDC
 # K17: 66 general and 12 triangular products, 23 REDCs
 MULADDS_FLAT_SQR = 66 * MULADDS_WIDE + 12 * MULADDS_TRI + 23 * MULADDS_REDC
 MULADDS_LINE_MERGE = muladds_flat(LINE_IDX, LINE_IDX)
@@ -259,7 +276,9 @@ def work(name: str, call: tuple):
         return 512 * items, MULADDS_FP2_SQR * items
     if name == "flat_mul":
         rows, b_idx = math.prod(call[0][:-2]), call[1]
-        return (24 + len(b_idx)) * 128 * rows, muladds_flat(b_idx) * rows
+        ops = (MULADDS_FLAT_KARATSUBA if tuple(b_idx) == tuple(range(12))
+               else muladds_flat(b_idx))
+        return (24 + len(b_idx)) * 128 * rows, ops * rows
     if name == "cyclo_sqr":
         (shape, k), rows = call, math.prod(call[0][:-2])
         return 24 * 128 * rows, k * 9 * MULADDS_FP2_SQR * rows
@@ -279,6 +298,49 @@ def bound_ms(nbytes: float, muladds: float):
     t_bytes, t_ops = nbytes / PEAK_BYTES, muladds / PEAK_MULADDS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def kernel_of(device_name: str):
+    """The port's kernel (a key of ops/kernels.py KERNELS) that a device
+    kernel of a profile is, from its demangled name, or None for torch's
+    own.  K11/K12, K18/K19 and K21/K22 are the two instances of one
+    template; K7 and K8 share one kernel (K8 has no caller on a path)."""
+    m = re.search(r"::k_(\w+)(?:<([^>]*)>)?\(", device_name)
+    if not m:
+        return None
+    base, arg = m.groups()
+    pairs = {"miller_iter": ("miller_dbl_iter", "miller_add_iter"),
+             "g2_line_step": ("g2_dbl_line", "g2_add_line"),
+             "add_sub": ("add", "sub")}
+    if base in pairs:
+        return pairs[base][arg == "true"]
+    return base
+
+
+def profile_kernels(fn, want: dict, tries: int = 4):
+    """(kernels, complete): (name, seconds) of every device kernel that
+    fn() launches (torch.profiler), and the set of the port's kernels
+    whose every launch the session saw, `want` holding the launches fn()
+    makes of each.  A session now and then loses events, so one is taken
+    again while any kernel falls short, up to `tries`; the session with
+    the most complete kernels, then the most events, counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from drand_tpu_torch.profiling import device_kernels
+    best, complete = [], set()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kern = device_kernels(prof)
+        seen = collections.Counter(kernel_of(name) for name, _ in kern)
+        full = {name for name, n in want.items() if seen[name] == n}
+        if (len(full), len(kern)) > (len(complete), len(best)):
+            best, complete = kern, full
+        if len(complete) == len(want):
+            break
+    return best, complete
 
 
 def main() -> int:
@@ -326,8 +388,9 @@ def main() -> int:
     emit(report["build"])
     report["occupancy"] = {"phase": "occupancy", **{
         name: K.kernel_attrs(name)
-        for name in ("fp2_sqr_chain_mul", "g2_point_dbl", "g2_point_add",
-                     "miller_dbl_iter", "miller_add_iter", "cyclo_sqr")}}
+        for name in ("fp2_products", "fp2_sqr_chain_mul", "flat_mul",
+                     "g2_point_dbl", "g2_point_add", "miller_dbl_iter",
+                     "miller_add_iter", "cyclo_sqr")}}
     emit(report["occupancy"])
 
     def pairing_rows(k_pairs: int, n: int):
@@ -460,13 +523,9 @@ def main() -> int:
              f"flipped row {bool(ok_bad[flip_at])}")
 
     # every device kernel of one more default batch, torch's own included
-    from torch.profiler import ProfilerActivity, profile
-
-    from drand_tpu_torch.profiling import device_kernels
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        verifier.verify_batch(rounds, sigs)
-        torch.cuda.synchronize()
-    batch_kernels = device_kernels(prof)
+    batch_kernels, batch_complete = profile_kernels(
+        lambda: verifier.verify_batch(rounds, sigs),
+        {name: launches[name] for name in K.KERNELS if name not in TRIO})
 
     chained = V.Verifier(pk, V.SHAPE_CHAINED)
     ok_c, t_chain, chain_launches, chain_calls, n_conv = drive(
@@ -484,6 +543,8 @@ def main() -> int:
         "launches": launches,
         "batch_device_kernels": len(batch_kernels),
         "batch_busy_s": sum(d for _, d in batch_kernels),
+        "batch_profile_short": sorted(set(K.KERNELS) - set(TRIO)
+                                      - batch_complete),
         "off_path": {"mont_reduce": "0 launches: the composite products "
                                     "that reduced through it are K5, K6, "
                                     "K13, K14",
@@ -519,6 +580,10 @@ def main() -> int:
     if not np.array_equal(ok_t_bad, ok_bad):
         fail("trio executor: the flipped batch's verdicts differ from the "
              "default's")
+    # the trio kernels' device time in one more trio batch
+    trio_kernels, trio_complete = profile_kernels(
+        lambda: trio_batch_async(verifier, rounds, sigs)(),
+        {name: trio_launches[name] for name in TRIO})
 
     golden = {}
     pairing_calls = {name: collections.Counter() for name in K.KERNELS}
@@ -544,6 +609,9 @@ def main() -> int:
         "flipped_verdicts_equal_default": True,
         "batch_wall_s": t_trio, "flipped_batch_wall_s": t_trio_bad,
         "launches": trio_launches,
+        "batch_device_kernels": len(trio_kernels),
+        "batch_busy_s": sum(d for _, d in trio_kernels),
+        "batch_profile_short": sorted(set(TRIO) - trio_complete),
         "pairing_checks": golden,
         "calls": {name: sorted(c.items()) for name, c in trio_calls.items()},
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
@@ -642,6 +710,21 @@ def main() -> int:
         p2[4:, by[5]] = 0
         return p1, p2
 
+    def flat_edges(a, b):
+        """In the six rows on both sides of every 32-row block edge of K13
+        (the first six rows when there is none), in turn: a and b all p - 1,
+        a all p - 1, b all p - 1, a zero, b zero, both zero; in place."""
+        rows = a.shape[0]
+        at = [r for e in range(32, rows, 32) for r in range(e - 3, e + 3)
+              if r < rows] or list(range(min(rows, 6)))
+        by = [torch.tensor(at[c::6], device=dev) for c in range(6)]
+        a[by[0]], b[by[0]] = max_flat(a[by[0]].shape), max_flat(b[by[0]].shape)
+        a[by[1]] = max_flat(a[by[1]].shape)
+        b[by[2]] = max_flat(b[by[2]].shape)
+        a[by[3]] = 0
+        b[by[4]] = 0
+        a[by[5]], b[by[5]] = 0, 0
+
     def miller_state(shape, add):
         """f, T (Z = 1 in the first rows, as at the loop's start), (Q,) P
         and masks with every active/inactive combination."""
@@ -720,7 +803,10 @@ def main() -> int:
             bshape = shape[:-2] + (len(b_idx), 32)
             if kind == "max":
                 return max_flat(shape), max_flat(bshape)
-            return field_rows(FP, shape), field_rows(FP, bshape)
+            a, b = field_rows(FP, shape), field_rows(FP, bshape)
+            if kind == "edges":
+                flat_edges(a, b)
+            return a, b
         if name == "cyclo_sqr":
             return (unitary_rows(call[0]) if kind == "unitary"
                     else field_rows(FP, call[0]),)
@@ -829,9 +915,16 @@ def main() -> int:
     for stack in ((2, BATCH, 64), (16, 2, BATCH, 64)):
         cases["mont_reduce"].add((("fp", stack), "random"))
     cases["fp2_products"].add((((BATCH, 32), 9), "random"))
+    for n in range(1, 6):
+        for rows_ in (BATCH, 100):
+            cases["fp2_products"].add((((rows_, 32), n), "random"))
     cases["fp2_sqrs"].add((((BATCH, 32), 9), "random"))
     for b_idx in (tuple(range(12)), LINE_IDX):
         cases["flat_mul"].add(((flat12, b_idx), "max"))
+        for rows_ in (BATCH, 100, 8):
+            cases["flat_mul"].add((((rows_, 12, 32), b_idx), "edges"))
+    for b_idx in ((1, 4, 11), (11,), (0, 5, 6, 11)):     # other layouts
+        cases["flat_mul"].add((((100, 12, 32), b_idx), "edges"))
     for k in (1, 32):
         cases["cyclo_sqr"].add(((flat12, k), "random"))
         cases["cyclo_sqr"].add(((flat12, k), "unitary"))
@@ -919,7 +1012,9 @@ def main() -> int:
         ("fp2_sqr_chain_mul", longest_fp2),
         ("fp2_sqr_chain_mul", (fp2_rows, 63, True)),
         ("sqr_chain_mul", ("fp", flat32, 63, True)),
-        ("flat_mul", most_common("flat_mul", lambda c: len(c[1]) == 12))
+        ("flat_mul", most_common("flat_mul", lambda c: len(c[1]) == 12)),
+        ("flat_mul", max(sorted(trio_calls["flat_mul"], key=repr),
+                         key=trio_calls["flat_mul"].get))
     ] + [("g2_point_add", c) for c in other_add] + [
         (name, call) for name, calls in chains.items() for call in calls[1:]]
     timings, per_kernel = [], {}
@@ -932,6 +1027,7 @@ def main() -> int:
             lambda: run(name, call, args, False), 3)
         tm = {"kernel": name, "call": call,
               "launches": main_path_calls[name].get(call, 0),
+              "trio_launches": trio_calls[name].get(call, 0),
               "ms": ms, "plain_ms": plain_ms, "timers": [timer, plain_timer],
               "bound_ms": bms, "bound_by": by}
         timings.append(tm)
@@ -943,9 +1039,25 @@ def main() -> int:
                         "timings": timings}
     emit(report["parity"])
 
+    # each kernel's device ms in one batch of its path (the trio batch for
+    # the trio kernels, the default one for the others), its bound summed
+    # over the calls that batch made, and the difference, its loss; null
+    # where no profiled session saw every launch of the kernel
+    path_ms = collections.Counter()
+    complete = batch_complete | trio_complete
+    for kern_list, on_path in ((batch_kernels, lambda n: n not in TRIO),
+                               (trio_kernels, lambda n: n in TRIO)):
+        for dev_name, d in kern_list:
+            name = kernel_of(dev_name)
+            if name is not None and on_path(name):
+                path_ms[name] += d * 1e3
+    bound_batch = {name: sum(n * bound_ms(*work(name, call))[0]
+                             for call, n in main_path_calls[name].items())
+                   for name in K.KERNELS}
     kernels = []
     for name, kern in K.KERNELS.items():
         tm = per_kernel[name]
+        path = path_ms[name] if name in complete else None
         kernels.append({
             "name": name, "route": "cuda", "source": kern.source,
             "replaces": kern.replaces,
@@ -954,7 +1066,9 @@ def main() -> int:
                                if r["kernel"] == name),
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
-            "library_ms": None})
+            "library_ms": None, "path_ms": path,
+            "bound_ms_batch": bound_batch[name],
+            "loss_ms": None if path is None else path - bound_batch[name]})
     report["kernels"] = kernels
     report["parity_rows"] = rows
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

@@ -9,6 +9,62 @@
 
 #include "curve_arith.cuh"
 
+// The six classes of K13 in turn, on one row's words laid out with
+// stride 1 (the kernel stages them in shared memory with stride 32), as
+// K13's instance for a sparse b runs them.
+static void flat_mul_rows(const int32_t *a, const int32_t *b, int32_t *o,
+                          long long rows, const dt::FlatIdx &idx, int J,
+                          const dt::Mod &M) {
+  uint64_t wa[dt::FLAT * dt::N_WORDS], wb[dt::FLAT * dt::N_WORDS];
+  for (long long r = 0; r < rows; r++) {
+    for (int i = 0; i < dt::FLAT; i++)
+      dt::load_words(a + (r * dt::FLAT + i) * dt::N_LIMBS,
+                     wa + i * dt::N_WORDS);
+    for (int i = 0; i < J; i++)
+      dt::load_words(b + (r * J + i) * dt::N_LIMBS, wb + i * dt::N_WORDS);
+    int32_t *out = o + r * dt::FLAT * dt::N_LIMBS;
+    for (int j = 0; j < 6; j++) {
+      uint64_t lo[dt::N_WORDS], hi[dt::N_WORDS];
+      dt::flat_mul_slots(j, wa, wb, 1, idx, lo, hi, M);
+      dt::store_words(lo, out + j * dt::N_LIMBS);
+      dt::store_words(hi, out + (j + 6) * dt::N_LIMBS);
+    }
+  }
+}
+
+// K13's dense instance: each Karatsuba phase for the six classes in turn
+// (in reverse order when `reverse`), as its barriers order them.
+static void flat_kara_rows(const int32_t *a, const int32_t *b, int32_t *o,
+                           long long rows, int reverse, const dt::Mod &M) {
+  uint64_t wa[dt::FLAT * dt::N_WORDS], wb[dt::FLAT * dt::N_WORDS];
+  uint64_t lo[6][dt::N_WORDS], hi[6][dt::N_WORDS];
+  for (long long r = 0; r < rows; r++) {
+    for (int i = 0; i < dt::FLAT; i++) {
+      dt::load_words(a + (r * dt::FLAT + i) * dt::N_LIMBS,
+                     wa + i * dt::N_WORDS);
+      dt::load_words(b + (r * dt::FLAT + i) * dt::N_LIMBS,
+                     wb + i * dt::N_WORDS);
+    }
+    for (int j = 0; j < 6; j++)
+      for (int v = 0; v < dt::N_WORDS; v++) lo[j][v] = hi[j][v] = 0;
+    for (int s = 0; s < 6; s++) {
+      const int j = reverse ? 5 - s : s;
+      dt::flat_kara_phase(0, j, wa, wb, 1, lo[j], hi[j], M);
+    }
+    for (int s = 0; s < 6; s++)
+      dt::flat_kara_sums(reverse ? 5 - s : s, wa, wb, 1, M);
+    for (int s = 0; s < 6; s++) {
+      const int j = reverse ? 5 - s : s;
+      dt::flat_kara_phase(1, j, wa, wb, 1, lo[j], hi[j], M);
+    }
+    int32_t *out = o + r * dt::FLAT * dt::N_LIMBS;
+    for (int j = 0; j < 6; j++) {
+      dt::store_words(lo[j], out + j * dt::N_LIMBS);
+      dt::store_words(hi[j], out + (j + 6) * dt::N_LIMBS);
+    }
+  }
+}
+
 extern "C" {
 
 void dth_mont_mul(const int32_t *a, const int32_t *b, int32_t *o, long long n,
@@ -42,14 +98,24 @@ void dth_sqr_chain_mul(const int32_t *a, const int32_t *t, int32_t *o,
                             o + e * dt::N_LIMBS, k, M);
 }
 
+// K5: per pair-row its two lanes in turn (in reverse order when
+// `reverse`), lane h writing half h of the product (fp2_half).
 void dth_fp2_products(const int32_t *x, const int32_t *y, int32_t *o,
-                      long long rows, int n, const uint64_t *mod7) {
+                      long long rows, int n, int reverse,
+                      const uint64_t *mod7) {
   const dt::Mod M = dt::mod_from_words(mod7);
   for (long long p = 0; p < n; p++)
     for (long long r = 0; r < rows; r++) {
       const long long c0 = (2 * p * rows + r) * dt::N_LIMBS;
       const long long c1 = c0 + rows * dt::N_LIMBS;
-      dt::fp2_mul_limbs(x + c0, x + c1, y + c0, y + c1, o + c0, o + c1, M);
+      const dt::F2 a = dt::f2_load(x + c0, x + c1);
+      const dt::F2 b = dt::f2_load(y + c0, y + c1);
+      for (int l = 0; l < 2; l++) {
+        const int h = reverse ? 1 - l : l;
+        uint64_t half[dt::N_WORDS];
+        dt::fp2_half(h, a, b, half, M);
+        dt::store_words(half, o + (h ? c1 : c0));
+      }
     }
 }
 
@@ -64,28 +130,17 @@ void dth_fp2_sqrs(const int32_t *x, int32_t *o, long long rows, int n,
     }
 }
 
-// The six classes of K13 in turn, on one row's words laid out with
-// stride 1 (the kernel stages them in shared memory with stride 32).
+// K13 through the instance of b_idx (the dense one's phases in the
+// kernel's order of classes or, when `reverse`, reversed).
 void dth_flat_mul(const int32_t *a, const int32_t *b, int32_t *o,
-                  long long rows, const int *b_idx, int J,
+                  long long rows, const int *b_idx, int J, int reverse,
                   const uint64_t *mod7) {
   const dt::Mod M = dt::mod_from_words(mod7);
   const dt::FlatIdx idx = dt::flat_idx(b_idx, J);
-  uint64_t wa[dt::FLAT * dt::N_WORDS], wb[dt::FLAT * dt::N_WORDS];
-  for (long long r = 0; r < rows; r++) {
-    for (int i = 0; i < dt::FLAT; i++)
-      dt::load_words(a + (r * dt::FLAT + i) * dt::N_LIMBS,
-                     wa + i * dt::N_WORDS);
-    for (int i = 0; i < J; i++)
-      dt::load_words(b + (r * J + i) * dt::N_LIMBS, wb + i * dt::N_WORDS);
-    int32_t *out = o + r * dt::FLAT * dt::N_LIMBS;
-    for (int j = 0; j < 6; j++) {
-      uint64_t lo[dt::N_WORDS], hi[dt::N_WORDS];
-      dt::flat_mul_class(j, wa, wb, 1, idx, lo, hi, M);
-      dt::store_words(lo, out + j * dt::N_LIMBS);
-      dt::store_words(hi, out + (j + 6) * dt::N_LIMBS);
-    }
-  }
+  if (dt::flat_pattern(b_idx, J) == dt::FlatB::DENSE)
+    flat_kara_rows(a, b, o, rows, reverse, M);
+  else
+    flat_mul_rows(a, b, o, rows, idx, J, M);
 }
 
 // K17 and K20 the same way: the six classes in turn on one row's words.

@@ -2,8 +2,9 @@
 // 12-bit limbs, row-major, the layout of drand_tpu_torch/ops/field.py)
 // and shared memory (64-bit words in flat_load's layout: element e of
 // block row r, word v at [(e * 6 + v) * R + r]), for the kernels that keep
-// their rows on chip across phases: K11, K12 (miller_kernels.cu) and K14
-// (tower_kernels.cu).  Device code only.
+// their rows on chip across phases: K9-K12 (curve_kernels.cu,
+// miller_kernels.cu), K5, K13 and K14 (tower_kernels.cu).  Device code
+// only.
 //
 // A row of `width` elements is width * 128 contiguous bytes.  An element
 // is eight 16-byte chunks of four limbs, 48 bits each.  Eight
@@ -47,6 +48,43 @@ __device__ __forceinline__ void stage_in(const int32_t *__restrict__ src,
     const uint64_t xb = shfl64(x, base + ((pa + 1) & 7));
     if (p < N_WORDS) {
       const int sh = 64 * p - 48 * pa;    // 0, 16 or 32
+      dst[(e * N_WORDS + p) * R + r] = (xa >> sh) | (xb << (48 - sh));
+    }
+  }
+}
+
+// stage_in for a width W and T threads a block known at compile time
+// (R * W * 8 a multiple of T): a thread's chunks are all loaded before any
+// is converted, so their loads are in flight together, not one loop trip
+// after another (K5, K13: a short kernel or a single wave of blocks pays
+// its staging latency in full).
+template <int R, int T, int W>
+__device__ __forceinline__ void stage_in_all(const int32_t *__restrict__ src,
+                                             long long row0, long long rows,
+                                             uint64_t *dst) {
+  constexpr int N = R * W * 8 / T;
+  static_assert(N * T == R * W * 8, "a thread's share of the chunks");
+  const int lane = threadIdx.x & 31, p = lane & 7, base = lane & ~7;
+  const int pa = (4 * p) / 3;
+  uint64_t x[N];
+#pragma unroll
+  for (int i = 0; i < N; i++) {
+    const int g = (threadIdx.x + i * T) >> 3, r = g % R, e = g / R;
+    x[i] = 0;
+    if (row0 + r < rows) {
+      const int4 v = reinterpret_cast<const int4 *>(
+          src + ((row0 + r) * W + e) * N_LIMBS)[p];
+      x[i] = (uint64_t)(uint32_t)v.x | (uint64_t)(uint32_t)v.y << 12 |
+             (uint64_t)(uint32_t)v.z << 24 | (uint64_t)(uint32_t)v.w << 36;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < N; i++) {
+    const int g = (threadIdx.x + i * T) >> 3, r = g % R, e = g / R;
+    const uint64_t xa = shfl64(x[i], base + (pa & 7));
+    const uint64_t xb = shfl64(x[i], base + ((pa + 1) & 7));
+    if (p < N_WORDS) {
+      const int sh = 64 * p - 48 * pa;
       dst[(e * N_WORDS + p) * R + r] = (xa >> sh) | (xb << (48 - sh));
     }
   }

@@ -14,26 +14,41 @@
 //
 // K5 dt_fp2_products -- replaces PallasField.fp2_products
 //   (drand_tpu/ops/pallas_field.py:1062, body _fp2_products_kernel :984).
-//   n stacked Fp2 products, one thread per (pair, row): four 6x6-word
-//   products and two REDCs, 1776 multiply-adds on 768 bytes: bound by
-//   bytes.  x0 y0 - x1 y1 is taken in the wide domain and lifted by
-//   m * 2^384 when negative, so no offset constant is needed.
+//   n stacked Fp2 products: four 6x6-word products and two REDCs, 1776
+//   multiply-adds on 768 bytes a pair-row: bound by bytes.  Two threads a
+//   pair-row on neighbouring lanes, lane h computing half h with fp2_half
+//   (one REDC of a wide sum each: x0 y0 - x1 y1 lifted by m * 2^384 when
+//   negative, x0 y1 + x1 y0), so twice the warps of one thread a pair-row
+//   hide the latency of a half as long a chain.  A block of 32 pair-rows
+//   stages the pair's four coordinate planes and writes its two output
+//   planes coalesced (stage.cuh, 16-byte chunks through shared memory).
 // K6 dt_fp2_sqrs -- replaces PallasField.fp2_sqrs (:1029, body :1008).
 //   n stacked Fp2 squares, one thread per (item, row): two triangular
 //   squares, one cross product doubled and two REDCs, 1248 multiply-adds
 //   on 512 bytes: bound by bytes.
 // K13 dt_flat_mul -- replaces PallasField.flat_mul (:1125, body
 //   _flat_mul_kernel :971).  A flat Fp12 product, b dense or sparse on
-//   b_idx (one kernel; b_idx arrives as a small table by value).  144 word
-//   products and 23 REDCs a row when dense, ~48.6k multiply-adds on
-//   4.6 KB: bound by operations.  A row is 72 words of a and as many of b,
-//   too many for one thread's registers, so a block stages 32 rows of a
-//   and b in shared memory as words (structure of arrays: neighbouring
-//   threads read neighbouring words, no bank conflicts), and six threads
-//   share a row, thread j computing the four convolution coefficients
-//   k = j (mod 6) and output slots j and j + 6 -- every coefficient once,
-//   24 products per thread, and each warp on one j, so the loops do not
-//   diverge.
+//   b_idx: 144 word products and 23 REDCs a row when dense as schoolbook,
+//   ~48.6k multiply-adds on 4.6 KB, bound by operations.  One kernel, an
+//   instance a pattern of b's powers (tower_arith.cuh FlatB, chosen here
+//   from b_idx): dense (the final exponentiation) through one Karatsuba
+//   level on the w^6 split, 108 word products and 33 REDCs
+//   (flat_kara_phase); LINE_IDX (the trio Miller loop) and any other set
+//   through flat_mul_slots, each coefficient's products only.  A row is 72
+//   words of a and as many of b, too many for one thread's registers, so a
+//   block stages 32 rows of a and b (b at its own J coefficients, so a
+//   sparse b stays sparse) into shared memory as words, coalesced, every
+//   load of a thread in flight at once (stage.cuh stage_in_all; a b of
+//   another width than 12 or 6 through stage_in), in
+//   structure of arrays (neighbouring threads read neighbouring words, no
+//   bank conflicts).  Six threads share a row, thread j owning output
+//   slots j and j + 6, each warp on one j so the loops do not diverge; the
+//   slots go back through shared memory, coalesced.  Its time follows its
+//   code size: every loop over coefficients and products is kept rolled,
+//   one product body and one REDC in each instance (~4.7k SASS
+//   instructions dense where the unrolled loops took 8.7k).  At most 80
+//   registers a thread, four 192-thread blocks a SM: 16384 rows in one
+//   wave.
 // K14 dt_cyclo_sqr -- replaces PallasField.cyclo_sqr (:647, body
 //   _cyclo_sqr_kernel :581), in chain form: k Granger-Scott squares in one
 //   launch (drand_tpu launches one a square; the port's final
@@ -99,17 +114,45 @@ constexpr int THREADS = 128;
 constexpr int FLAT_ROWS = 32;                 // rows of a K13 block
 constexpr int FLAT_THREADS = 6 * FLAT_ROWS;   // six threads a row
 
-__global__ void k_fp2_products(const int32_t *__restrict__ x,
-                               const int32_t *__restrict__ y,
-                               int32_t *__restrict__ o, long long rows,
-                               int n, dt::Mod M) {
-  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (e >= rows * n) return;
-  const long long p = e / rows, r = e % rows;
-  // coordinate c of pair p, row r: ((2p + c) rows + r) * 32
-  const long long c0 = (2 * p * rows + r) * dt::N_LIMBS;
-  const long long c1 = c0 + rows * dt::N_LIMBS;
-  dt::fp2_mul_limbs(x + c0, x + c1, y + c0, y + c1, o + c0, o + c1, M);
+constexpr int F2P_ROWS = 32;                  // pair-rows of a K5 block
+constexpr int F2P_THREADS = 2 * F2P_ROWS;     // two threads a pair-row
+
+// K5: block b serves rows [row0, row0 + F2P_ROWS) of pair b / per_pair.
+// Coordinate c of pair p is the plane (2p + c) * rows * 32 of x, y and o.
+// The block stages the pair's four planes (x0, x1, y0, y1: elements 0-3
+// of flat_load's layout), lane h of a row computes half h of its product
+// (fp2_half: h = 0 the real part, 1 the imaginary one) and puts it in
+// element h, and the block writes elements 0 and 1 back as planes o0, o1.
+__global__ void __launch_bounds__(F2P_THREADS)
+    k_fp2_products(const int32_t *__restrict__ x,
+                   const int32_t *__restrict__ y, int32_t *__restrict__ o,
+                   long long rows, int per_pair, dt::Mod M) {
+  constexpr int R = F2P_ROWS;
+  __shared__ uint64_t s[4 * dt::N_WORDS * R];
+  const long long plane = rows * dt::N_LIMBS;
+  const long long at = 2 * (blockIdx.x / per_pair) * plane;
+  const long long row0 = (long long)(blockIdx.x % per_pair) * R;
+  for (int c = 0; c < 2; c++) {
+    dt::stage_in_all<R, F2P_THREADS, 1>(x + at + c * plane, row0, rows,
+                                        s + c * dt::N_WORDS * R);
+    dt::stage_in_all<R, F2P_THREADS, 1>(y + at + c * plane, row0, rows,
+                                        s + (2 + c) * dt::N_WORDS * R);
+  }
+  __syncthreads();
+  const int r = threadIdx.x / 2, h = threadIdx.x & 1;
+  dt::F2 a, b;
+  dt::flat_load(s + r, 0, R, a.x);
+  dt::flat_load(s + r, 1, R, a.y);
+  dt::flat_load(s + r, 2, R, b.x);
+  dt::flat_load(s + r, 3, R, b.y);
+  uint64_t half[dt::N_WORDS];
+  dt::fp2_half(h, a, b, half, M);
+  __syncthreads();                             // every lane has its operands
+  dt::flat_store(half, s + r, h, R);
+  __syncthreads();
+  for (int c = 0; c < 2; c++)
+    dt::stage_out<R>(s + c * dt::N_WORDS * R, 1, row0, rows,
+                     o + at + c * plane);
 }
 
 __global__ void k_fp2_sqrs(const int32_t *__restrict__ x,
@@ -140,7 +183,13 @@ __device__ void stage_rows(const int32_t *__restrict__ x, int width,
   }
 }
 
-__global__ void __launch_bounds__(FLAT_THREADS)
+// K13, one instance a pattern of b's powers (tower_arith.cuh FlatB).
+// Four blocks a SM (so at most 80 registers a thread): 16384 rows, 512
+// blocks, in one wave on 132 SMs.  Rows past the end compute on zeros and
+// store nothing.  The dense instance's Karatsuba phases are one loop, so
+// its phase body is in the code once.
+template <dt::FlatB B>
+__global__ void __launch_bounds__(FLAT_THREADS, 4)
     k_flat_mul(const int32_t *__restrict__ a, const int32_t *__restrict__ b,
                int32_t *__restrict__ o, long long rows, int J,
                dt::FlatIdx idx, dt::Mod M) {
@@ -148,16 +197,35 @@ __global__ void __launch_bounds__(FLAT_THREADS)
   __shared__ uint64_t sa[dt::FLAT * dt::N_WORDS * FLAT_ROWS];
   __shared__ uint64_t sb[dt::FLAT * dt::N_WORDS * FLAT_ROWS];
   const long long row0 = (long long)blockIdx.x * FLAT_ROWS;
-  stage_rows(a, dt::FLAT, row0, rows, sa);
-  stage_rows(b, J, row0, rows, sb);
+  dt::stage_in_all<FLAT_ROWS, FLAT_THREADS, dt::FLAT>(a, row0, rows, sa);
+  if constexpr (B == dt::FlatB::DENSE)
+    dt::stage_in_all<FLAT_ROWS, FLAT_THREADS, dt::FLAT>(b, row0, rows, sb);
+  else if (J == 6)                             // the trio's lines
+    dt::stage_in_all<FLAT_ROWS, FLAT_THREADS, 6>(b, row0, rows, sb);
+  else
+    dt::stage_in<FLAT_ROWS>(b, J, row0, rows, sb);
   __syncthreads();
   const int j = threadIdx.x / FLAT_ROWS, r = threadIdx.x % FLAT_ROWS;
-  if (row0 + r >= rows) return;
-  uint64_t lo[dt::N_WORDS], hi[dt::N_WORDS];
-  dt::flat_mul_class(j, sa + r, sb + r, FLAT_ROWS, idx, lo, hi, M);
-  int32_t *out = o + (row0 + r) * dt::FLAT * dt::N_LIMBS;
-  dt::store_words(lo, out + j * dt::N_LIMBS);
-  dt::store_words(hi, out + (j + 6) * dt::N_LIMBS);
+  uint64_t lo[dt::N_WORDS] = {0, 0, 0, 0, 0, 0};
+  uint64_t hi[dt::N_WORDS] = {0, 0, 0, 0, 0, 0};
+  if constexpr (B == dt::FlatB::DENSE) {       // Karatsuba on the w^6 split
+#pragma unroll 1
+    for (int phase = 0; phase < 2; phase++) {  // one copy of the phase
+      dt::flat_kara_phase(phase, j, sa + r, sb + r, FLAT_ROWS, lo, hi, M);
+      if (phase == 0) {
+        __syncthreads();
+        dt::flat_kara_sums(j, sa + r, sb + r, FLAT_ROWS, M);
+        __syncthreads();
+      }
+    }
+  } else {
+    dt::flat_mul_slots(j, sa + r, sb + r, FLAT_ROWS, idx, lo, hi, M);
+  }
+  __syncthreads();                             // every thread done with sa
+  dt::flat_store(lo, sa + r, j, FLAT_ROWS);
+  dt::flat_store(hi, sa + r, j + 6, FLAT_ROWS);
+  __syncthreads();
+  dt::stage_out<FLAT_ROWS>(sa, dt::FLAT, row0, rows, o);
 }
 
 __global__ void __launch_bounds__(FLAT_THREADS)
@@ -291,6 +359,26 @@ unsigned blocks(long long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
 
+// A kernel's registers, local memory and shared memory a thread or block,
+// threads a block and resident blocks per SM on the current device:
+// out[0..4].
+template <typename Kern>
+int attrs(Kern kernel, int threads, int *out) {
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+  int per_sm = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, 0);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  out[2] = (int)fa.sharedSizeBytes;
+  out[3] = threads;
+  out[4] = per_sm;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -299,9 +387,9 @@ int dt_fp2_products(const int32_t *x, const int32_t *y, int32_t *o,
                     long long rows, int n, const uint64_t *mod7,
                     void *stream) {
   if (rows <= 0 || n <= 0) return 0;
-  k_fp2_products<<<blocks(rows * n, THREADS), THREADS, 0,
-                   (cudaStream_t)stream>>>(x, y, o, rows, n,
-                                           dt::mod_from_words(mod7));
+  const unsigned per_pair = blocks(rows, F2P_ROWS);
+  k_fp2_products<<<n * per_pair, F2P_THREADS, 0, (cudaStream_t)stream>>>(
+      x, y, o, rows, (int)per_pair, dt::mod_from_words(mod7));
   return (int)cudaGetLastError();
 }
 
@@ -314,15 +402,22 @@ int dt_fp2_sqrs(const int32_t *x, int32_t *o, long long rows, int n,
   return (int)cudaGetLastError();
 }
 
-// b_idx: the J distinct w-powers (0..11) that b's rows hold, host memory.
+// b_idx: the J distinct w-powers (0..11) that b's rows hold, host memory;
+// they choose the kernel's instance (dt::flat_pattern).
 int dt_flat_mul(const int32_t *a, const int32_t *b, int32_t *o,
                 long long rows, const int *b_idx, int J,
                 const uint64_t *mod7, void *stream) {
   if (rows <= 0) return 0;
   const dt::FlatIdx idx = dt::flat_idx(b_idx, J);
-  k_flat_mul<<<blocks(rows, FLAT_ROWS), FLAT_THREADS, 0,
-               (cudaStream_t)stream>>>(a, b, o, rows, J, idx,
-                                       dt::mod_from_words(mod7));
+  const dt::Mod M = dt::mod_from_words(mod7);
+  const unsigned g = blocks(rows, FLAT_ROWS);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dt::flat_pattern(b_idx, J) == dt::FlatB::DENSE)
+    k_flat_mul<dt::FlatB::DENSE><<<g, FLAT_THREADS, 0, s>>>(a, b, o, rows, J,
+                                                            idx, M);
+  else
+    k_flat_mul<dt::FlatB::ANY><<<g, FLAT_THREADS, 0, s>>>(a, b, o, rows, J,
+                                                          idx, M);
   return (int)cudaGetLastError();
 }
 
@@ -354,22 +449,17 @@ int dt_cyclo_sqr(const int32_t *a, int32_t *o, long long rows, int k,
   return (int)cudaGetLastError();
 }
 
-// K14's registers, local memory and shared memory a thread or block,
-// threads a block and resident blocks per SM on the current device:
-// out[0..4].
 int dt_cyclo_sqr_attrs(int *out) {
-  cudaFuncAttributes fa;
-  cudaError_t e = cudaFuncGetAttributes(&fa, k_cyclo_sqr);
-  int per_sm = 0;
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k_cyclo_sqr,
-                                                      CY_THREADS, 0);
-  out[0] = fa.numRegs;
-  out[1] = (int)fa.localSizeBytes;
-  out[2] = (int)fa.sharedSizeBytes;
-  out[3] = CY_THREADS;
-  out[4] = per_sm;
-  return (int)e;
+  return attrs(k_cyclo_sqr, CY_THREADS, out);
+}
+
+// K13's dense instance, the final exponentiation's.
+int dt_flat_mul_attrs(int *out) {
+  return attrs(k_flat_mul<dt::FlatB::DENSE>, FLAT_THREADS, out);
+}
+
+int dt_fp2_products_attrs(int *out) {
+  return attrs(k_fp2_products, F2P_THREADS, out);
 }
 
 // t may be null: then x^(2^k).
@@ -388,21 +478,9 @@ int dt_fp2_sqr5_mul(const int32_t *x, const int32_t *t, int32_t *o,
   return dt_fp2_sqr_chain_mul(x, t, o, rows, 5, mod7, stream);
 }
 
-// K7's (and K8's) attributes, as dt_cyclo_sqr_attrs gives K14's.
+// K7's (and K8's).
 int dt_fp2_sqr_chain_mul_attrs(int *out) {
-  cudaFuncAttributes fa;
-  cudaError_t e = cudaFuncGetAttributes(&fa, k_fp2_sqr_chain_mul);
-  int per_sm = 0;
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, k_fp2_sqr_chain_mul, F2C_THREADS, 0);
-  if (e != cudaSuccess) return (int)e;
-  out[0] = fa.numRegs;
-  out[1] = (int)fa.localSizeBytes;
-  out[2] = (int)fa.sharedSizeBytes;
-  out[3] = F2C_THREADS;
-  out[4] = per_sm;
-  return 0;
+  return attrs(k_fp2_sqr_chain_mul, F2C_THREADS, out);
 }
 
 int dt_flat_conj(const int32_t *a, int32_t *o, long long rows,

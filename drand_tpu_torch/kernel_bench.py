@@ -2,15 +2,18 @@
 
     python -m drand_tpu_torch.kernel_bench [--walls N]
 
-Without --walls: the registers and spill of K7, K9, K10, K11 and K12
-(`-Xptxas -v` in the build log) and the SASS instructions of each and of
-K14 (`cuobjdump -sass`, null without it), then K9 at n = 1, 2, 3, 9, 16, 32, K10
-without and with the doubling, K11 and K12 on 16384 rows, and K7 on
-[2, 16384] at k = 6 and at the longest k of the calls one default batch
-makes (`Kernel.calls`), each with t, each held bit for bit against its
-plain version (exit 1 otherwise) and timed as the mean ms of 40
-back-to-back launches between two CUDA events, queued behind a device
-sleep so that the host's issue time between launches does not count.
+Without --walls: the registers, spill and shared memory of K5, K7, K9,
+K10, K11, K12, K13 (each instance) and K14 (`-Xptxas -v` in the build
+log) and the SASS instructions of each (`cuobjdump -sass`, null without
+it), then K5 on [1, 2, 2, 16384, 32] (n = 1, the path's most common
+call), K13 on 16384 rows dense and on LINE_IDX and on 4224 rows dense
+(one 32-row block a SM), K9 at n = 1, 2, 3, 9, 16, 32, K10 without and
+with the doubling, K11 and K12 on 16384 rows, and K7 on [2, 16384] at
+k = 6 and at the longest k of the calls one default batch makes
+(`Kernel.calls`), each with t, each held bit for bit against its plain
+version (exit 1 otherwise) and timed as the mean ms of 40 back-to-back
+launches between two CUDA events, queued behind a device sleep so that
+the host's issue time between launches does not count.
 With --walls N: N default 16384-round batches of the committed unchained
 fixture after two warm-up batches, each timed on the host clock up to
 its verdicts on the host.
@@ -36,10 +39,23 @@ import numpy as np
 import torch
 
 ROUNDS = 16384
-# the kernels whose registers, spill and code size are reported: the
-# split-step ones, then K14 for comparison
-KERNEL_NAMES = ("k_fp2_sqr_chain_mul", "k_g2_point_dbl", "k_g2_point_add",
-                "k_miller_iterILb0", "k_miller_iterILb1", "k_cyclo_sqr")
+# the kernels whose registers, spill and code size are reported, as their
+# names show in ptxas's and cuobjdump's output
+KERNEL_NAMES = ("k_fp2_products", "k_fp2_sqr_chain_mul", "k_flat_mul",
+                "k_g2_point_dbl", "k_g2_point_add", "k_miller_iterILb0",
+                "k_miller_iterILb1", "k_cyclo_sqr")
+
+
+def _kernel_name(mangled: str):
+    """The KERNEL_NAMES entry of a mangled kernel name (K13's instances
+    with their pattern of b), or None."""
+    name = next((k for k in KERNEL_NAMES if k in mangled), None)
+    m = re.search(r"FlatBE(\d)E", mangled)
+    if name == "k_flat_mul" and m:
+        name += ("<DENSE>", "<ANY>")[int(m.group(1))]
+    return name
+
+
 FIXTURE = "aot/fixtures/bench_sigs_unchained_16384_d6a762f2_ff8a2cc7.npy"
 
 
@@ -72,7 +88,7 @@ def _sass_sizes(lib: Path) -> dict | None:
     for line in out.splitlines():
         if "Function :" in line:
             mangled = line.split("Function :")[1].strip()
-            name = next((k for k in KERNEL_NAMES if k in mangled), mangled)
+            name = _kernel_name(mangled) or mangled
             sizes[name] = 0
         elif name and re.search(r"/\*[0-9a-f]{4,}\*/ ", line):
             sizes[name] += 1
@@ -89,6 +105,7 @@ def _verifier():
 
 def kernels(dev) -> dict:
     from drand_tpu_torch.ops import curve as C
+    from drand_tpu_torch.ops import flat12 as FL
     from drand_tpu_torch.ops import kernels as K
     from drand_tpu_torch.ops import pairing as PR
     from drand_tpu_torch.ops import towers as TW
@@ -97,9 +114,9 @@ def kernels(dev) -> dict:
     log = (Path(K.build()["dir"]) / "nvcc.log").read_text().splitlines()
     ptxas = {}
     for i, line in enumerate(log):
-        for name in KERNEL_NAMES[:5]:
-            if "Function properties" in line and name in line:
-                ptxas[name] = " ".join(x.strip() for x in log[i + 1:i + 3])
+        name = "Function properties" in line and _kernel_name(line)
+        if name:
+            ptxas[name] = " ".join(x.strip() for x in log[i + 1:i + 3])
     rng = np.random.default_rng(1)
 
     def rows(shape):
@@ -124,6 +141,25 @@ def kernels(dev) -> dict:
     q[:, :64] = p[:, :64]                        # P + P
     q[4:, 64:72] = 0                             # P + infinity
     ms = {}
+    # K5's most common call: one pair, coordinates [2, 16384, 32]
+    xs, ys = rows((1, 2, 2, ROUNDS)), rows((1, 2, 2, ROUNDS))
+    want = TW._fp2_stack(TW._fp2_products_plain(list(zip(
+        TW._fp2_unstack(xs), TW._fp2_unstack(ys)))))
+    if not torch.equal(K.fp2_products(xs, ys, FP), want):
+        sys.exit("fp2_products n=1: kernel != plain")
+    ms["fp2_products n=1"] = _event_ms(lambda: K.fp2_products(xs, ys, FP))
+    b_dense = rows((ROUNDS, 12))
+    for what, b_idx in (("dense", tuple(range(12))), ("line", FL.LINE_IDX)):
+        b = b_dense if what == "dense" else rows((ROUNDS, len(b_idx)))
+        if not torch.equal(K.flat_mul(f, b, b_idx, FP),
+                           FL._flat_mul_plain(f, b, b_idx)):
+            sys.exit(f"flat_mul {what}: kernel != plain")
+        ms[f"flat_mul {what}"] = _event_ms(
+            lambda: K.flat_mul(f, b, b_idx, FP))
+    # one 32-row block a SM: the latency of a block, against the full
+    # batch's four blocks a SM
+    ms["flat_mul dense 4224 rows"] = _event_ms(
+        lambda: K.flat_mul(f[:4224], b_dense[:4224], tuple(range(12)), FP))
     for k in sorted({6, longest}):
         if not torch.equal(K.fp2_sqr_chain_mul(x, k, t, FP),
                            TW._fp2_sqr_chain_mul_plain(x, k, t)):
@@ -153,8 +189,9 @@ def kernels(dev) -> dict:
         ms[name] = _event_ms(lambda: getattr(K, name)(*args, FP))
     sass = _sass_sizes(Path(K.build()["dir"]) / K.LIB_NAME)
     return {"ptxas": ptxas, "ms": ms,
-            "sass_instructions": sass and {k: sass[k] for k in KERNEL_NAMES
-                                           if k in sass}}
+            "sass_instructions": sass and {
+                k: n for k, n in sass.items()
+                if k.split("<")[0] in KERNEL_NAMES}}
 
 
 def walls(n: int) -> list:

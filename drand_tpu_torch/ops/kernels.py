@@ -151,6 +151,8 @@ _ARGTYPES = {
     "dt_add": [_P, _P, _P, _LL, _P, _P],
     "dt_sub": [_P, _P, _P, _LL, _P, _P],
     "dt_cyclo_sqr_attrs": [_P],
+    "dt_flat_mul_attrs": [_P],
+    "dt_fp2_products_attrs": [_P],
     "dt_fp2_sqr_chain_mul_attrs": [_P],
     "dt_g2_point_dbl_attrs": [_P],
     "dt_g2_point_add_attrs": [_P],
@@ -239,8 +241,9 @@ def kernel_attrs(name: str) -> dict:
     """What `cudaFuncGetAttributes` and
     `cudaOccupancyMaxActiveBlocksPerMultiprocessor` say of the kernel of
     `name` on the current device, for the kernels that export them
-    (fp2_sqr_chain_mul, g2_point_dbl, g2_point_add, miller_dbl_iter,
-    miller_add_iter, cyclo_sqr)."""
+    (fp2_products, fp2_sqr_chain_mul, flat_mul (its dense instance),
+    g2_point_dbl, g2_point_add, miller_dbl_iter, miller_add_iter,
+    cyclo_sqr)."""
     lib = _lib()
     out = np.zeros(5, dtype=np.int32)
     rc = getattr(lib, KERNELS[name].symbol + "_attrs")(out.ctypes.data)
@@ -394,7 +397,9 @@ def fp2_sqrs(x: torch.Tensor, field) -> torch.Tensor:
 def flat_mul(a: torch.Tensor, b: torch.Tensor, b_idx, field) -> torch.Tensor:
     """K13: flat Fp12 a*b.  a [..., 12, 32]; b [..., J, 32] holding the
     coefficients of the J distinct w-powers `b_idx` (all 12 when dense);
-    leading shapes broadcast.  Canonical in and out, [..., 12, 32]."""
+    leading shapes broadcast.  Canonical in and out, [..., 12, 32].  The
+    kernel's instance follows b_idx: 0..11 in order (dense), or any other
+    set."""
     b_idx = tuple(int(i) for i in b_idx)
     J = len(b_idx)
     if not (1 <= J <= 12 and len(set(b_idx)) == J

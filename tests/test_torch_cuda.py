@@ -57,37 +57,52 @@ def _max_flat_row():
     return torch.tensor([row] * 12, dtype=torch.int32)
 
 
-@pytest.mark.parametrize("n", [1, 4, 9])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 9])
 def test_fp2_kernels_match_plain_versions_on_card(cuda, n):
+    """K5 and K6 on n stacked pairs of 300 rows, and K5 also on 16384 and
+    a ragged 100 rows (32 pair-rows a block)."""
     from drand_tpu_torch.ops import kernels as K
     from drand_tpu_torch.ops import towers as T
     from drand_tpu_torch.ops.field import FP
     rng = np.random.default_rng(11)
-    x = _fp_rows(rng, (n, 2, 300)).to(cuda)
-    y = _fp_rows(rng, (n, 2, 300)).flip(2).contiguous().to(cuda)
-    got = K.fp2_products(x, y, FP)
-    want = T._fp2_products_plain(
-        list(zip(T._fp2_unstack(x), T._fp2_unstack(y))))
-    assert torch.equal(got, T._fp2_stack(want))
+    for rows in (16384, 100, 300):
+        x = _fp_rows(rng, (n, 2, rows)).to(cuda)
+        y = _fp_rows(rng, (n, 2, rows)).flip(2).contiguous().to(cuda)
+        got = K.fp2_products(x, y, FP)
+        want = T._fp2_products_plain(
+            list(zip(T._fp2_unstack(x), T._fp2_unstack(y))))
+        assert torch.equal(got, T._fp2_stack(want))
     got = K.fp2_sqrs(x, FP)
     assert torch.equal(got, T._fp2_stack(T._fp2_sqrs_plain(T._fp2_unstack(x))))
 
 
-@pytest.mark.parametrize("b_idx", [tuple(range(12)), (0, 2, 3, 6, 8, 9)])
+@pytest.mark.parametrize("b_idx", [tuple(range(12)), (0, 2, 3, 6, 8, 9),
+                                   (11,), (0, 5, 6, 11)])
 def test_flat_mul_kernel_matches_plain_version_on_card(cuda, b_idx):
+    """K13 (dense, on LINE_IDX and on other sparse layouts) on 100,
+    16384 and 8 rows, with the all-(p-1) operand on one side, the other or
+    both, and zero rows, in the rows on both sides of each 32-row block
+    edge."""
     from drand_tpu_torch.ops import flat12 as F
     from drand_tpu_torch.ops import kernels as K
     from drand_tpu_torch.ops.field import FP
     rng = np.random.default_rng(12)
-    a = _fp_rows(rng, (100, 12))
-    b = _fp_rows(rng, (100, len(b_idx)))
-    a[0] = _max_flat_row()
-    b[0] = _max_flat_row()[:len(b_idx)]
-    a, b = a.to(cuda), b.to(cuda)
-    assert torch.equal(K.flat_mul(a, b, b_idx, FP),
-                       F._flat_mul_plain(a, b, b_idx))
+    J = len(b_idx)
+    for rows in (100, 16384, 8):
+        a = _fp_rows(rng, (rows, 12))
+        b = _fp_rows(rng, (rows, J))
+        at = [r for e in range(32, rows, 32) for r in (e - 2, e - 1, e, e + 1)
+              if r < rows] or [0, 1, 2, 3]
+        a[at[0::4]] = _max_flat_row()
+        b[at[0::4]] = _max_flat_row()[:J]
+        a[at[1::4]] = _max_flat_row()
+        b[at[2::4]] = _max_flat_row()[:J]
+        a[at[3::4]] = 0
+        a, b = a.to(cuda), b.to(cuda)
+        assert torch.equal(K.flat_mul(a, b, b_idx, FP),
+                           F._flat_mul_plain(a, b, b_idx))
     # broadcast leading shapes, as the Miller loop's first square gives
-    one = F.flat_broadcast(F.FLAT_ONE, (100,), cuda)
+    one = F.flat_broadcast(F.FLAT_ONE, (b.shape[0],), cuda)
     assert torch.equal(K.flat_mul(one, b, b_idx, FP),
                        F._flat_mul_plain(one, b, b_idx))
 

@@ -9,8 +9,11 @@ with g++ into a temporary shared library (no CUDA, no torch headers) and
 holds every kernel's arithmetic against its plain PyTorch version bit for
 bit: K1-K4 (`Field._*_plain`) for Fp and Fr on random and edge inputs, K3
 at the edge of its input contract; K5/K6 (`towers._fp2_*_plain`) on
-random values plus 0, 1 and p-1; K13 (`flat12._flat_mul_plain`) dense and
-sparse, with the all-(p-1) stored-coefficient operand; K14
+random values plus 0, 1 and p-1, K5 as its two lanes; K13
+(`flat12._flat_mul_plain`) through each of its instances, dense (its
+Karatsuba phases in both orders, half sums wrapping past p) and sparse,
+with the all-(p-1) stored-coefficient operand and 0, 1, p-1 in every
+slot; K14
 (`flat12._flat_cyclo_sqr_plain`) on random canonical rows, not only
 unitary ones; K7/K8 (`towers._fp2_sqr_chain_mul_plain`), K7 as its two
 lanes; K9/K10 (the `ops/curve.py` formulas under `Fp2PlainOps`) on random
@@ -62,9 +65,9 @@ def host_lib(tmp_path_factory):
     lib.dth_mont_sqr.argtypes = [P_, P_, LL, P_]
     lib.dth_mont_reduce.argtypes = [P_, P_, LL, P_]
     lib.dth_sqr_chain_mul.argtypes = [P_, P_, P_, LL, I, P_]
-    lib.dth_fp2_products.argtypes = [P_, P_, P_, LL, I, P_]
+    lib.dth_fp2_products.argtypes = [P_, P_, P_, LL, I, I, P_]
     lib.dth_fp2_sqrs.argtypes = [P_, P_, LL, I, P_]
-    lib.dth_flat_mul.argtypes = [P_, P_, P_, LL, P_, I, P_]
+    lib.dth_flat_mul.argtypes = [P_, P_, P_, LL, P_, I, I, P_]
     lib.dth_cyclo_sqr.argtypes = [P_, P_, LL, I, I, P_]
     lib.dth_fp2_sqr_chain_mul.argtypes = [P_, P_, P_, LL, I, I, P_]
     lib.dth_fp2_sqr5_mul.argtypes = [P_, P_, P_, LL, P_]
@@ -186,7 +189,7 @@ def test_fp2_products_and_sqrs(host_lib, n):
     x = _fp_rows((n, 2, 7), seed=6)
     y = np.ascontiguousarray(_fp_rows((n, 2, 7), seed=7)[:, ::-1])
     out = np.empty_like(x)
-    host_lib.dth_fp2_products(_ptr(x), _ptr(y), _ptr(out), 7, n,
+    host_lib.dth_fp2_products(_ptr(x), _ptr(y), _ptr(out), 7, n, 0,
                               _ptr(FP.kernel_arg))
     want = T._fp2_products_plain(list(zip(_fp2_list(x), _fp2_list(y))))
     np.testing.assert_array_equal(out, T._fp2_stack(want).numpy())
@@ -202,24 +205,83 @@ def _max_flat():
     return np.tile(row, (12, 1))
 
 
-@pytest.mark.parametrize("b_idx", [tuple(range(12)), (0, 2, 3, 6, 8, 9),
-                                   (1, 4, 11)])
+@pytest.mark.parametrize("reverse", [0, 1])
+@pytest.mark.parametrize("n", [1, 2, 5])
+def test_fp2_products_lanes(host_lib, n, reverse):
+    """K5's two lanes a pair-row (half h of the product on lane h,
+    fp2_half), in the kernel's order and in reverse, on n pairs whose
+    coordinates hold 0, 1, p-1 against each other and random values,
+    against the plain products."""
+    rows = 11
+    x = _fp_rows((n, 2, rows), seed=70 + n)
+    y = np.ascontiguousarray(_fp_rows((n, 2, rows), seed=71 + n)[:, ::-1])
+    edge = FP.encode([0, 1, P - 1])
+    for r in range(9):                    # every pair of 0, 1, p-1
+        x[0, :, r] = edge[r // 3]
+        y[0, :, r] = edge[r % 3]
+    x[0, 1, 9], y[0, 0, 10] = edge[2], edge[1]
+    out = np.empty_like(x)
+    host_lib.dth_fp2_products(_ptr(x), _ptr(y), _ptr(out), rows, n, reverse,
+                              _ptr(FP.kernel_arg))
+    want = T._fp2_products_plain(list(zip(_fp2_list(x), _fp2_list(y))))
+    np.testing.assert_array_equal(out, T._fp2_stack(want).numpy())
+
+
+# b's powers: dense and LINE_IDX (the paths'), and other sparse sets
+FLAT_B_IDX = [tuple(range(12)), (0, 2, 3, 6, 8, 9), (1, 4, 11), (11,),
+              (0, 5, 6, 11)]
+
+
+@pytest.mark.parametrize("b_idx", FLAT_B_IDX)
 def test_flat_mul(host_lib, b_idx):
-    """K13 dense, on the Miller loop's sparse line layout, and on an odd
-    sparse layout; rows 0 and 1 hold the all-(p-1) operand on one and on
-    both sides."""
+    """K13 dense, on the Miller loop's sparse line layout, and on odd
+    sparse layouts: rows 0 and 1 hold the all-(p-1) operand on one and on
+    both sides; rows 2-10 one of 0, 1, p-1 in every slot of a and one in
+    every slot of b (all nine pairings), rows 11-16 slots cycling through
+    the three at two strides, so every slot meets every value on both
+    sides; the rest random."""
     J = len(b_idx)
-    a = _fp_rows((6, 12), seed=8)
-    b = _fp_rows((6, J), seed=9)
+    a = _fp_rows((21, 12), seed=8)
+    b = _fp_rows((21, J), seed=9)
     a[0] = a[1] = _max_flat()
     b[1] = _max_flat()[:J]
+    edge = FP.encode([0, 1, P - 1])
+    for r in range(9):
+        a[2 + r], b[2 + r] = edge[r // 3], edge[r % 3]
+    for r in range(6):
+        a[11 + r] = edge[(np.arange(12) + r) % 3]
+        b[11 + r] = edge[(2 * np.arange(J) + r // 2) % 3]
     out = np.empty_like(a)
     idx = np.asarray(b_idx, np.int32)
     host_lib.dth_flat_mul(_ptr(a), _ptr(b), _ptr(out), len(a), _ptr(idx), J,
-                          _ptr(FP.kernel_arg))
+                          0, _ptr(FP.kernel_arg))
     np.testing.assert_array_equal(
         out, F._flat_mul_plain(torch.as_tensor(a), torch.as_tensor(b),
                                b_idx).numpy())
+
+
+@pytest.mark.parametrize("reverse", [0, 1])
+def test_flat_mul_karatsuba(host_lib, reverse):
+    """K13's dense instance, one Karatsuba level on the w^6 split in three
+    phases (P0 and P1, the half sums in place, the middle product), each
+    phase's classes in the kernel's order and in reverse (a class that
+    read what another writes in its phase would fail), on random rows and
+    on rows whose half sums a_j + a_(j+6), b_j + b_(j+6) wrap past p or
+    land just below it, against the plain product."""
+    a = _fp_rows((10, 12), seed=80)
+    b = _fp_rows((10, 12), seed=81)
+    wrap = FP.encode([P - 1, 1, (P + 1) // 2, (P + 1) // 2, P - 1, P - 1,
+                      P - 2, 1])
+    for r, (lo, hi) in enumerate(((0, 1), (2, 3), (4, 5), (6, 7))):
+        a[r, :6], a[r, 6:] = wrap[lo], wrap[hi]       # sums p, p+1, 2p-2, p-1
+        b[r, :6], b[r, 6:] = wrap[hi], wrap[lo]
+    a[4], b[5] = _max_flat(), _max_flat()
+    out = np.empty_like(a)
+    idx = np.arange(12, dtype=np.int32)
+    host_lib.dth_flat_mul(_ptr(a), _ptr(b), _ptr(out), len(a), _ptr(idx), 12,
+                          reverse, _ptr(FP.kernel_arg))
+    np.testing.assert_array_equal(
+        out, F._flat_mul_plain(torch.as_tensor(a), torch.as_tensor(b)).numpy())
 
 
 @pytest.mark.parametrize("k", [1, 2, 3, 9, 16, 32])
@@ -455,7 +517,7 @@ def test_flat_sqr(host_lib):
     prod = np.empty_like(a)
     idx = np.arange(12, dtype=np.int32)
     host_lib.dth_flat_mul(_ptr(a), _ptr(a), _ptr(prod), len(a), _ptr(idx),
-                          12, _ptr(FP.kernel_arg))
+                          12, 0, _ptr(FP.kernel_arg))
     np.testing.assert_array_equal(out, prod)
 
 
