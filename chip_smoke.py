@@ -9,7 +9,8 @@ Phases, each printing one JSON line:
   build   also each redesigned kernel's registers, local memory, shared
           memory and resident blocks per SM (cudaFuncGetAttributes and
           cudaOccupancyMaxActiveBlocksPerMultiprocessor, on a line of its
-          own): K5, K7, K13 (its dense instance), K9, K10, K11, K12, K14
+          own): K1, K4, K5, K7, K13 (its dense instance), K9, K10, K11,
+          K12, K14
   slice   drand_tpu_torch.verify.Verifier (drand_tpu's merged Miller
           executor) on the committed 16384-round pedersen-bls-unchained
           segment (all true; one flipped byte gives exactly one false;
@@ -19,7 +20,9 @@ Phases, each printing one JSON line:
           K11 63 times) and on the
           committed pedersen-bls-chained segment from round 1 (rounds
           1-65 against the genesis seed, the irregular anchor: round 1 in
-          a bucket of its own), with the launches of every kernel during
+          a bucket of its own; K4 launched twice, one addition chain
+          for each of the batch's two Fermat inversions, and K1 22
+          times), with the launches of every kernel during
           the 16384-round batch, in total and by call (the key each
           wrapper in ops/kernels.py documents), and the calls of the
           chained run; then the device kernels one more such batch
@@ -35,18 +38,23 @@ Phases, each printing one JSON line:
 Each run of the slice and trio phases must launch every kernel of its
 path and no other, and never call the plain limb convolution
 `_poly_mul_var`: the default batch all but the trio kernels (flat_sqr,
-g2_dbl_line, g2_add_line) and those off every path (mont_reduce,
-fp2_sqr5_mul, line_merge, add, sub); the trio batch all but the merged
-iterations and those off every path; a pairing check the trio kernels,
-flat_mul, flat_conj, flat_frob, cyclo_sqr and the final
-exponentiation's inversion (mont_mul, mont_sqr, sqr_chain_mul,
-fp2_products).
+g2_dbl_line, g2_add_line) and those off every path (mont_sqr,
+mont_reduce, fp2_sqr5_mul, line_merge, add, sub); the trio batch all but
+the merged iterations and those off every path; a pairing check the trio
+kernels, flat_mul, flat_conj, flat_frob, cyclo_sqr and the final
+exponentiation's inversion (mont_mul, sqr_chain_mul, fp2_products).
 
   parity  every kernel against its plain PyTorch version on the card, bit
           for bit, at every call the batches above made (g2_point_dbl
           and cyclo_sqr at each of their chain lengths) and at fixed
-          cases: 16384 rows for Fp and Fr (sqr_chain_mul also at k = 1, 4,
-          5, 9, 63 with and without t; mont_reduce also at the stacks
+          cases: 16384 rows for Fp and Fr (sqr_chain_mul, whose path
+          calls are whole addition chains held against the plan's plain
+          steps, also at the single steps k = 1, 4, 5, 9, 13, 63 with and
+          without t and on the chains of r - 2 and (p + 1) / 4;
+          mont_mul also on 100 rows, a ragged block, and with first
+          operands of any 384 bits against R^2 and R^3, as
+          Field.reduce_wide gives it; mont_reduce also at
+          the stacks
           [2, 16384, 64] and [16, 2, 16384, 64] the composite products
           gave it), fp2_products and fp2_sqrs at n = 9, fp2_products
           also at n = 1-5 on 16384 and on a ragged 100 rows, flat_mul
@@ -108,37 +116,40 @@ FIXTURE = os.path.join(HERE, "aot", "fixtures",
 # SMs x 1.98 GHz boost clock.  One multiply-add is two operations.
 PEAK_BYTES = 3.35e12
 PEAK_MULADDS = 64 * 132 * 1.98e9
-# 32-bit multiply-adds per element: a 64x64-bit word product is four 32x32
-# products, each with a low and a high half (8); a REDC quotient word is a
-# low half only (4)
-MULADDS_MUL = 8 * (36 + 36) + 4 * 6      # K1: CIOS product and REDC
-MULADDS_SQR = 8 * (21 + 36) + 4 * 6      # K2: triangular square and REDC
-MULADDS_REDC = 8 * 36 + 4 * 6            # K3
-MULADDS_WIDE = 8 * 36                    # a 6x6-word product
-MULADDS_FP2_MUL = 4 * MULADDS_WIDE + 2 * MULADDS_REDC           # K5
-MULADDS_FP2_SQR = 8 * (21 + 21 + 36) + 2 * MULADDS_REDC        # K6
-MULADDS_TRI = 8 * 21                      # a triangular 6-word square
+# 32-bit multiply-adds per element, the fewest the function needs on
+# twelve 32-bit words: a word product has a low and a high half (2), a
+# REDC quotient word a low half only (1)
+MULADDS_WIDE = 2 * 144                    # a 12x12-word product
+MULADDS_TRI = 2 * (66 + 12)               # a triangular 12-word square
+MULADDS_REDC = MULADDS_WIDE + 12          # K3: 144 products, 12 quotients
+MULADDS_MUL = MULADDS_WIDE + MULADDS_REDC              # K1: 588
+MULADDS_SQR = MULADDS_TRI + MULADDS_REDC               # K2: 456
+MULADDS_FP2_MUL = 4 * MULADDS_WIDE + 2 * MULADDS_REDC  # K5
+MULADDS_FP2_SQR = 2 * MULADDS_TRI + MULADDS_WIDE + 2 * MULADDS_REDC  # K6
 # K9/K10 and the Miller steps: (Fp2 squares, Fp2 products, Fp products)
 G2_DBL = (5, 2, 0)
 G2_ADD = (5, 11, 0)
 MILLER_DBL_STEP = (6, 5, 4)
 MILLER_ADD_STEP = (4, 10, 4)
 LINE_IDX = (0, 2, 3, 6, 8, 9)
-# kernels no verify path launches: K3 (its callers were the composite
-# products, now K5, K6, K13, K14), K8 (fp2_pow_const takes the addition
-# chain of K7 steps on both of the path's exponents, as drand_tpu does on
-# its chip), K20 (K11 and K12 multiply f by their two lines one after the
+# kernels no verify path launches: K2 (its only calls were the two Fermat
+# inversions' a^2, now inside K4's one launch an inversion), K3 (its
+# callers were the composite products, now K5, K6, K13, K14), K8
+# (fp2_pow_const takes the addition chain of K7 steps on both of the
+# path's exponents, as drand_tpu does on its chip), K20 (K11 and K12 multiply f by their two lines one after the
 # other; as in drand_tpu, nothing calls it alone) and K21/K22 (drand_tpu's Field.add
 # and sub stay in XLA and never call their kernels; the port's keep their
 # torch path)
-OFF_PATH = ("mont_reduce", "fp2_sqr5_mul", "line_merge", "add", "sub")
+OFF_PATH = ("mont_sqr", "mont_reduce", "fp2_sqr5_mul", "line_merge", "add",
+            "sub")
 # kernels of the trio Miller executor only, and of the merged one only
 TRIO = ("flat_sqr", "g2_dbl_line", "g2_add_line")
 MERGED = ("miller_dbl_iter", "miller_add_iter")
 # the kernels of a pairing check alone: the trio Miller loop and the final
-# exponentiation, whose one inversion takes K1, K2, K4 and K5
+# exponentiation, whose one Fp12 inversion takes K5 and K1 around one K4
+# launch (the Fermat inversion of an Fp2 norm)
 PAIRING = TRIO + ("flat_mul", "flat_conj", "flat_frob", "cyclo_sqr",
-                  "mont_mul", "mont_sqr", "sqr_chain_mul", "fp2_products")
+                  "mont_mul", "sqr_chain_mul", "fp2_products")
 
 
 def muladds_fp2(sqrs: int, muls: int, fp_muls: int) -> int:
@@ -283,6 +294,17 @@ def work(name: str, call: tuple):
         (shape, k), rows = call, math.prod(call[0][:-2])
         return 24 * 128 * rows, k * 9 * MULADDS_FP2_SQR * rows
     n = math.prod(call[1][:-1])
+    if name == "sqr_chain_mul" and call[2] == "pow":
+        # a whole addition chain: the squares and products its program
+        # runs, each row read and written once, and each scratch slot
+        # written and read once
+        from drand_tpu_torch.ops import kernels as K
+        from drand_tpu_torch.ops.field import addchain_plan, chain_program
+        plan = addchain_plan(call[3])
+        codes, n_slots, _ = chain_program(plan[0], plan[1], plan[4])
+        sqrs, muls = K.chain_work(codes)
+        return ((256 + 96 * n_slots) * n,
+                (sqrs * MULADDS_SQR + muls * MULADDS_MUL) * n)
     if name == "mont_mul":
         return 384 * n, MULADDS_MUL * n
     if name == "mont_sqr":
@@ -304,7 +326,8 @@ def kernel_of(device_name: str):
     """The port's kernel (a key of ops/kernels.py KERNELS) that a device
     kernel of a profile is, from its demangled name, or None for torch's
     own.  K11/K12, K18/K19 and K21/K22 are the two instances of one
-    template; K7 and K8 share one kernel (K8 has no caller on a path)."""
+    template; K7 and K8 share one kernel (K8 has no caller on a path), and
+    K4's kernel is k_fp_pow_chain."""
     m = re.search(r"::k_(\w+)(?:<([^>]*)>)?\(", device_name)
     if not m:
         return None
@@ -314,7 +337,7 @@ def kernel_of(device_name: str):
              "add_sub": ("add", "sub")}
     if base in pairs:
         return pairs[base][arg == "true"]
-    return base
+    return "sqr_chain_mul" if base == "fp_pow_chain" else base
 
 
 def profile_kernels(fn, want: dict, tries: int = 4):
@@ -388,7 +411,8 @@ def main() -> int:
     emit(report["build"])
     report["occupancy"] = {"phase": "occupancy", **{
         name: K.kernel_attrs(name)
-        for name in ("fp2_products", "fp2_sqr_chain_mul", "flat_mul",
+        for name in ("mont_mul", "sqr_chain_mul", "fp2_products",
+                     "fp2_sqr_chain_mul", "flat_mul",
                      "g2_point_dbl", "g2_point_add", "miller_dbl_iter",
                      "miller_add_iter", "cyclo_sqr")}}
     emit(report["occupancy"])
@@ -506,11 +530,14 @@ def main() -> int:
     default_path = [name for name in K.KERNELS if name not in OFF_PATH + TRIO]
     check_path("default batch", launches, n_conv, default_path)
     if launches["cyclo_sqr"] > 31 or launches["miller_dbl_iter"] != 63 or \
-            launches["g2_point_dbl"] != 19:
+            launches["g2_point_dbl"] != 19 or \
+            launches["sqr_chain_mul"] != 2 or launches["mont_mul"] != 22:
         fail(f"default batch: cyclo_sqr launched {launches['cyclo_sqr']} "
              f"times (at most 31: one a run of squares), g2_point_dbl "
              f"{launches['g2_point_dbl']} (19: one a run of doublings), "
-             f"miller_dbl_iter {launches['miller_dbl_iter']} (63)")
+             f"miller_dbl_iter {launches['miller_dbl_iter']} (63), "
+             f"sqr_chain_mul {launches['sqr_chain_mul']} (2: one a Fermat "
+             f"inversion), mont_mul {launches['mont_mul']} (22)")
 
     bad = sigs.copy()
     flip_at = 4321
@@ -545,7 +572,10 @@ def main() -> int:
         "batch_busy_s": sum(d for _, d in batch_kernels),
         "batch_profile_short": sorted(set(K.KERNELS) - set(TRIO)
                                       - batch_complete),
-        "off_path": {"mont_reduce": "0 launches: the composite products "
+        "off_path": {"mont_sqr": "0 launches: its only calls were the "
+                                 "two inversions' a^2, now inside K4's "
+                                 "one launch an inversion",
+                     "mont_reduce": "0 launches: the composite products "
                                     "that reduced through it are K5, K6, "
                                     "K13, K14",
                      "fp2_sqr5_mul": "0 launches: both of the path's Fp2 "
@@ -813,6 +843,17 @@ def main() -> int:
         F, shape = fields[call[0]], call[1]
         if name == "mont_reduce":
             return (wide_rows(F, shape),)
+        if name == "mont_mul" and kind == "wide":
+            # a first operand of any 384 bits against R^2 and R^3, as
+            # Field.reduce_wide multiplies the halves of a wide value
+            a = torch.from_numpy(rng.integers(0, 4096, size=shape,
+                                              dtype=np.int32)).to(dev)
+            a[:64] = 4095
+            b = torch.stack([F.R2, F.R3]).to(dev).repeat(
+                math.prod(shape[:-1]) // 2, 1).reshape(shape)
+            return a, b.contiguous()
+        if name == "sqr_chain_mul" and call[2] == "pow":
+            return (field_rows(F, shape),)
         return (field_rows(F, shape), field_rows(F, shape))
 
     def steps(name, x):
@@ -896,6 +937,10 @@ def main() -> int:
         if name == "mont_reduce":
             return (K.mont_reduce(args[0], F) if kernel
                     else F._mont_reduce_plain(args[0]))
+        if call[2] == "pow":                      # a whole addition chain
+            plan = FLD.addchain_plan(call[3])
+            chain = F._pow_addchain if kernel else F._pow_addchain_plain
+            return chain(args[0], plan[0], plan[1], plan[4])
         k, t = call[2], args[1] if call[3] else None
         return (K.sqr_chain_mul(args[0], k, t, F) if kernel
                 else F._sqr_chain_mul_plain(args[0], k, t))
@@ -906,11 +951,17 @@ def main() -> int:
              for name, calls in all_calls.items()}
     for f in fields:
         cases["mont_mul"].add(((f, flat32), "random"))
+        cases["mont_mul"].add(((f, (100, 32)), "random"))
+        cases["mont_mul"].add(((f, flat32), "wide"))
         cases["mont_sqr"].add(((f, flat32), "random"))
         cases["mont_reduce"].add(((f, flat64), "random"))
-        for k in (1, 4, 5, 9, 63):
+        for k in (1, 4, 5, 9, 13, 63):
             for with_t in (False, True):
                 cases["sqr_chain_mul"].add(((f, flat32, k, with_t), "random"))
+    cases["sqr_chain_mul"].add((("fr", flat32, "pow", FR.modulus - 2),
+                                "random"))
+    cases["sqr_chain_mul"].add((("fp", flat32, "pow", (P + 1) // 4),
+                                "random"))
     # the stacks the composite Fp2 and flat Fp12 products gave K3
     for stack in ((2, BATCH, 64), (16, 2, BATCH, 64)):
         cases["mont_reduce"].add((("fp", stack), "random"))
@@ -977,7 +1028,8 @@ def main() -> int:
 
     # times: K1, K2 and the window step (K4, k = 4, the sqr4_mul call) at
     # [16384, 32], K3 at the [2, 16384, 64] stack of one Fp2 product and
-    # at [16, 2, 16384, 64], K4 at the path's longest chain and at k = 63;
+    # at [16, 2, 16384, 64], K4 at the path's call (a whole inversion),
+    # at the window step and at the single steps k = 13 and 63;
     # K9 and K14 at the path's longest chain, then at each of their
     # other chains; the others at the path's most common call, and K13
     # also at its most common dense call, K7 also at the path's longest
@@ -990,8 +1042,7 @@ def main() -> int:
         return max(sorted(calls, key=repr), key=calls.get)
 
     main_calls = {"mont_mul": ("fp", flat32), "mont_sqr": ("fp", flat32),
-                  "mont_reduce": ("fp", (2, BATCH, 64)),
-                  "sqr_chain_mul": ("fp", flat32, 4, True)}
+                  "mont_reduce": ("fp", (2, BATCH, 64))}
     main_calls["fp2_sqr5_mul"] = fp2_rows
     main_calls["line_merge"] = flat12
     main_calls["add"] = main_calls["sub"] = ("fp", flat32)
@@ -1001,14 +1052,14 @@ def main() -> int:
         main_calls[name] = calls[0]
     main_calls.update({name: most_common(name) for name in K.KERNELS
                        if name not in main_calls})
-    longest = max(path_calls["sqr_chain_mul"], key=lambda c: (c[2], c[3]))
     longest_fp2 = max(path_calls["fp2_sqr_chain_mul"],
                       key=lambda c: (c[1], c[2]))
     other_add = [c for c in path_calls["g2_point_add"]
                  if c != main_calls["g2_point_add"]]
     timed = [(name, call) for name, call in main_calls.items()] + [
         ("mont_reduce", ("fp", (16, 2, BATCH, 64))),
-        ("sqr_chain_mul", longest),
+        ("sqr_chain_mul", ("fp", flat32, 4, True)),
+        ("sqr_chain_mul", ("fp", flat32, 13, True)),
         ("fp2_sqr_chain_mul", longest_fp2),
         ("fp2_sqr_chain_mul", (fp2_rows, 63, True)),
         ("sqr_chain_mul", ("fp", flat32, 63, True)),

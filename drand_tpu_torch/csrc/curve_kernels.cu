@@ -175,23 +175,9 @@ int dt_g2_point_dbl(const int32_t *p, int32_t *o, long long rows, int n,
   return (int)cudaGetLastError();
 }
 
-// K9's registers, local memory and shared memory a thread or block,
-// threads a block and resident blocks per SM on the current device:
-// out[0..4].
+// K9's occupancy (stage.cuh kernel_attrs).
 int dt_g2_point_dbl_attrs(int *out) {
-  cudaFuncAttributes fa;
-  cudaError_t e = cudaFuncGetAttributes(&fa, k_g2_point_dbl);
-  int per_sm = 0;
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k_g2_point_dbl,
-                                                      DBL_THREADS, 0);
-  if (e != cudaSuccess) return (int)e;
-  out[0] = fa.numRegs;
-  out[1] = (int)fa.localSizeBytes;
-  out[2] = (int)fa.sharedSizeBytes;
-  out[3] = DBL_THREADS;
-  out[4] = per_sm;
-  return 0;
+  return dt::kernel_attrs(k_g2_point_dbl, DBL_THREADS, 0, out);
 }
 
 // one6: Montgomery one, 6 words, host memory.
@@ -209,24 +195,9 @@ int dt_g2_point_add(const int32_t *p1, const int32_t *p2, int32_t *o,
   return (int)cudaGetLastError();
 }
 
-// K10's attributes as dt_g2_point_dbl_attrs gives K9's; out[2] counts
-// the dynamic shared memory.
+// K10's, with its dynamic shared memory.
 int dt_g2_point_add_attrs(int *out) {
-  cudaError_t e = cudaFuncSetAttribute(
-      k_g2_point_add, cudaFuncAttributeMaxDynamicSharedMemorySize, ADD_SMEM);
-  cudaFuncAttributes fa;
-  int per_sm = 0;
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, k_g2_point_add);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k_g2_point_add,
-                                                      ADD_THREADS, ADD_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  out[0] = fa.numRegs;
-  out[1] = (int)fa.localSizeBytes;
-  out[2] = (int)fa.sharedSizeBytes + ADD_SMEM;
-  out[3] = ADD_THREADS;
-  out[4] = per_sm;
-  return 0;
+  return dt::kernel_attrs(k_g2_point_add, ADD_THREADS, ADD_SMEM, out);
 }
 #else
 int dt_g2_dbl_line(const int32_t *in, int32_t *to, int32_t *lo,

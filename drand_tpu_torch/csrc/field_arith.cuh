@@ -254,51 +254,6 @@ DT_HD void sqr_wide(const uint64_t *a, uint64_t *w) {
   }
 }
 
-// r = a^2 * 2^-384 mod m for a in [0, m): the triangular square into 12
-// words, then REDC.  a^2 < m^2 < 2^384 m, so the REDC value is < 2m and
-// one conditional subtract makes it canonical.  r may alias a.
-DT_HD void mont_sqr_words(const uint64_t *a, uint64_t *r, const Mod &M) {
-  uint64_t w[W_WORDS];
-  sqr_wide(a, w);
-  redc_wide(w, M);
-  DT_UNROLL
-  for (int j = 0; j < N_WORDS; j++) r[j] = w[N_WORDS + j];
-  cond_sub(r, w[W_WORDS - 1], M);
-}
-
-// K1: canonical limbs in, canonical limbs out.
-DT_HD void mont_mul_limbs(const int32_t *a, const int32_t *b, int32_t *o,
-                          const Mod &M) {
-  uint64_t wa[N_WORDS], wb[N_WORDS];
-  limbs_to_words(a, wa);
-  limbs_to_words(b, wb);
-  mont_mul_words(wa, wb, wa, M);
-  words_to_limbs(wa, o);
-}
-
-// K2: canonical limbs in, canonical limbs out, through the triangular
-// square.
-DT_HD void mont_sqr_limbs(const int32_t *a, int32_t *o, const Mod &M) {
-  uint64_t wa[N_WORDS];
-  limbs_to_words(a, wa);
-  mont_sqr_words(wa, wa, M);
-  words_to_limbs(wa, o);
-}
-
-// K4: a^(2^k) * t (t != nullptr) or a^(2^k), every step canonical.
-DT_HD void sqr_chain_mul_limbs(const int32_t *a, const int32_t *t, int32_t *o,
-                               int k, const Mod &M) {
-  uint64_t x[N_WORDS];
-  limbs_to_words(a, x);
-  for (int s = 0; s < k; s++) mont_sqr_words(x, x, M);
-  if (t != nullptr) {
-    uint64_t wt[N_WORDS];
-    limbs_to_words(t, wt);
-    mont_mul_words(x, wt, x, M);
-  }
-  words_to_limbs(x, o);
-}
-
 // K21 (sub: K22): canonical a + b (a - b) mod m, canonical limbs in and
 // out.
 DT_HD void add_sub_limbs(const int32_t *a, const int32_t *b, int32_t *o,

@@ -1,5 +1,6 @@
-// Host build of the kernels' arithmetic (field_arith.cuh, tower_arith.cuh,
-// curve_arith.cuh), one loop per kernel over its elements or rows, with
+// Host build of the kernels' arithmetic (field_arith.cuh, field_arith32.cuh,
+// tower_arith.cuh, curve_arith.cuh), one loop per kernel over its elements
+// or rows, with
 // the C interface of field_kernels.cu, tower_kernels.cu, curve_kernels.cu
 // and miller_kernels.cu minus the stream (dth_ for dt_).
 // tests/test_torch_kernel_harness.py compiles it with g++ and holds it
@@ -8,6 +9,7 @@
 //   g++ -std=c++17 -O2 -shared -fPIC -o libfield_host.so field_host.cpp
 
 #include "curve_arith.cuh"
+#include "field_arith32.cuh"
 
 // The six classes of K13 in turn, on one row's words laid out with
 // stride 1 (the kernel stages them in shared memory with stride 32), as
@@ -67,19 +69,29 @@ static void flat_kara_rows(const int32_t *a, const int32_t *b, int32_t *o,
 
 extern "C" {
 
+// K1 on the 32-bit carry-chain arithmetic.
 void dth_mont_mul(const int32_t *a, const int32_t *b, int32_t *o, long long n,
                   const uint64_t *mod7) {
-  const dt::Mod M = dt::mod_from_words(mod7);
-  for (long long e = 0; e < n; e++)
-    dt::mont_mul_limbs(a + e * dt::N_LIMBS, b + e * dt::N_LIMBS,
-                       o + e * dt::N_LIMBS, M);
+  const dt::Mod32 M = dt::mod32_from_words(mod7);
+  uint32_t x[dt::N_WORDS32], y[dt::N_WORDS32];
+  for (long long e = 0; e < n; e++) {
+    dt::load_words32(a + e * dt::N_LIMBS, x);
+    dt::load_words32(b + e * dt::N_LIMBS, y);
+    dt::mont_mul32(y, x, x, M);                // as K1: b the multiplicand
+    dt::store_words32(x, o + e * dt::N_LIMBS);
+  }
 }
 
+// K2 (and K4's square) on the 32-bit carry-chain arithmetic.
 void dth_mont_sqr(const int32_t *a, int32_t *o, long long n,
                   const uint64_t *mod7) {
-  const dt::Mod M = dt::mod_from_words(mod7);
-  for (long long e = 0; e < n; e++)
-    dt::mont_sqr_limbs(a + e * dt::N_LIMBS, o + e * dt::N_LIMBS, M);
+  const dt::Mod32 M = dt::mod32_from_words(mod7);
+  uint32_t x[dt::N_WORDS32];
+  for (long long e = 0; e < n; e++) {
+    dt::load_words32(a + e * dt::N_LIMBS, x);
+    dt::mont_sqr32(x, x, M);
+    dt::store_words32(x, o + e * dt::N_LIMBS);
+  }
 }
 
 void dth_mont_reduce(const int32_t *t, int32_t *o, long long n,
@@ -89,13 +101,22 @@ void dth_mont_reduce(const int32_t *t, int32_t *o, long long n,
     dt::mont_reduce_limbs(t + e * dt::W_LIMBS, o + e * dt::N_LIMBS, M);
 }
 
+// K4: the program `steps` row by row, scratch as the kernel lays it out
+// (48 bytes a row for each slot the program uses; null when none).
+void dth_fp_pow_chain(const int32_t *a, const int32_t *t, int32_t *o,
+                      long long n, const int32_t *steps, int n_steps,
+                      uint32_t *scratch, const uint64_t *mod7) {
+  const dt::Mod32 M = dt::mod32_from_words(mod7);
+  for (long long e = 0; e < n; e++)
+    dt::chain_row(a, t, o, steps, n_steps, scratch, n, e, M);
+}
+
+// K4 at one step, the one-step program the wrapper gives it.
 void dth_sqr_chain_mul(const int32_t *a, const int32_t *t, int32_t *o,
                        long long n, int k, const uint64_t *mod7) {
-  const dt::Mod M = dt::mod_from_words(mod7);
-  for (long long e = 0; e < n; e++)
-    dt::sqr_chain_mul_limbs(a + e * dt::N_LIMBS,
-                            t != nullptr ? t + e * dt::N_LIMBS : nullptr,
-                            o + e * dt::N_LIMBS, k, M);
+  const int code = k << 8 | dt::CHAIN_SQRMUL << 6 |
+                   (t != nullptr ? dt::CHAIN_T : dt::CHAIN_NONE);
+  dth_fp_pow_chain(a, t, o, n, &code, 1, nullptr, mod7);
 }
 
 // K5: per pair-row its two lanes in turn (in reverse order when

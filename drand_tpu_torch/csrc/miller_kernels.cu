@@ -158,28 +158,6 @@ static int launch(const int32_t *f, const int32_t *T, const int32_t *Q,
   return (int)cudaGetLastError();
 }
 
-// Registers, local memory and shared memory (static plus dynamic) a thread
-// or block, threads a block and resident blocks per SM on the current
-// device: out[0..4].
-static int attrs(int *out) {
-  cudaError_t e = cudaFuncSetAttribute(
-      k_miller_iter<IS_ADD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM);
-  cudaFuncAttributes fa;
-  int per_sm = 0;
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, k_miller_iter<IS_ADD>);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, k_miller_iter<IS_ADD>, MT, SMEM);
-  if (e != cudaSuccess) return (int)e;
-  out[0] = fa.numRegs;
-  out[1] = (int)fa.localSizeBytes;
-  out[2] = (int)fa.sharedSizeBytes + SMEM;
-  out[3] = MT;
-  out[4] = per_sm;
-  return 0;
-}
-
 extern "C" {
 
 // one6: Montgomery one, 6 words, host memory.
@@ -191,7 +169,9 @@ int dt_miller_dbl_iter(const int32_t *f, const int32_t *T, const int32_t *P,
   return launch(f, T, nullptr, P, mask, fo, To, rows, one6, mod7, stream);
 }
 
-int dt_miller_dbl_iter_attrs(int *out) { return attrs(out); }
+int dt_miller_dbl_iter_attrs(int *out) {
+  return dt::kernel_attrs(k_miller_iter<IS_ADD>, MT, SMEM, out);
+}
 #else
 int dt_miller_add_iter(const int32_t *f, const int32_t *T, const int32_t *Q,
                        const int32_t *P, const int32_t *mask, int32_t *fo,
@@ -200,7 +180,9 @@ int dt_miller_add_iter(const int32_t *f, const int32_t *T, const int32_t *Q,
   return launch(f, T, Q, P, mask, fo, To, rows, one6, mod7, stream);
 }
 
-int dt_miller_add_iter_attrs(int *out) { return attrs(out); }
+int dt_miller_add_iter_attrs(int *out) {
+  return dt::kernel_attrs(k_miller_iter<IS_ADD>, MT, SMEM, out);
+}
 #endif
 
 }  // extern "C"

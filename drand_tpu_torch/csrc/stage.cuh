@@ -3,8 +3,9 @@
 // and shared memory (64-bit words in flat_load's layout: element e of
 // block row r, word v at [(e * 6 + v) * R + r]), for the kernels that keep
 // their rows on chip across phases: K9-K12 (curve_kernels.cu,
-// miller_kernels.cu), K5, K13 and K14 (tower_kernels.cu).  Device code
-// only.
+// miller_kernels.cu), K5, K13 and K14 (tower_kernels.cu), and K1 and K2
+// (field_kernels.cu); and kernel_attrs, the occupancy report of every
+// kernel file's *_attrs entry points.  CUDA code only.
 //
 // A row of `width` elements is width * 128 contiguous bytes.  An element
 // is eight 16-byte chunks of four limbs, 48 bits each.  Eight
@@ -109,6 +110,32 @@ __device__ __forceinline__ void stage_out(const uint64_t *src, int width,
           make_int4((int)(x & 0xFFF), (int)((x >> 12) & 0xFFF),
                     (int)((x >> 24) & 0xFFF), (int)((x >> 36) & 0xFFF));
   }
+}
+
+// A kernel's registers, local memory and shared memory (static plus the
+// `smem` dynamic bytes it launches with) a thread or block, threads a block
+// and resident blocks per SM on the current device: out[0..4].  Returns
+// 0 or the CUDA error.
+template <typename Kern>
+int kernel_attrs(Kern kernel, int threads, int smem, int *out) {
+  cudaError_t e = cudaSuccess;
+  if (smem > 0)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  cudaFuncAttributes fa;
+  int per_sm = 0;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  out[2] = (int)fa.sharedSizeBytes + smem;
+  out[3] = threads;
+  out[4] = per_sm;
+  return 0;
 }
 
 }  // namespace dt

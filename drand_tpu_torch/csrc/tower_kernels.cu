@@ -359,26 +359,6 @@ unsigned blocks(long long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
 
-// A kernel's registers, local memory and shared memory a thread or block,
-// threads a block and resident blocks per SM on the current device:
-// out[0..4].
-template <typename Kern>
-int attrs(Kern kernel, int threads, int *out) {
-  cudaFuncAttributes fa;
-  cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
-  int per_sm = 0;
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      threads, 0);
-  if (e != cudaSuccess) return (int)e;
-  out[0] = fa.numRegs;
-  out[1] = (int)fa.localSizeBytes;
-  out[2] = (int)fa.sharedSizeBytes;
-  out[3] = threads;
-  out[4] = per_sm;
-  return 0;
-}
-
 }  // namespace
 
 extern "C" {
@@ -450,16 +430,16 @@ int dt_cyclo_sqr(const int32_t *a, int32_t *o, long long rows, int k,
 }
 
 int dt_cyclo_sqr_attrs(int *out) {
-  return attrs(k_cyclo_sqr, CY_THREADS, out);
+  return dt::kernel_attrs(k_cyclo_sqr, CY_THREADS, 0, out);
 }
 
 // K13's dense instance, the final exponentiation's.
 int dt_flat_mul_attrs(int *out) {
-  return attrs(k_flat_mul<dt::FlatB::DENSE>, FLAT_THREADS, out);
+  return dt::kernel_attrs(k_flat_mul<dt::FlatB::DENSE>, FLAT_THREADS, 0, out);
 }
 
 int dt_fp2_products_attrs(int *out) {
-  return attrs(k_fp2_products, F2P_THREADS, out);
+  return dt::kernel_attrs(k_fp2_products, F2P_THREADS, 0, out);
 }
 
 // t may be null: then x^(2^k).
@@ -480,7 +460,7 @@ int dt_fp2_sqr5_mul(const int32_t *x, const int32_t *t, int32_t *o,
 
 // K7's (and K8's).
 int dt_fp2_sqr_chain_mul_attrs(int *out) {
-  return attrs(k_fp2_sqr_chain_mul, F2C_THREADS, out);
+  return dt::kernel_attrs(k_fp2_sqr_chain_mul, F2C_THREADS, 0, out);
 }
 
 int dt_flat_conj(const int32_t *a, int32_t *o, long long rows,

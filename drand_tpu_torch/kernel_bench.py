@@ -1,12 +1,14 @@
 """CUDA-event times of the split-step kernels, or batch walls, on one GPU.
 
-    python -m drand_tpu_torch.kernel_bench [--walls N]
+    python -m drand_tpu_torch.kernel_bench [--walls N | --sass LIB...]
 
-Without --walls: the registers, spill and shared memory of K5, K7, K9,
-K10, K11, K12, K13 (each instance) and K14 (`-Xptxas -v` in the build
-log) and the SASS instructions of each (`cuobjdump -sass`, null without
-it), then K5 on [1, 2, 2, 16384, 32] (n = 1, the path's most common
-call), K13 on 16384 rows dense and on LINE_IDX and on 4224 rows dense
+Without --walls: the registers, spill and shared memory of K1, K4, K5,
+K7, K9, K10, K11, K12, K13 (each instance) and K14 (`-Xptxas -v` in the
+build log) and the SASS instructions of every kernel in the library
+(`cuobjdump -sass`, null without it), then K1 on [16384, 32] x 2 (its path call), K4 on one Fermat
+inversion a^(p-2) of [16384, 32] (the path's call: one launch) and at the
+single step k = 13 with t, K5 on [1, 2, 2, 16384, 32] (n = 1, the path's
+most common call), K13 on 16384 rows dense and on LINE_IDX and on 4224 rows dense
 (one 32-row block a SM), K9 at n = 1, 2, 3, 9, 16, 32, K10 without and
 with the doubling, K11 and K12 on 16384 rows, and K7 on [2, 16384] at
 k = 6 and at the longest k of the calls one default batch makes
@@ -14,6 +16,8 @@ k = 6 and at the longest k of the calls one default batch makes
 version (exit 1 otherwise) and timed as the mean ms of 40 back-to-back
 launches between two CUDA events, queued behind a device sleep so that
 the host's issue time between launches does not count.
+With --sass LIB...: the SASS instructions of every kernel in each built
+library, so two trees' builds are compared kernel by kernel.
 With --walls N: N default 16384-round batches of the committed unchained
 fixture after two warm-up batches, each timed on the host clock up to
 its verdicts on the host.
@@ -41,7 +45,8 @@ import torch
 ROUNDS = 16384
 # the kernels whose registers, spill and code size are reported, as their
 # names show in ptxas's and cuobjdump's output
-KERNEL_NAMES = ("k_fp2_products", "k_fp2_sqr_chain_mul", "k_flat_mul",
+KERNEL_NAMES = ("k_mont_mul", "k_fp_pow_chain", "k_fp2_products",
+                "k_fp2_sqr_chain_mul", "k_flat_mul",
                 "k_g2_point_dbl", "k_g2_point_add", "k_miller_iterILb0",
                 "k_miller_iterILb1", "k_cyclo_sqr")
 
@@ -54,6 +59,26 @@ def _kernel_name(mangled: str):
     if name == "k_flat_mul" and m:
         name += ("<DENSE>", "<ANY>")[int(m.group(1))]
     return name
+
+
+def _any_kernel_name(mangled: str) -> str:
+    """_kernel_name, or for a kernel outside KERNEL_NAMES its own name
+    from the mangled one (a template instance with its first argument:
+    k_add_sub<Lb1E>)."""
+    name = _kernel_name(mangled)
+    if name:
+        return name
+    for m in re.finditer("k_", mangled):
+        i = m.start()
+        for d in (1, 2):                  # the name's length, before it
+            if not mangled[i - d:i].isdigit():
+                break
+            end = i + int(mangled[i - d:i])
+            if (mangled[end:end + 1] in ("E", "I")
+                    and re.fullmatch(r"k_[a-z0-9_]+", mangled[i:end])):
+                arg = re.match(r"I(L\w+?E)", mangled[end:])
+                return mangled[i:end] + (f"<{arg.group(1)}>" if arg else "")
+    return mangled
 
 
 FIXTURE = "aot/fixtures/bench_sigs_unchained_16384_d6a762f2_ff8a2cc7.npy"
@@ -77,7 +102,7 @@ def _event_ms(fn, reps: int = 40) -> float:
 
 
 def _sass_sizes(lib: Path) -> dict | None:
-    """SASS instructions of each kernel in the built library
+    """SASS instructions of every kernel in the built library
     (`cuobjdump -sass`), or None where the toolkit has no cuobjdump."""
     tool = Path("/usr/local/cuda/bin/cuobjdump")
     if not tool.exists():
@@ -88,7 +113,7 @@ def _sass_sizes(lib: Path) -> dict | None:
     for line in out.splitlines():
         if "Function :" in line:
             mangled = line.split("Function :")[1].strip()
-            name = _kernel_name(mangled) or mangled
+            name = _any_kernel_name(mangled)
             sizes[name] = 0
         elif name and re.search(r"/\*[0-9a-f]{4,}\*/ ", line):
             sizes[name] += 1
@@ -109,7 +134,7 @@ def kernels(dev) -> dict:
     from drand_tpu_torch.ops import kernels as K
     from drand_tpu_torch.ops import pairing as PR
     from drand_tpu_torch.ops import towers as TW
-    from drand_tpu_torch.ops.field import FP
+    from drand_tpu_torch.ops.field import FP, addchain_plan
     # the build's nvcc log, also when an earlier process built the library
     log = (Path(K.build()["dir"]) / "nvcc.log").read_text().splitlines()
     ptxas = {}
@@ -141,6 +166,22 @@ def kernels(dev) -> dict:
     q[:, :64] = p[:, :64]                        # P + P
     q[4:, 64:72] = 0                             # P + infinity
     ms = {}
+    # K1 at its path call, K4 on one inversion (one launch) and one step
+    a, b = rows((ROUNDS,)), rows((ROUNDS,))
+    if not torch.equal(K.mont_mul(a, b, FP), FP._mont_mul_plain(a, b)):
+        sys.exit("mont_mul: kernel != plain")
+    ms["mont_mul"] = _event_ms(lambda: K.mont_mul(a, b, FP))
+    plan = addchain_plan(FP.modulus - 2)
+    ops, build, used_odd = plan[0], plan[1], plan[4]
+    if not torch.equal(FP._pow_addchain(a, ops, build, used_odd),
+                       FP._pow_addchain_plain(a, ops, build, used_odd)):
+        sys.exit("sqr_chain_mul p-2 chain: kernel != plain")
+    ms["sqr_chain_mul inv"] = _event_ms(
+        lambda: FP._pow_addchain(a, ops, build, used_odd), 10)
+    if not torch.equal(K.sqr_chain_mul(a, 13, b, FP),
+                       FP._sqr_chain_mul_plain(a, 13, b)):
+        sys.exit("sqr_chain_mul k=13: kernel != plain")
+    ms["sqr_chain_mul k=13"] = _event_ms(lambda: K.sqr_chain_mul(a, 13, b, FP))
     # K5's most common call: one pair, coordinates [2, 16384, 32]
     xs, ys = rows((1, 2, 2, ROUNDS)), rows((1, 2, 2, ROUNDS))
     want = TW._fp2_stack(TW._fp2_products_plain(list(zip(
@@ -188,10 +229,7 @@ def kernels(dev) -> dict:
             sys.exit(f"{name}: kernel != plain")
         ms[name] = _event_ms(lambda: getattr(K, name)(*args, FP))
     sass = _sass_sizes(Path(K.build()["dir"]) / K.LIB_NAME)
-    return {"ptxas": ptxas, "ms": ms,
-            "sass_instructions": sass and {
-                k: n for k, n in sass.items()
-                if k.split("<")[0] in KERNEL_NAMES}}
+    return {"ptxas": ptxas, "ms": ms, "sass_instructions": sass}
 
 
 def walls(n: int) -> list:
@@ -212,7 +250,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--walls", type=int, default=0,
                     help="time this many batches instead of the kernels")
+    ap.add_argument("--sass", nargs="+", metavar="LIB",
+                    help="only count the SASS instructions of every kernel "
+                         "in these built libraries (no device needed)")
     args = ap.parse_args()
+    if args.sass:
+        print(json.dumps({"sass_instructions": {
+            lib: _sass_sizes(Path(lib)) for lib in args.sass}}), flush=True)
+        return 0
     if not torch.cuda.is_available():
         print("kernel_bench: no CUDA device", file=sys.stderr)
         return 2

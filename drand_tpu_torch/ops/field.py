@@ -9,7 +9,8 @@ The Montgomery radix is R = 2^384.
 Four operations run as hand-written CUDA kernels on a GPU tensor
 (`ops/kernels.py`, sources in `csrc/`): the Montgomery multiply (K1), the
 Montgomery square (K2), the reduction of a wide value (K3) and the
-square-chain step of the exponent executors (K4); the Fp2, G2, Miller
+exponent executors' squaring chains (K4: a whole addition chain, so a
+Fermat inversion, in one launch, or one step of the window); the Fp2, G2, Miller
 and flat Fp12 kernels (K5-K16) are dispatched from `ops/towers.py`,
 `ops/curve.py`, `ops/pairing.py` and `ops/flat12.py`.  Beside each kernel
 sits
@@ -170,22 +171,7 @@ def addchain_plan(e: int, w: int = 5, run_min: int = 99):
     seeds = set(range(1, w + 1)) if used_odd else {1}
     build = _repunit_plan(rep_lens, seeds)
 
-    reps = {l: (1 << l) - 1 for l in seeds}
-    for new, src, shift in build:
-        reps[new] = (reps[src] << shift) + reps[shift]
-    acc = 0
-    for op in ops:
-        if op[0] == "init_rep":
-            acc = reps[op[1]]
-        elif op[0] == "init_odd":
-            acc = op[1]
-        elif op[0] == "sqrmul_rep":
-            acc = (acc << op[1]) + reps[op[2]]
-        elif op[0] == "sqrmul_odd":
-            acc = (acc << op[1]) + op[2]
-        else:
-            acc <<= op[1]
-    if acc != e:
+    if _plan_exponent(ops, build) != e:
         raise AssertionError("addchain plan does not reproduce the exponent")
 
     n_sqr = sum(op[1] for op in ops if op[0] in
@@ -197,6 +183,95 @@ def addchain_plan(e: int, w: int = 5, run_min: int = 99):
         n_sqr += 1
         n_mul += (1 << (w - 1)) - 1
     return tuple(ops), tuple(build), n_sqr, n_mul, used_odd
+
+
+def _plan_exponent(ops, build) -> int:
+    """The exponent an `addchain_plan` computes, by replaying it on
+    integers (a length no build step makes is a seed, 2^l - 1)."""
+    reps: dict = {}
+
+    def rep(l):
+        return reps.get(l, (1 << l) - 1)
+
+    for new, src, shift in build:
+        reps[new] = (rep(src) << shift) + rep(shift)
+    acc = 0
+    for op in ops:
+        if op[0] == "init_rep":
+            acc = rep(op[1])
+        elif op[0] == "init_odd":
+            acc = op[1]
+        elif op[0] == "sqrmul_rep":
+            acc = (acc << op[1]) + rep(op[2])
+        elif op[0] == "sqrmul_odd":
+            acc = (acc << op[1]) + op[2]
+        else:
+            acc <<= op[1]
+    return acc
+
+
+def _chain_table(ops, build, used_odd: bool):
+    """(need, seed_lens) of an `addchain_plan`: the odd table runs a^1,
+    a^3, ..., a^need, and the repunits a^(2^l - 1) of the lengths
+    seed_lens (2..5) are its entries."""
+    seed_lens = set()
+    for _, src, shift in build:
+        seed_lens.update(x for x in (src, shift) if 2 <= x <= 5)
+    for op in ops:
+        if op[0] in ("init_rep", "sqrmul_rep") and 2 <= op[-1] <= 5:
+            seed_lens.add(op[-1])
+    if not used_odd:
+        return 1, set()
+    need = max([op[2] for op in ops if op[0] == "sqrmul_odd"] +
+               [op[1] for op in ops if op[0] == "init_odd"] +
+               [(1 << l) - 1 for l in seed_lens] + [1])
+    return need, seed_lens
+
+
+@functools.lru_cache(maxsize=None)
+def chain_program(ops, build, used_odd: bool):
+    """Compile an `addchain_plan` into K4's program (`kernels.chain_code`
+    steps, run on one row by one thread): the odd table a, a^2, a^3, ...,
+    a^need into scratch slots, the repunit builds, then the plan's steps
+    on the running value.  Returns (codes, scratch slots, the exponent).
+    Raises ValueError for a plan the kernel cannot take: more table and
+    repunit entries than its scratch slots, or a run of squares longer
+    than a step holds."""
+    need, seed_lens = _chain_table(ops, build, used_odd)
+    slots: dict = {}
+
+    def slot(key):
+        return slots.setdefault(key, len(slots))
+
+    SQRMUL, LOAD, STORE = K.CHAIN_SQRMUL, K.CHAIN_LOAD, K.CHAIN_STORE
+    prog = [(STORE, 0, slot(1))]
+    if used_odd:
+        prog += [(SQRMUL, 1, K.CHAIN_NONE), (STORE, 0, slot("a2")),
+                 (LOAD, 0, slot(1))]
+        for v in range(3, need + 1, 2):
+            prog += [(SQRMUL, 0, slot("a2")), (STORE, 0, slot(v))]
+    reps = {1: slot(1)}
+    reps.update({l: slot((1 << l) - 1) for l in seed_lens})
+    for new, src, shift in build:
+        reps[new] = slot(("rep", new))
+        prog += [(LOAD, 0, reps[src]), (SQRMUL, shift, reps[shift]),
+                 (STORE, 0, reps[new])]
+    for op in ops:
+        if op[0] == "init_rep":
+            prog.append((LOAD, 0, reps[op[1]]))
+        elif op[0] == "init_odd":
+            prog.append((LOAD, 0, slot(op[1])))
+        elif op[0] == "sqrmul_rep":
+            prog.append((SQRMUL, op[1], reps[op[2]]))
+        elif op[0] == "sqrmul_odd":
+            prog.append((SQRMUL, op[1], slot(op[2])))
+        else:
+            prog.append((SQRMUL, op[1], K.CHAIN_NONE))
+    if len(slots) > K.CHAIN_SLOTS:
+        raise ValueError(f"chain_program: the plan needs {len(slots)} scratch "
+                         f"slots, K4 has {K.CHAIN_SLOTS}")
+    codes = tuple(K.chain_code(*step) for step in prog)
+    return codes, len(slots), _plan_exponent(ops, build)
 
 
 # ---------------------------------------------------------------------------
@@ -578,34 +653,34 @@ class Field:
         return res
 
     def _pow_addchain(self, a, ops, build, used_odd: bool):
-        """Execute an `addchain_plan`: every step res^(2^k) (* t) is one
-        K4 launch, the odd table is K1 products over a^2 (one K2)."""
-        def sqr_n(x, k):
-            return x if k == 0 else self.sqr_chain_mul(x, k)
+        """Execute an `addchain_plan`: on a GPU tensor the whole plan is
+        one K4 launch (`chain_program`), on the CPU its plain steps."""
+        a = as_limbs(a)
+        if a.device.type == "cpu":
+            return self._pow_addchain_plain(a, ops, build, used_odd)
+        codes, n_slots, e = chain_program(tuple(ops), tuple(build),
+                                          bool(used_odd))
+        return K.pow_chain(a.contiguous(), codes, n_slots, e, self)
 
-        seed_lens = set()
-        for _, src, shift in build:
-            seed_lens.update(x for x in (src, shift) if 2 <= x <= 5)
-        for op in ops:
-            if op[0] in ("init_rep", "sqrmul_rep") and 2 <= op[-1] <= 5:
-                seed_lens.add(op[-1])
+    def _pow_addchain_plain(self, a, ops, build, used_odd: bool):
+        """The plan step by step in the plain versions: res^(2^k) (* t)
+        for each step, the odd table of products over a^2."""
+        def sqr_n(x, k):
+            return x if k == 0 else self._sqr_chain_mul_plain(x, k)
+
+        need, seed_lens = _chain_table(ops, build, used_odd)
         tab = {}
         if used_odd:
-            need = max([op[2] for op in ops if op[0] == "sqrmul_odd"] +
-                       [op[1] for op in ops if op[0] == "init_odd"] +
-                       [(1 << l) - 1 for l in seed_lens] + [1])
             tab[1] = a
-            a2 = self.sqr(a)
-            v = 3
-            while v <= need:
-                tab[v] = self.mont_mul(tab[v - 2], a2)
-                v += 2
+            a2 = self._mont_sqr_plain(a)
+            for v in range(3, need + 1, 2):
+                tab[v] = self._mont_mul_plain(tab[v - 2], a2)
         reps = {1: a}
-        if used_odd:
-            for l in seed_lens:
-                reps[l] = tab[(1 << l) - 1]
+        for l in seed_lens:
+            reps[l] = tab[(1 << l) - 1]
         for new, src, shift in build:
-            reps[new] = self.sqr_chain_mul(reps[src], shift, reps[shift])
+            reps[new] = self._sqr_chain_mul_plain(reps[src], shift,
+                                                  reps[shift])
         res = None
         for op in ops:
             if op[0] == "init_rep":
@@ -613,9 +688,9 @@ class Field:
             elif op[0] == "init_odd":
                 res = tab[op[1]]
             elif op[0] == "sqrmul_rep":
-                res = self.sqr_chain_mul(res, op[1], reps[op[2]])
+                res = self._sqr_chain_mul_plain(res, op[1], reps[op[2]])
             elif op[0] == "sqrmul_odd":
-                res = self.sqr_chain_mul(res, op[1], tab[op[2]])
+                res = self._sqr_chain_mul_plain(res, op[1], tab[op[2]])
             else:
                 res = sqr_n(res, op[1])
         return res

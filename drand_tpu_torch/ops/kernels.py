@@ -13,7 +13,9 @@ alignment and raises on anything else, allocates its output with
 `torch.empty`, launches on PyTorch's current stream, raises on a CUDA
 error, and adds one to its kernel's `launches` where it launches (and
 counts the launch under its call in `calls`: field and shape for K1-K3,
-K21 and K22, and k and whether t is given for K4; shape and n for K5/K6;
+K21 and K22; for K4 field, shape and either k and whether t is given (a
+single step) or "pow" and the exponent (a whole chain); shape and n for
+K5/K6;
 shape and b_idx for K13; shape, k and whether t is given for K7; shape
 and k for K14; shape and n for K9; shape for K8, K11, K12, K15,
 K17-K20; shape and with_double for K10; shape and n for K16).
@@ -23,6 +25,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -73,7 +76,7 @@ KERNELS = {
                        "drand_tpu/ops/pallas_field.py:737"),
     "mont_reduce": Kernel("mont_reduce", "dt_mont_reduce",
                           "drand_tpu/ops/pallas_field.py:746"),
-    "sqr_chain_mul": Kernel("sqr_chain_mul", "dt_sqr_chain_mul",
+    "sqr_chain_mul": Kernel("sqr_chain_mul", "dt_fp_pow_chain",
                             "drand_tpu/ops/pallas_field.py:1253"),
     "fp2_products": Kernel("fp2_products", "dt_fp2_products",
                            "drand_tpu/ops/pallas_field.py:1062", _TOWER),
@@ -131,7 +134,7 @@ _ARGTYPES = {
     "dt_mont_mul": [_P, _P, _P, _LL, _P, _P],
     "dt_mont_sqr": [_P, _P, _LL, _P, _P],
     "dt_mont_reduce": [_P, _P, _LL, _P, _P],
-    "dt_sqr_chain_mul": [_P, _P, _P, _LL, _I, _P, _P],
+    "dt_fp_pow_chain": [_P, _P, _P, _LL, _P, _I, _P, _P, _P],
     "dt_fp2_products": [_P, _P, _P, _LL, _I, _P, _P],
     "dt_fp2_sqrs": [_P, _P, _LL, _I, _P, _P],
     "dt_flat_mul": [_P, _P, _P, _LL, _P, _I, _P, _P],
@@ -150,6 +153,8 @@ _ARGTYPES = {
     "dt_line_merge": [_P, _P, _P, _LL, _P, _P],
     "dt_add": [_P, _P, _P, _LL, _P, _P],
     "dt_sub": [_P, _P, _P, _LL, _P, _P],
+    "dt_mont_mul_attrs": [_P],
+    "dt_fp_pow_chain_attrs": [_P],
     "dt_cyclo_sqr_attrs": [_P],
     "dt_flat_mul_attrs": [_P],
     "dt_fp2_products_attrs": [_P],
@@ -241,7 +246,8 @@ def kernel_attrs(name: str) -> dict:
     """What `cudaFuncGetAttributes` and
     `cudaOccupancyMaxActiveBlocksPerMultiprocessor` say of the kernel of
     `name` on the current device, for the kernels that export them
-    (fp2_products, fp2_sqr_chain_mul, flat_mul (its dense instance),
+    (mont_mul, sqr_chain_mul, fp2_products, fp2_sqr_chain_mul, flat_mul
+    (its dense instance),
     g2_point_dbl, g2_point_add, miller_dbl_iter, miller_add_iter,
     cyclo_sqr)."""
     lib = _lib()
@@ -338,22 +344,80 @@ def mont_reduce(t: torch.Tensor, field) -> torch.Tensor:
     return out
 
 
-def sqr_chain_mul(a: torch.Tensor, k: int, t, field) -> torch.Tensor:
-    """K4: a^(2^k) * t (t given) or a^(2^k), canonical [..., 32] limbs."""
+# K4's programs (csrc/field_arith32.cuh chain_row): one int32 code a step,
+# k << 8 | op << 6 | slot.
+CHAIN_SQRMUL, CHAIN_LOAD, CHAIN_STORE = 0, 1, 2
+CHAIN_NONE, CHAIN_T = 63, 62     # slot codes: no product; the rows of t
+CHAIN_SLOTS = 62                 # scratch slots 0..61, 48 bytes a row each
+CHAIN_MAX_K = (1 << 23) - 1
+
+
+def chain_code(op: int, k: int = 0, slot: int = CHAIN_NONE) -> int:
+    """One step of a K4 program: x = x^(2^k) (* slot) for CHAIN_SQRMUL,
+    x = slot for CHAIN_LOAD, slot = x for CHAIN_STORE."""
+    if not (0 <= k <= CHAIN_MAX_K and op in (CHAIN_SQRMUL, CHAIN_LOAD,
+                                             CHAIN_STORE)
+            and (0 <= slot < CHAIN_SLOTS
+                 or (op == CHAIN_SQRMUL and slot in (CHAIN_NONE, CHAIN_T)))):
+        raise ValueError(f"K4 takes no step op={op} k={k} slot={slot}")
+    return k << 8 | op << 6 | slot
+
+
+def chain_work(codes) -> tuple:
+    """(squares, products) a row of the K4 program `codes` runs."""
+    sqrs = muls = 0
+    for c in codes:
+        if (c >> 6) & 3 == CHAIN_SQRMUL:
+            sqrs += c >> 8
+            muls += (c & 63) != CHAIN_NONE
+    return sqrs, muls
+
+
+@functools.lru_cache(maxsize=None)
+def _program_tensor(codes: tuple) -> torch.Tensor:
+    return torch.tensor(codes, dtype=torch.int32)
+
+
+def _chain(a: torch.Tensor, t, codes: tuple, n_slots: int, call: tuple,
+           field) -> torch.Tensor:
+    """Launch K4 on the rows of a (and t) through the program `codes`."""
+    from drand_tpu_torch.ops.field import dev   # field imports this module
     _check(a, "sqr_chain_mul a", 32)
     if t is not None:
         _check(t, "sqr_chain_mul t", 32)
         _same(a, t, "sqr_chain_mul")
-    if not 0 <= k < 2 ** 31:
-        raise ValueError(f"sqr_chain_mul: k out of range: {k}")
+    if not 0 <= n_slots <= CHAIN_SLOTS:
+        raise ValueError(f"sqr_chain_mul: {n_slots} scratch slots; K4 has "
+                         f"{CHAIN_SLOTS}")
     out = torch.empty_like(a)
     n = a.numel() // 32
     if n:
-        _launch("sqr_chain_mul", (field.name, tuple(a.shape), k,
-                                  t is not None), a.device, a.data_ptr(),
-                None if t is None else t.data_ptr(), out.data_ptr(), n, k,
+        steps = dev(_program_tensor(codes), a.device)
+        scratch = (torch.empty(n_slots * 12 * n, dtype=torch.int32,
+                               device=a.device) if n_slots else None)
+        _launch("sqr_chain_mul", call, a.device, a.data_ptr(),
+                None if t is None else t.data_ptr(), out.data_ptr(), n,
+                steps.data_ptr(), len(codes),
+                None if scratch is None else scratch.data_ptr(),
                 field.kernel_arg.ctypes.data)
     return out
+
+
+def sqr_chain_mul(a: torch.Tensor, k: int, t, field) -> torch.Tensor:
+    """K4 at one step: a^(2^k) * t (t given) or a^(2^k), canonical [...,
+    32] limbs."""
+    code = chain_code(CHAIN_SQRMUL, k, CHAIN_NONE if t is None else CHAIN_T)
+    return _chain(a, t, (code,), 0,
+                  (field.name, tuple(a.shape), k, t is not None), field)
+
+
+def pow_chain(a: torch.Tensor, codes: tuple, n_slots: int, e: int,
+              field) -> torch.Tensor:
+    """K4 on a whole addition chain in one launch: the program `codes`
+    (`field.chain_program`, which computes a^e) on canonical [..., 32]
+    limbs, with n_slots scratch slots."""
+    return _chain(a, None, tuple(codes), n_slots,
+                  (field.name, tuple(a.shape), "pow", e), field)
 
 
 def _fp2_stack_check(x: torch.Tensor, what: str) -> int:

@@ -40,6 +40,76 @@ def test_kernels_match_plain_versions_on_card(cuda, name):
                        F._mont_reduce_plain(wide))
 
 
+_REPUNIT_EXP = (((1 << 110) - 1) << 24) | 0b101100111010110110000111
+
+
+@pytest.mark.parametrize("name", ["fp", "fr"])
+@pytest.mark.parametrize("which", ["m-2", "(m+1)/4", "repunit"])
+def test_pow_chain_kernel_matches_plain_steps_on_card(cuda, name, which):
+    """K4 runs a whole addition chain in one launch, bit-equal to the
+    plan's plain steps, on 16384 rows (0, 1, m-1 among them) and a ragged
+    300."""
+    from drand_tpu_torch.ops import kernels as K
+    from drand_tpu_torch.ops.field import FP, FR, addchain_plan
+    F = {"fp": FP, "fr": FR}[name]
+    m = F.modulus
+    e = {"m-2": m - 2, "(m+1)/4": (m + 1) // 4, "repunit": _REPUNIT_EXP}[which]
+    ops, build, _, _, used_odd = addchain_plan(e)
+    rng = np.random.default_rng(17)
+    for rows in (16384, 300):
+        vals = [0, 1, m - 1] + [int.from_bytes(rng.bytes(48), "little") % m
+                                for _ in range(rows - 3)]
+        a = torch.from_numpy(F.encode(vals)).to(cuda)
+        K.reset_launches()
+        got = F._pow_addchain(a, ops, build, used_odd)
+        assert K.launch_counts()["sqr_chain_mul"] == 1
+        assert torch.equal(got, F._pow_addchain_plain(a, ops, build,
+                                                      used_odd))
+    want = [pow(F.from_limbs_host(r), e, m) for r in a.cpu().numpy()[:40]]
+    assert [F.from_limbs_host(r) for r in got.cpu().numpy()[:40]] == want
+
+
+def test_inv_is_one_k4_launch_on_card(cuda):
+    """Field.inv on the card is one K4 launch and nothing else."""
+    from drand_tpu_torch.ops import kernels as K
+    from drand_tpu_torch.ops.field import FP
+    rng = np.random.default_rng(18)
+    a = _fp_rows(rng, (1000,)).to(cuda)
+    K.reset_launches()
+    inv = FP.inv(a)
+    assert {k: v for k, v in K.launch_counts().items() if v} == {
+        "sqr_chain_mul": 1}
+    assert torch.equal(FP._mont_mul_plain(inv[1:], a[1:]),
+                       FP.one_mont.to(cuda).expand(999, 32))
+
+
+def test_mont_kernels_staged_on_card(cuda):
+    """K1 and K2 through their staged blocks: 16384 rows, a ragged 100 and
+    8, a [2, 3, 50] stack, all-(p-1) (against all-(p-1)), and K1's first
+    operands of any 384 bits against R^2 and R^3 (Field.reduce_wide)."""
+    from drand_tpu_torch.crypto.bls12381.constants import P
+    from drand_tpu_torch.ops import kernels as K
+    from drand_tpu_torch.ops.field import FP
+    rng = np.random.default_rng(19)
+    for shape in ((16384,), (100,), (8,), (2, 3, 50)):
+        a = _fp_rows(rng, shape).to(cuda)
+        b = _fp_rows(rng, shape).flip(0).contiguous().to(cuda)
+        assert torch.equal(K.mont_mul(a, b, FP), FP._mont_mul_plain(a, b))
+        assert torch.equal(K.mont_sqr(a, FP), FP._mont_sqr_plain(a))
+    top = torch.tensor([((P - 1) >> (12 * i)) & 0xFFF for i in range(32)],
+                       dtype=torch.int32, device=cuda).expand(70, 32)
+    top = top.contiguous()
+    assert torch.equal(K.mont_mul(top, top, FP), FP._mont_mul_plain(top, top))
+    assert torch.equal(K.mont_sqr(top, FP), FP._mont_sqr_plain(top))
+    wide = torch.from_numpy(rng.integers(0, 4096, size=(16384, 32),
+                                         dtype=np.int32)).to(cuda)
+    wide[:64] = 4095
+    for const in (FP.R2, FP.R3):
+        c = const.to(cuda).expand(16384, 32).contiguous()
+        assert torch.equal(K.mont_mul(wide, c, FP),
+                           FP._mont_mul_plain(wide, c))
+
+
 def _fp_rows(rng, shape):
     """Canonical Fp limbs of `shape` + (32,): 0, 1, p-1, then random."""
     from drand_tpu_torch.crypto.bls12381.constants import P

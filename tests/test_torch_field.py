@@ -110,6 +110,67 @@ def test_pow_addchain_executor_matches():
         [pow(jf.from_limbs_host(r), e, P) for r in a]
 
 
+@pytest.mark.parametrize("name", ["fp", "fr"])
+def test_inv_and_sqrt_exponent_addchain_match_jax(name):
+    """inv and pow_const at (m + 1) / 4 (both take the addition chain, one
+    K4 launch each on a card) on the plain path, against drand_tpu's
+    FP.inv / FR.inv and pow_const."""
+    jf, tf, a, _ = _pair(name, seed=13, n=5)
+    ja, ta = jnp.asarray(a), torch.as_tensor(a)
+    e = (jf.modulus + 1) // 4
+    assert e >= 1 << 64
+    _eq(jax.jit(jf.inv)(ja), tf.inv(ta))
+    _eq(jax.jit(lambda x: jf.pow_const(x, e))(ja), tf.pow_const(ta, e))
+
+
+@pytest.mark.parametrize("e", [P - 2, (P + 1) // 4, JF.FR.modulus - 2,
+                               (((1 << 110) - 1) << 24) | 0b1011001110101101])
+def test_chain_program_computes_its_plan(e):
+    """K4's program, run on exponents instead of field elements, computes
+    e with the plan's squares and products (the counts `chain_work`
+    gives), and its scratch slots are the odd table, a^2 and the built
+    repunits."""
+    ops, build, n_sqr, n_mul, used_odd = TF.addchain_plan(e)
+    codes, n_slots, e_prog = TF.chain_program(ops, build, used_odd)
+    x, slots, sqrs, muls = 1, {}, 0, 0
+    for code in codes:
+        op, slot, k = (code >> 6) & 3, code & 63, code >> 8
+        if op == TF.K.CHAIN_LOAD:
+            x = slots[slot]
+        elif op == TF.K.CHAIN_STORE:
+            slots[slot] = x
+        else:
+            x, sqrs = x << k, sqrs + k
+            if slot != TF.K.CHAIN_NONE:
+                x, muls = x + slots[slot], muls + 1
+    assert x == e_prog == e
+    assert TF.K.chain_work(codes) == (sqrs, muls)
+    # the planner counts a full table of 15 products; the program builds
+    # it up to the largest odd power the plan takes
+    need = max(op[-1] for op in ops if op[0] == "sqrmul_odd")
+    assert (sqrs, muls) == (n_sqr, n_mul - 15 + (need - 1) // 2)
+    assert n_slots == len(slots) == (need + 1) // 2 + 1 + len(build)
+
+
+def test_plan_beyond_the_kernel_raises():
+    """A plan with more table entries than K4's scratch slots (w = 7: 64
+    odd powers) raises on a non-CPU tensor rather than falling back to the
+    plain steps, which compute it on the CPU; a plan the kernel takes goes
+    to the kernel's wrapper, which refuses a tensor off the card."""
+    e = P - 2
+    plan = TF.addchain_plan(e, 7)
+    ops, build, used_odd = plan[0], plan[1], plan[4]
+    _, tf, a, _ = _pair("fp", seed=15, n=2)
+    with pytest.raises(ValueError, match="scratch slots"):
+        tf._pow_addchain(torch.empty(3, 32, dtype=torch.int32,
+                                     device="meta"), ops, build, used_odd)
+    got = tf._pow_addchain(torch.as_tensor(a), ops, build, used_odd)
+    assert [tf.from_limbs_host(r) for r in got.numpy()] == \
+        [pow(tf.from_limbs_host(r), e, P) for r in a]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tf.inv(torch.empty(3, 32, dtype=torch.int32, device="meta"))
+
+
 def test_mont_reduce_on_fp2_and_flat_wide_inputs():
     """Wide inputs built the way the composite Fp2 product (towers.py
     c0w/c1w with the K p^2 offset) and the flat Fp12 convolution build

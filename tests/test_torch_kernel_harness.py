@@ -8,7 +8,10 @@ loops that split the work as the kernels do.  This test builds that shim
 with g++ into a temporary shared library (no CUDA, no torch headers) and
 holds every kernel's arithmetic against its plain PyTorch version bit for
 bit: K1-K4 (`Field._*_plain`) for Fp and Fr on random and edge inputs, K3
-at the edge of its input contract; K5/K6 (`towers._fp2_*_plain`) on
+at the edge of its input contract, the 32-bit carry-chain product and
+square of K1 and K4 (`field_arith32.cuh`, its carry flag emulated) on
+edge values, K4's programs (whole addition chains) against
+`Field._pow_addchain_plain` and `pow`; K5/K6 (`towers._fp2_*_plain`) on
 random values plus 0, 1 and p-1, K5 as its two lanes; K13
 (`flat12._flat_mul_plain`) through each of its instances, dense (its
 Karatsuba phases in both orders, half sums wrapping past p) and sparse,
@@ -44,7 +47,8 @@ from drand_tpu_torch.ops import curve as C
 from drand_tpu_torch.ops import flat12 as F
 from drand_tpu_torch.ops import pairing as PR
 from drand_tpu_torch.ops import towers as T
-from drand_tpu_torch.ops.field import FP, FR, int_to_limbs
+from drand_tpu_torch.ops.field import (FP, FR, addchain_plan, chain_program,
+                                       int_to_limbs)
 
 CSRC = Path(__file__).resolve().parents[1] / "drand_tpu_torch" / "csrc"
 FIELDS = {"fp": FP, "fr": FR}
@@ -63,6 +67,7 @@ def host_lib(tmp_path_factory):
     P_, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.dth_mont_mul.argtypes = [P_, P_, P_, LL, P_]
     lib.dth_mont_sqr.argtypes = [P_, P_, LL, P_]
+    lib.dth_fp_pow_chain.argtypes = [P_, P_, P_, LL, P_, I, P_, P_]
     lib.dth_mont_reduce.argtypes = [P_, P_, LL, P_]
     lib.dth_sqr_chain_mul.argtypes = [P_, P_, P_, LL, I, P_]
     lib.dth_fp2_products.argtypes = [P_, P_, P_, LL, I, I, P_]
@@ -83,7 +88,8 @@ def host_lib(tmp_path_factory):
     lib.dth_g2_add_line.argtypes = [P_, P_, P_, LL, P_]
     lib.dth_add.argtypes = [P_, P_, P_, LL, P_]
     lib.dth_sub.argtypes = [P_, P_, P_, LL, P_]
-    for fn in (lib.dth_mont_mul, lib.dth_mont_sqr, lib.dth_mont_reduce,
+    for fn in (lib.dth_mont_mul, lib.dth_mont_sqr,
+               lib.dth_fp_pow_chain, lib.dth_mont_reduce,
                lib.dth_sqr_chain_mul, lib.dth_fp2_products, lib.dth_fp2_sqrs,
                lib.dth_flat_mul, lib.dth_cyclo_sqr, lib.dth_fp2_sqr_chain_mul,
                lib.dth_fp2_sqr5_mul, lib.dth_flat_conj, lib.dth_flat_frob,
@@ -167,6 +173,76 @@ def test_sqr_chain_mul(host_lib, name, k):
         want = F._sqr_chain_mul_plain(
             torch.as_tensor(a), k, None if tt is None else torch.as_tensor(tt))
         np.testing.assert_array_equal(out, want.numpy())
+
+
+def _edge32(F):
+    """Values that stress 32-bit carry chains: 0, 1, 2, m-1, m-2, (m-1)/2,
+    R mod m, words of all ones below m, m minus powers of two."""
+    m = F.modulus
+    vals = [0, 1, 2, m - 1, m - 2, (m - 1) // 2, (1 << 384) % m,
+            (1 << 32) - 1, (1 << 64) - 1, (1 << 352) - 1,
+            (1 << (m.bit_length() - 1)) - 1, m - (1 << 32), m - (1 << 200)]
+    return [v % m for v in vals]
+
+
+@pytest.mark.parametrize("name", ["fp", "fr"])
+@pytest.mark.parametrize("op", ["mul", "wide", "sqr"])
+def test_carry_chain_mul_and_sqr(host_lib, name, op):
+    """field_arith32.cuh's product (K1) with every pair of edge values and
+    random ones, and its triangular square (K2, K4's square) on edge and
+    random values, against the plain versions; K1 also with a first
+    operand of any 384 bits (2^384 - 1 among them, Field.reduce_wide's
+    halves of a wide value) against canonical second ones."""
+    F = FIELDS[name]
+    edge = F.encode(_edge32(F))
+    rand = _elements(F, n=60, seed=48)
+    if op in ("mul", "wide"):
+        a = np.concatenate([np.repeat(edge, len(edge), 0), rand])
+        b = np.concatenate([np.tile(edge, (len(edge), 1)), rand[::-1]])
+        if op == "wide":
+            rng = np.random.default_rng(50)
+            a = rng.integers(0, 4096, size=a.shape, dtype=np.int32)
+            a[:len(edge)] = 4095
+            b[-2:] = np.stack([F.R2.numpy(), F.R3.numpy()])
+        a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+        out = np.empty_like(a)
+        host_lib.dth_mont_mul(_ptr(a), _ptr(b), _ptr(out), len(a),
+                              _ptr(F.kernel_arg))
+        want = F._mont_mul_plain(torch.as_tensor(a), torch.as_tensor(b))
+    else:
+        a = np.ascontiguousarray(np.concatenate([edge, rand]))
+        out = np.empty_like(a)
+        host_lib.dth_mont_sqr(_ptr(a), _ptr(out), len(a), _ptr(F.kernel_arg))
+        want = F._mont_sqr_plain(torch.as_tensor(a))
+    np.testing.assert_array_equal(out, want.numpy())
+
+
+_REPUNIT_EXP = (((1 << 110) - 1) << 24) | 0b101100111010110110000111
+
+
+@pytest.mark.parametrize("name,which", [("fp", "m-2"), ("fp", "(m+1)/4"),
+                                        ("fr", "m-2"), ("fp", "repunit"),
+                                        ("fr", "repunit")])
+def test_fp_pow_chain(host_lib, name, which):
+    """K4's program of a whole addition chain (the odd table, repunit
+    builds and every step in one run) on 0, 1, m-1 and random rows,
+    against the plan's plain steps and pow."""
+    F = FIELDS[name]
+    m = F.modulus
+    e = {"m-2": m - 2, "(m+1)/4": (m + 1) // 4, "repunit": _REPUNIT_EXP}[which]
+    ops, build, _, _, used_odd = addchain_plan(e)
+    codes, n_slots, e_prog = chain_program(ops, build, used_odd)
+    assert e_prog == e
+    a = _elements(F, n=14, seed=49)
+    steps = np.asarray(codes, np.int32)
+    scratch = np.zeros(n_slots * 12 * len(a), np.uint32)
+    out = np.empty_like(a)
+    host_lib.dth_fp_pow_chain(_ptr(a), None, _ptr(out), len(a), _ptr(steps),
+                              len(steps), _ptr(scratch), _ptr(F.kernel_arg))
+    want = F._pow_addchain_plain(torch.as_tensor(a), ops, build, used_odd)
+    np.testing.assert_array_equal(out, want.numpy())
+    assert [F.from_limbs_host(r) for r in out] == \
+        [pow(F.from_limbs_host(r), e, m) for r in a]
 
 
 def _fp_rows(shape, seed):
