@@ -9,8 +9,8 @@ Phases, each printing one JSON line:
   build   also each redesigned kernel's registers, local memory, shared
           memory and resident blocks per SM (cudaFuncGetAttributes and
           cudaOccupancyMaxActiveBlocksPerMultiprocessor, on a line of its
-          own): K1, K4, K5, K7, K13 (its dense instance), K9, K10, K11,
-          K12, K14
+          own): K1, K4, K5, K6, K7, K13 (its dense instance), K9, K10,
+          K11, K12, K14, K15
   slice   drand_tpu_torch.verify.Verifier (drand_tpu's merged Miller
           executor) on the committed 16384-round pedersen-bls-unchained
           segment (all true; one flipped byte gives exactly one false;
@@ -57,7 +57,10 @@ exponentiation's inversion (mont_mul, sqr_chain_mul, fp2_products).
           the stacks
           [2, 16384, 64] and [16, 2, 16384, 64] the composite products
           gave it), fp2_products and fp2_sqrs at n = 9, fp2_products
-          also at n = 1-5 on 16384 and on a ragged 100 rows, flat_mul
+          also at n = 1-5 on 16384 and on a ragged 100 rows, fp2_sqrs
+          also at n = 1, 4 and 8 on 16384, 33 and 1 rows with every pair
+          of 0, 1, p-1 (Montgomery and raw), x1 = 0 and x0 = x1 among
+          them, flat_mul
           dense and sparse on all-(p-1) coefficients, and on 16384, 100
           and 8 rows with all-(p-1) and zero operands on both sides of
           every 32-row block edge (also on three other sparse layouts),
@@ -72,7 +75,10 @@ exponentiation's inversion (mont_mul, sqr_chain_mul, fp2_products).
           infinite rows on both sides of every 32-row block edge), the Miller
           iterations with every active/inactive pair mask (also on a
           ragged last block),
-          flat_conj and flat_frob at n = 1, 2, 3, flat_sqr and line_merge
+          flat_conj also on 16384, 33 and 1 rows holding in every slot
+          the coefficients whose borrow crosses lanes (chunks equal to
+          p's above a borrowing one), 0, 1, p-1, with zero and
+          all-(p-1) rows, flat_frob at n = 1, 2, 3, flat_sqr and line_merge
           on all-(p-1) and zero rows, g2_dbl_line and g2_add_line on three
           stacked pairs, add and sub at 0, 1, m-1 and on all-(m-1) and
           zero rows; on random values plus 0, 1, m-1 (mont_reduce: wide
@@ -412,9 +418,9 @@ def main() -> int:
     report["occupancy"] = {"phase": "occupancy", **{
         name: K.kernel_attrs(name)
         for name in ("mont_mul", "sqr_chain_mul", "fp2_products",
-                     "fp2_sqr_chain_mul", "flat_mul",
+                     "fp2_sqrs", "fp2_sqr_chain_mul", "flat_mul",
                      "g2_point_dbl", "g2_point_add", "miller_dbl_iter",
-                     "miller_add_iter", "cyclo_sqr")}}
+                     "miller_add_iter", "cyclo_sqr", "flat_conj")}}
     emit(report["occupancy"])
 
     def pairing_rows(k_pairs: int, n: int):
@@ -782,10 +788,62 @@ def main() -> int:
         x[(torch.arange(shape[0], device=dev) // run) % 2 == 1] = 0
         return x
 
+    def raw_fp(vals):
+        """The stored limbs of the values themselves, not their
+        Montgomery forms (raw p - 1 is the largest stored value)."""
+        return torch.from_numpy(np.stack([int_to_limbs(v) for v in vals])
+                                .astype(np.int32)).to(dev)
+
+    def conj_edge_rows(shape):
+        """Flat rows for K15's limb-level negation: in the first rows
+        every slot cycles through 0, 1, 2, p-1 (raw and Montgomery) and
+        the coefficients whose chunks above a borrowing chunk equal p's
+        (the borrow crosses up to six lanes); then a zero row and an
+        all-(p-1) row; the rest random."""
+        c = [(P >> (48 * j)) & ((1 << 48) - 1) for j in range(8)]
+
+        def from_chunks(ch):
+            return sum(x << (48 * j) for j, x in enumerate(ch))
+
+        edges = torch.cat([raw_fp([0, 1, 2, P - 1,
+                                   from_chunks([c[0] + 1] + c[1:7]
+                                               + [c[7] - 1]),
+                                   from_chunks([c[0] + 1] + c[1:4]
+                                               + [c[4] - 1] + c[5:]),
+                                   from_chunks(c[:2] + [c[2] + 5] + c[3:7]
+                                               + [c[7] - 1]),
+                                   from_chunks([c[0] - 7] + c[1:]),
+                                   from_chunks([0] * 7 + [c[7] - 1])]),
+                           torch.from_numpy(FP.encode([1, 2, P - 1])).to(dev)])
+        a = field_rows(FP, shape)
+        E, rows = len(edges), shape[0]
+        for r in range(min(rows, E)):
+            a[r] = edges[(torch.arange(12, device=dev) + r) % E]
+        if rows > E + 2:
+            a[E] = 0
+            a[E + 1] = max_flat((12, 32))
+        return a
+
+    def fp2_edge_rows(shape):
+        """[n, 2, rows, 32] stacks whose item 0 holds every pair of 0, 1,
+        p-1 (Montgomery and raw) as (x0, x1), then x1 = 0 and x0 = x1."""
+        x = field_rows(FP, shape)
+        edge = torch.cat([torch.from_numpy(FP.encode([0, 1, P - 1])).to(dev),
+                          raw_fp([1, P - 1])])
+        e = min(shape[2], 25)
+        idx = torch.arange(e, device=dev)
+        x[0, 0, :e], x[0, 1, :e] = edge[idx // 5], edge[idx % 5]
+        if shape[2] > 33:
+            x[0, 1, 25:29] = 0
+            x[0, 1, 29:33] = x[0, 0, 29:33]
+        return x
+
     def inputs(name, call, kind="random"):
         """Kernel arguments for `call`: random canonical values (with 0, 1,
         m-1 first), all-(p-1) flat rows ("max"), rows of all-(m-1) and of
-        zero coefficients ("edge") or unitary ones."""
+        zero coefficients ("edge"), each kernel's edge operands ("edges":
+        K13's at block edges, K15's and K6's edge values) or unitary
+        ones."""
         if name == "flat_sqr":
             return ((edge_rows(FP, call) if kind == "edge"
                      else field_rows(FP, call)),)
@@ -820,12 +878,14 @@ def main() -> int:
         if name in ("miller_dbl_iter", "miller_add_iter"):
             return miller_state(call, name == "miller_add_iter")
         if name == "flat_conj":
-            return (field_rows(FP, call),)
+            return ((conj_edge_rows(call) if kind == "edges"
+                     else field_rows(FP, call)),)
         if name == "flat_frob":
             return (field_rows(FP, call[0]),)
         if name in ("fp2_products", "fp2_sqrs"):
             shape, n = call
-            x = field_rows(FP, (n, 2) + shape)
+            x = (fp2_edge_rows((n, 2) + shape) if kind == "edges"
+                 else field_rows(FP, (n, 2) + shape))
             return (x,) if name == "fp2_sqrs" else (
                 x, field_rows(FP, (n, 2) + shape).flip(2).contiguous())
         if name == "flat_mul":
@@ -970,6 +1030,9 @@ def main() -> int:
         for rows_ in (BATCH, 100):
             cases["fp2_products"].add((((rows_, 32), n), "random"))
     cases["fp2_sqrs"].add((((BATCH, 32), 9), "random"))
+    for n in (1, 4, 8):
+        for rows_ in (BATCH, 33, 1):
+            cases["fp2_sqrs"].add((((rows_, 32), n), "edges"))
     for b_idx in (tuple(range(12)), LINE_IDX):
         cases["flat_mul"].add(((flat12, b_idx), "max"))
         for rows_ in (BATCH, 100, 8):
@@ -998,6 +1061,8 @@ def main() -> int:
         cases["miller_dbl_iter"].add((shape, "random"))
         cases["miller_add_iter"].add((shape, "random"))
     cases["flat_conj"].add((flat12, "random"))
+    for rows_ in (BATCH, 33, 1):
+        cases["flat_conj"].add(((rows_, 12, 32), "edges"))
     for n in (1, 2, 3):
         cases["flat_frob"].add(((flat12, n), "random"))
     for kind in ("random", "edge"):

@@ -1,5 +1,6 @@
 // Montgomery arithmetic on twelve 32-bit words with the carry flag, for
-// the Fp kernels K1 and K4 (field_kernels.cu) and their host harness
+// the Fp kernels K1, K2 and K4 (field_kernels.cu), K6's product
+// (tower_kernels.cu through tower_arith.cuh) and their host harness
 // (field_host.cpp).  The other kernels keep field_arith.cuh's 64-bit words.
 //
 // A value is 12 little-endian 32-bit words, the Montgomery radix 2^384 as

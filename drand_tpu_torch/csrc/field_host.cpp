@@ -140,14 +140,22 @@ void dth_fp2_products(const int32_t *x, const int32_t *y, int32_t *o,
     }
 }
 
+// K6 the same way: lane h writes half h of the square (fp2_sqr_lane32).
 void dth_fp2_sqrs(const int32_t *x, int32_t *o, long long rows, int n,
-                  const uint64_t *mod7) {
+                  int reverse, const uint64_t *mod7) {
   const dt::Mod M = dt::mod_from_words(mod7);
+  const dt::Mod32 M32 = dt::mod32_from_words(mod7);
   for (long long p = 0; p < n; p++)
     for (long long r = 0; r < rows; r++) {
       const long long c0 = (2 * p * rows + r) * dt::N_LIMBS;
       const long long c1 = c0 + rows * dt::N_LIMBS;
-      dt::fp2_sqr_limbs(x + c0, x + c1, o + c0, o + c1, M);
+      const dt::F2 a = dt::f2_load(x + c0, x + c1);
+      for (int l = 0; l < 2; l++) {
+        const int h = reverse ? 1 - l : l;
+        uint64_t half[dt::N_WORDS];
+        dt::fp2_sqr_lane32(h, a.x, a.y, half, M, M32);
+        dt::store_words(half, o + (h ? c1 : c0));
+      }
     }
 }
 
@@ -264,12 +272,30 @@ void dth_fp2_sqr5_mul(const int32_t *x, const int32_t *t, int32_t *o,
   dth_fp2_sqr_chain_mul(x, t, o, rows, 5, 0, mod7);
 }
 
+// K15 a warp at a time: 32 chunks of four limbs (four coefficients, eight
+// lanes each), every lane's flags into the three masks the kernel's
+// ballots give, then every lane's chunk from them.
 void dth_flat_conj(const int32_t *a, int32_t *o, long long rows,
                    const uint64_t *mod7) {
   const dt::Mod M = dt::mod_from_words(mod7);
-  for (long long e = 0; e < dt::FLAT * rows; e++)
-    dt::flat_conj_coeff(a + e * dt::N_LIMBS, o + e * dt::N_LIMBS,
-                        (int)(e % dt::FLAT), M);
+  int32_t pl[8][4];
+  for (int j = 0; j < 8; j++) dt::conj_p_chunk(j, M, pl[j]);
+  const long long n = rows * dt::FLAT * 8;
+  for (long long q0 = 0; q0 < n; q0 += 32) {
+    uint32_t gen = 0, pass = 0, zero = 0;
+    for (int lane = 0; lane < 32; lane++) {
+      bool g, t, z;
+      dt::conj_flags(a + (q0 + lane) * 4, pl[lane & 7], g, t, z);
+      gen |= (uint32_t)g << lane;
+      pass |= (uint32_t)t << lane;
+      zero |= (uint32_t)z << lane;
+    }
+    for (int lane = 0; lane < 32; lane++) {
+      const long long q = q0 + lane;
+      dt::conj_chunk(lane, (q >> 3) & 1, a + q * 4, pl[lane & 7], gen, pass,
+                     zero, o + q * 4);
+    }
+  }
 }
 
 void dth_flat_frob(const int32_t *a, int32_t *o, long long rows,

@@ -3,8 +3,8 @@
 // and shared memory (64-bit words in flat_load's layout: element e of
 // block row r, word v at [(e * 6 + v) * R + r]), for the kernels that keep
 // their rows on chip across phases: K9-K12 (curve_kernels.cu,
-// miller_kernels.cu), K5, K13 and K14 (tower_kernels.cu), and K1 and K2
-// (field_kernels.cu); and kernel_attrs, the occupancy report of every
+// miller_kernels.cu), K5, K6, K13 and K14 (tower_kernels.cu), and K1 and
+// K2 (field_kernels.cu); and kernel_attrs, the occupancy report of every
 // kernel file's *_attrs entry points.  CUDA code only.
 //
 // A row of `width` elements is width * 128 contiguous bytes.  An element

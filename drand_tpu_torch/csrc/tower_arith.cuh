@@ -1,6 +1,7 @@
 // Fp2 and flat Fp12 arithmetic over the Montgomery words of
-// field_arith.cuh, shared by the CUDA kernels (tower_kernels.cu) and the
-// host harness (field_host.cpp, built with g++ by
+// field_arith.cuh (K6's product on field_arith32.cuh's 32-bit words, K15
+// on the limbs themselves), shared by the CUDA kernels (tower_kernels.cu)
+// and the host harness (field_host.cpp, built with g++ by
 // tests/test_torch_kernel_harness.py).
 //
 // Every value is canonical (in [0, p)) on entry and on exit, so each
@@ -14,6 +15,7 @@
 #pragma once
 
 #include "field_arith.cuh"
+#include "field_arith32.cuh"
 
 // A loop kept rolled on the card: one copy of its body in the code.
 #if defined(__CUDACC__)
@@ -146,16 +148,6 @@ DT_HD void fp2_sqr_words(const uint64_t *x0, const uint64_t *x1,
                          uint64_t *r0, uint64_t *r1, const Mod &M) {
   fp2_sqr_re(x0, x1, r0, M);
   fp2_sqr_im(x0, x1, r1, M);
-}
-
-DT_HD void fp2_sqr_limbs(const int32_t *x0, const int32_t *x1, int32_t *o0,
-                         int32_t *o1, const Mod &M) {
-  uint64_t a0[N_WORDS], a1[N_WORDS], r0[N_WORDS], r1[N_WORDS];
-  load_words(x0, a0);
-  load_words(x1, a1);
-  fp2_sqr_words(a0, a1, r0, r1, M);
-  store_words(r0, o0);
-  store_words(r1, o1);
 }
 
 // The w-powers that K13's operand b holds, one kernel instance each: all
@@ -698,10 +690,10 @@ DT_HD void f2_store(const F2 &a, int32_t *c0, int32_t *c1) {
 // half h of the product with t is fp2_half (below).  Each half is the
 // unique canonical residue of its quantity, so k squares and the product
 // give f2_sqr k times and f2_mul bit for bit.  r must not alias the
-// operands.
-DT_HD void fp2_sqr_lane(int h, const uint64_t *a, const uint64_t *b,
-                        uint64_t *r, const Mod &M) {
-  uint64_t s[N_WORDS], d[N_WORDS], b2[N_WORDS];
+// operands.  fp2_sqr_operands picks the two operands (canonical).
+DT_HD void fp2_sqr_operands(int h, const uint64_t *a, const uint64_t *b,
+                            uint64_t *s, uint64_t *d, const Mod &M) {
+  uint64_t b2[N_WORDS];
   add_mod(a, b, s, M);
   sub_mod(a, b, d, M);
   add_mod(b, b, b2, M);
@@ -710,7 +702,28 @@ DT_HD void fp2_sqr_lane(int h, const uint64_t *a, const uint64_t *b,
     s[v] = h ? a[v] : s[v];
     d[v] = h ? b2[v] : d[v];
   }
+}
+
+DT_HD void fp2_sqr_lane(int h, const uint64_t *a, const uint64_t *b,
+                        uint64_t *r, const Mod &M) {
+  uint64_t s[N_WORDS], d[N_WORDS];
+  fp2_sqr_operands(h, a, b, s, d, M);
   mont_mul_words(s, d, r, M);
+}
+
+// B6's half h (K6) as fp2_sqr_lane's, its product the 32-bit carry-chain
+// CIOS of field_arith32.cuh (mont_mul32).  Both operands come out of
+// add_mod / sub_mod canonical, which mont_mul32 needs of its
+// multiplicand; the result is the same canonical residue.
+DT_HD void fp2_sqr_lane32(int h, const uint64_t *a, const uint64_t *b,
+                          uint64_t *r, const Mod &M, const Mod32 &M32) {
+  uint64_t s[N_WORDS], d[N_WORDS];
+  uint32_t x[N_WORDS32], y[N_WORDS32];
+  fp2_sqr_operands(h, a, b, s, d, M);
+  words_to_words32(s, x);
+  words_to_words32(d, y);
+  mont_mul32(x, y, x, M32);
+  words32_to_words(x, r);
 }
 
 // Half h of the Fp2 product a b: h = 0: a.x b.x - a.y b.y, h = 1: a.x b.y
@@ -745,21 +758,81 @@ DT_HD void fp2_half(int h, const F2 &a, const F2 &b, uint64_t *r,
 }
 
 // ---------------------------------------------------------------------------
-// Flat Fp12 conjugation and Frobenius (B15, B16), one coefficient or one
-// slot pair of a row at a time.
+// Flat Fp12 conjugation (B15) in limbs, a 16-byte chunk a lane
 // ---------------------------------------------------------------------------
+//
+// f^(p^6) negates the odd w-powers.  Eight lanes hold a coefficient, lane
+// j = lane % 8 its chunk j (limbs 4j..4j+3), and p - a is taken limb by
+// limb: lane j subtracts its limbs from p's with the borrow from the
+// chunks below it.  Chunk k generates a borrow when its limbs are above
+// p's (g_k: a borrow out with none in) and passes one on when they equal
+// p's (t_k), so the borrow into chunk j is set when some g_k t_(k+1) ...
+// t_(j-1) is, for k < j: a carry lookahead, read off the warp's masks of
+// g and t (one bit a lane, __ballot_sync on the card, built lane by lane
+// in field_host.cpp).  a = 0 gives 0, not p, as sub_mod(0, a) and
+// drand_tpu's _neg_rows do.
 
-// Coefficient s of f^(p^6): the odd w-powers negated.
-DT_HD void flat_conj_coeff(const int32_t *in, int32_t *out, int s,
-                           const Mod &M) {
-  uint64_t a[N_WORDS];
-  load_words(in, a);
-  if (s & 1) {
-    const uint64_t z[N_WORDS] = {0, 0, 0, 0, 0, 0};
-    sub_mod(z, a, a, M);
+// Limbs 4j..4j+3 of m.
+DT_HD void conj_p_chunk(int j, const Mod &M, int32_t *pl) {
+  DT_UNROLL
+  for (int k = 0; k < 8; k++) {
+    DT_UNROLL
+    for (int i = 0; i < 4; i++) {
+      const int bit = 12 * (4 * k + i), w = bit / 64, off = bit % 64;
+      uint64_t v = M.m[w] >> off;
+      if (off > 52) v |= M.m[w + 1] << (64 - off);
+      if (k == j) pl[i] = (int32_t)(v & 0xFFF);
+    }
   }
-  store_words(a, out);
 }
+
+// A chunk's flags against p's chunk pl: it generates a borrow, passes one
+// on, is zero.
+DT_HD void conj_flags(const int32_t *x, const int32_t *pl, bool &gen,
+                      bool &pass, bool &zero) {
+  int b = 0;
+  bool eq = true, z = true;
+  DT_UNROLL
+  for (int i = 0; i < 4; i++) {
+    b = pl[i] - x[i] - b < 0;
+    eq = eq && x[i] == pl[i];
+    z = z && x[i] == 0;
+  }
+  gen = b;
+  pass = eq;
+  zero = z;
+}
+
+// The borrow into `lane`'s chunk, from the warp's masks of generated and
+// passed-on borrows (bit L for lane L): the carry into bit `lane` of
+// (gen | pass) + gen, with the top lane of every 8-lane group masked off
+// so that no borrow crosses into the next coefficient.
+DT_HD int conj_borrow_in(int lane, uint32_t gen, uint32_t pass) {
+  const uint32_t keep = 0x7F7F7F7Fu;
+  const uint32_t x = (gen | pass) & keep, y = gen & keep;
+  return (int)(((x + y) ^ x ^ y) >> lane) & 1;
+}
+
+// `lane`'s chunk o of f^(p^6) from its chunk x: for an odd coefficient,
+// p - a with the borrow in, or 0 where all eight chunks of the
+// coefficient are zero (`zero`: the warp's mask of zero chunks); an even
+// one unchanged.  Limbs in [0, 4096).
+DT_HD void conj_chunk(int lane, bool odd, const int32_t *x,
+                      const int32_t *pl, uint32_t gen, uint32_t pass,
+                      uint32_t zero, int32_t *o) {
+  int b = conj_borrow_in(lane, gen, pass);
+  const bool nonzero = ((zero >> (lane & 24)) & 0xFFu) != 0xFFu;
+  DT_UNROLL
+  for (int i = 0; i < 4; i++) {
+    const int d = pl[i] - x[i] - b;
+    b = d < 0;
+    o[i] = odd ? (nonzero ? d + (b << 12) : 0) : x[i];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Flat Fp12 Frobenius (B16), one slot pair of a row at a time
+// ---------------------------------------------------------------------------
 
 // The per-slot 2x2 Montgomery constants of f^(p^n) (ops/flat12.py
 // _frob_consts): c[s] = {A, B, C, D}, each 6 words.

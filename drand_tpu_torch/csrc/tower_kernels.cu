@@ -23,9 +23,17 @@
 //   stages the pair's four coordinate planes and writes its two output
 //   planes coalesced (stage.cuh, 16-byte chunks through shared memory).
 // K6 dt_fp2_sqrs -- replaces PallasField.fp2_sqrs (:1029, body :1008).
-//   n stacked Fp2 squares, one thread per (item, row): two triangular
-//   squares, one cross product doubled and two REDCs, 1248 multiply-adds
-//   on 512 bytes: bound by bytes.
+//   n stacked Fp2 squares: two triangular squares, one cross product
+//   doubled and two REDCs, 1,200 multiply-adds on 512 bytes a row: bound
+//   by bytes.  K5's launch shape: two threads a row on neighbouring
+//   lanes, a block of 32 rows staging the item's two coordinate planes
+//   and writing them back coalesced (stage.cuh).  Lane h computes half h
+//   of the square as one Montgomery product of operands it picks
+//   (tower_arith.cuh fp2_sqr_lane32: (a + b)(a - b) or a (2b), K7's
+//   split) on the 32-bit carry chains of field_arith32.cuh (mont_mul32,
+//   K1's and K4's product), so a lane waits out one 12-word CIOS where
+//   one thread a row waited out two squares, a cross product and two
+//   64-bit REDCs.
 // K13 dt_flat_mul -- replaces PallasField.flat_mul (:1125, body
 //   _flat_mul_kernel :971).  A flat Fp12 product, b dense or sparse on
 //   b_idx: 144 word products and 23 REDCs a row when dense as schoolbook,
@@ -80,8 +88,17 @@
 // K8 dt_fp2_sqr5_mul -- replaces PallasField.fp2_sqr5_mul (:1348, body
 //   :1286).  The window step x^32 * t: K7's kernel at k = 5.
 // K15 dt_flat_conj -- replaces PallasField.flat_conj (:1812, body :1804).
-//   f^(p^6), the odd w-powers negated, one thread per coefficient: 3 KB a
-//   row, bound by bytes.
+//   f^(p^6), the odd w-powers negated: 3 KB a row and no multiply, bound
+//   by bytes.  A streaming pass over 16-byte chunks in limbs, no shared
+//   memory and no words: eight lanes a coefficient, lane j its chunk j,
+//   so a warp's load touches four whole 128-byte lines.  An odd
+//   coefficient's lanes subtract their limbs from p's, the borrow across
+//   them from a lookahead over the warp's masks of the chunks that
+//   generate and pass on a borrow (tower_arith.cuh conj_chunk; three
+//   __ballot_sync a chunk, the third the zero chunks, as 0 stays 0); an
+//   even one is stored as it came.  A grid-stride loop of
+//   CONJ_CHUNKS chunks a thread a trip, every load of a trip issued
+//   before any is used, over as many blocks as the card holds at once.
 // K16 dt_flat_frob -- replaces PallasField.flat_frob (:1834, body :1817).
 //   f^(p^n), n = 1..3: per slot pair (s, s + 6) a 2x2 matrix of Montgomery
 //   constants (passed by value), four products and two adds, one thread
@@ -114,7 +131,7 @@ constexpr int THREADS = 128;
 constexpr int FLAT_ROWS = 32;                 // rows of a K13 block
 constexpr int FLAT_THREADS = 6 * FLAT_ROWS;   // six threads a row
 
-constexpr int F2P_ROWS = 32;                  // pair-rows of a K5 block
+constexpr int F2P_ROWS = 32;                  // pair-rows of a K5, K6 block
 constexpr int F2P_THREADS = 2 * F2P_ROWS;     // two threads a pair-row
 
 // K5: block b serves rows [row0, row0 + F2P_ROWS) of pair b / per_pair.
@@ -155,15 +172,33 @@ __global__ void __launch_bounds__(F2P_THREADS)
                      o + at + c * plane);
 }
 
-__global__ void k_fp2_sqrs(const int32_t *__restrict__ x,
-                           int32_t *__restrict__ o, long long rows, int n,
-                           dt::Mod M) {
-  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (e >= rows * n) return;
-  const long long p = e / rows, r = e % rows;
-  const long long c0 = (2 * p * rows + r) * dt::N_LIMBS;
-  const long long c1 = c0 + rows * dt::N_LIMBS;
-  dt::fp2_sqr_limbs(x + c0, x + c1, o + c0, o + c1, M);
+// K6: K5's blocks on one operand.  Block b serves rows [row0, row0 +
+// F2P_ROWS) of item b / per_item, whose coordinate c is the plane (2p +
+// c) * rows * 32 of x and o; lane h of a row puts half h of its square
+// (fp2_sqr_lane32) in element h, and the block writes both planes back.
+__global__ void __launch_bounds__(F2P_THREADS)
+    k_fp2_sqrs(const int32_t *__restrict__ x, int32_t *__restrict__ o,
+               long long rows, int per_item, dt::Mod M, dt::Mod32 M32) {
+  constexpr int R = F2P_ROWS;
+  __shared__ uint64_t s[2 * dt::N_WORDS * R];
+  const long long plane = rows * dt::N_LIMBS;
+  const long long at = 2 * (blockIdx.x / per_item) * plane;
+  const long long row0 = (long long)(blockIdx.x % per_item) * R;
+  for (int c = 0; c < 2; c++)
+    dt::stage_in_all<R, F2P_THREADS, 1>(x + at + c * plane, row0, rows,
+                                        s + c * dt::N_WORDS * R);
+  __syncthreads();
+  const int r = threadIdx.x / 2, h = threadIdx.x & 1;
+  uint64_t a[dt::N_WORDS], b[dt::N_WORDS], half[dt::N_WORDS];
+  dt::flat_load(s + r, 0, R, a);
+  dt::flat_load(s + r, 1, R, b);
+  dt::fp2_sqr_lane32(h, a, b, half, M, M32);
+  __syncthreads();                             // every lane has its operands
+  dt::flat_store(half, s + r, h, R);
+  __syncthreads();
+  for (int c = 0; c < 2; c++)
+    dt::stage_out<R>(s + c * dt::N_WORDS * R, 1, row0, rows,
+                     o + at + c * plane);
 }
 
 // Stages `width` coefficients of each of a block's FLAT_ROWS rows of x
@@ -336,13 +371,42 @@ __global__ void __launch_bounds__(F2C_THREADS)
   if (in) dt::store_words(mine, o + at);
 }
 
-__global__ void k_flat_conj(const int32_t *__restrict__ a,
-                            int32_t *__restrict__ o, long long n,
-                            dt::Mod M) {
-  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  dt::flat_conj_coeff(a + e * dt::N_LIMBS, o + e * dt::N_LIMBS,
-                      (int)(e % dt::FLAT), M);
+constexpr int CONJ_THREADS = 256;
+constexpr int CONJ_CHUNKS = 4;                // a thread's chunks a trip
+
+// K15 on n 16-byte chunks: chunk q is chunk q % 8 of coefficient q / 8,
+// on lane q % 32 (blocks and trips are whole warps apart), and the
+// coefficient is odd where q / 8 is (a row has 12).  n is a multiple of
+// 96, so a warp's 32 chunks are all in or all out, and all its lanes take
+// part in the ballots.
+__global__ void __launch_bounds__(CONJ_THREADS)
+    k_flat_conj(const int4 *__restrict__ a, int4 *__restrict__ o,
+                long long n, dt::Mod M) {
+  const int lane = threadIdx.x & 31;
+  int32_t pl[4];
+  dt::conj_p_chunk(lane & 7, M, pl);
+  constexpr int BLOCK = CONJ_THREADS * CONJ_CHUNKS;
+  for (long long q0 = (long long)blockIdx.x * BLOCK + threadIdx.x; q0 < n;
+       q0 += (long long)gridDim.x * BLOCK) {
+    int4 v[CONJ_CHUNKS];
+#pragma unroll
+    for (int i = 0; i < CONJ_CHUNKS; i++)
+      if (q0 + i * CONJ_THREADS < n) v[i] = a[q0 + i * CONJ_THREADS];
+#pragma unroll
+    for (int i = 0; i < CONJ_CHUNKS; i++) {
+      const long long q = q0 + i * CONJ_THREADS;
+      if (q >= n) break;
+      const int32_t x[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
+      bool gen, pass, zero;
+      dt::conj_flags(x, pl, gen, pass, zero);
+      const uint32_t G = __ballot_sync(0xffffffffu, gen);
+      const uint32_t T = __ballot_sync(0xffffffffu, pass);
+      const uint32_t Z = __ballot_sync(0xffffffffu, zero);
+      int32_t y[4];
+      dt::conj_chunk(lane, (q >> 3) & 1, x, pl, G, T, Z, y);
+      o[q] = make_int4(y[0], y[1], y[2], y[3]);
+    }
+  }
 }
 
 __global__ void k_flat_frob(const int32_t *__restrict__ a,
@@ -357,6 +421,22 @@ __global__ void k_flat_frob(const int32_t *__restrict__ a,
 
 unsigned blocks(long long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
+}
+
+// Blocks of k_flat_conj the current device holds at once (SMs times
+// resident blocks a SM), asked once a device.
+unsigned conj_resident_blocks() {
+  static int cached[64];
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) dev = 0;
+  if (cached[dev] == 0) {
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k_flat_conj,
+                                                  CONJ_THREADS, 0);
+    cached[dev] = sms * per_sm > 0 ? sms * per_sm : 1;
+  }
+  return (unsigned)cached[dev];
 }
 
 }  // namespace
@@ -376,10 +456,15 @@ int dt_fp2_products(const int32_t *x, const int32_t *y, int32_t *o,
 int dt_fp2_sqrs(const int32_t *x, int32_t *o, long long rows, int n,
                 const uint64_t *mod7, void *stream) {
   if (rows <= 0 || n <= 0) return 0;
-  k_fp2_sqrs<<<blocks(rows * n, THREADS), THREADS, 0,
-               (cudaStream_t)stream>>>(x, o, rows, n,
-                                       dt::mod_from_words(mod7));
+  const unsigned per_item = blocks(rows, F2P_ROWS);
+  k_fp2_sqrs<<<n * per_item, F2P_THREADS, 0, (cudaStream_t)stream>>>(
+      x, o, rows, (int)per_item, dt::mod_from_words(mod7),
+      dt::mod32_from_words(mod7));
   return (int)cudaGetLastError();
+}
+
+int dt_fp2_sqrs_attrs(int *out) {
+  return dt::kernel_attrs(k_fp2_sqrs, F2P_THREADS, 0, out);
 }
 
 // b_idx: the J distinct w-powers (0..11) that b's rows hold, host memory;
@@ -466,10 +551,18 @@ int dt_fp2_sqr_chain_mul_attrs(int *out) {
 int dt_flat_conj(const int32_t *a, int32_t *o, long long rows,
                  const uint64_t *mod7, void *stream) {
   if (rows <= 0) return 0;
-  k_flat_conj<<<blocks(dt::FLAT * rows, THREADS), THREADS, 0,
-                (cudaStream_t)stream>>>(a, o, dt::FLAT * rows,
-                                        dt::mod_from_words(mod7));
+  const long long n = rows * dt::FLAT * 8;      // 16-byte chunks
+  const unsigned need = blocks(n, CONJ_THREADS * CONJ_CHUNKS);
+  const unsigned most = conj_resident_blocks();
+  k_flat_conj<<<need < most ? need : most, CONJ_THREADS, 0,
+                (cudaStream_t)stream>>>(
+      reinterpret_cast<const int4 *>(a), reinterpret_cast<int4 *>(o), n,
+      dt::mod_from_words(mod7));
   return (int)cudaGetLastError();
+}
+
+int dt_flat_conj_attrs(int *out) {
+  return dt::kernel_attrs(k_flat_conj, CONJ_THREADS, 0, out);
 }
 
 // consts: the 6 x 4 x 6 words of dt::FrobConsts, host memory.

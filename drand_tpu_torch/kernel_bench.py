@@ -3,12 +3,15 @@
     python -m drand_tpu_torch.kernel_bench [--walls N | --sass LIB...]
 
 Without --walls: the registers, spill and shared memory of K1, K4, K5,
-K7, K9, K10, K11, K12, K13 (each instance) and K14 (`-Xptxas -v` in the
-build log) and the SASS instructions of every kernel in the library
-(`cuobjdump -sass`, null without it), then K1 on [16384, 32] x 2 (its path call), K4 on one Fermat
-inversion a^(p-2) of [16384, 32] (the path's call: one launch) and at the
-single step k = 13 with t, K5 on [1, 2, 2, 16384, 32] (n = 1, the path's
-most common call), K13 on 16384 rows dense and on LINE_IDX and on 4224 rows dense
+K6, K7, K9, K10, K11, K12, K13 (each instance), K14 and K15 (`-Xptxas
+-v` in the build log) and the SASS instructions of every kernel in the
+library (`cuobjdump -sass`, null without it), then K1 on [16384, 32] x 2
+(its path call), K4 on one Fermat inversion a^(p-2) of [16384, 32] (the
+path's call: one launch) and at the single step k = 13 with t, K5 on [1,
+2, 2, 16384, 32] (n = 1, the path's most common call), K6 on [n, 2,
+16384, 32] at n = 1 (its most common call) and n = 8, K15 on [16384, 12,
+32] and [4224, 12, 32], K13 on 16384 rows dense and on LINE_IDX and on
+4224 rows dense
 (one 32-row block a SM), K9 at n = 1, 2, 3, 9, 16, 32, K10 without and
 with the doubling, K11 and K12 on 16384 rows, and K7 on [2, 16384] at
 k = 6 and at the longest k of the calls one default batch makes
@@ -46,9 +49,9 @@ ROUNDS = 16384
 # the kernels whose registers, spill and code size are reported, as their
 # names show in ptxas's and cuobjdump's output
 KERNEL_NAMES = ("k_mont_mul", "k_fp_pow_chain", "k_fp2_products",
-                "k_fp2_sqr_chain_mul", "k_flat_mul",
+                "k_fp2_sqrs", "k_fp2_sqr_chain_mul", "k_flat_mul",
                 "k_g2_point_dbl", "k_g2_point_add", "k_miller_iterILb0",
-                "k_miller_iterILb1", "k_cyclo_sqr")
+                "k_miller_iterILb1", "k_cyclo_sqr", "k_flat_conj")
 
 
 def _kernel_name(mangled: str):
@@ -189,6 +192,20 @@ def kernels(dev) -> dict:
     if not torch.equal(K.fp2_products(xs, ys, FP), want):
         sys.exit("fp2_products n=1: kernel != plain")
     ms["fp2_products n=1"] = _event_ms(lambda: K.fp2_products(xs, ys, FP))
+    # K6 at the path's most common call (n = 1) and its longest (n = 8)
+    for n in (1, 8):
+        xs = rows((n, 2, ROUNDS))
+        want = TW._fp2_stack(TW._fp2_sqrs_plain(TW._fp2_unstack(xs)))
+        if not torch.equal(K.fp2_sqrs(xs, FP), want):
+            sys.exit(f"fp2_sqrs n={n}: kernel != plain")
+        ms[f"fp2_sqrs n={n}"] = _event_ms(lambda: K.fp2_sqrs(xs, FP))
+    # K15 at the path's call, and on 4224 rows (its launch and ramp)
+    for n_rows in (ROUNDS, 4224):
+        if not torch.equal(K.flat_conj(f[:n_rows], FP),
+                           FL._flat_conj_plain(f[:n_rows])):
+            sys.exit(f"flat_conj {n_rows} rows: kernel != plain")
+        ms[f"flat_conj {n_rows} rows"] = _event_ms(
+            lambda: K.flat_conj(f[:n_rows], FP))
     b_dense = rows((ROUNDS, 12))
     for what, b_idx in (("dense", tuple(range(12))), ("line", FL.LINE_IDX)):
         b = b_dense if what == "dense" else rows((ROUNDS, len(b_idx)))

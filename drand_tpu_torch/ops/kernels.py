@@ -158,6 +158,8 @@ _ARGTYPES = {
     "dt_cyclo_sqr_attrs": [_P],
     "dt_flat_mul_attrs": [_P],
     "dt_fp2_products_attrs": [_P],
+    "dt_fp2_sqrs_attrs": [_P],
+    "dt_flat_conj_attrs": [_P],
     "dt_fp2_sqr_chain_mul_attrs": [_P],
     "dt_g2_point_dbl_attrs": [_P],
     "dt_g2_point_add_attrs": [_P],
@@ -246,10 +248,9 @@ def kernel_attrs(name: str) -> dict:
     """What `cudaFuncGetAttributes` and
     `cudaOccupancyMaxActiveBlocksPerMultiprocessor` say of the kernel of
     `name` on the current device, for the kernels that export them
-    (mont_mul, sqr_chain_mul, fp2_products, fp2_sqr_chain_mul, flat_mul
-    (its dense instance),
-    g2_point_dbl, g2_point_add, miller_dbl_iter, miller_add_iter,
-    cyclo_sqr)."""
+    (mont_mul, sqr_chain_mul, fp2_products, fp2_sqrs, fp2_sqr_chain_mul,
+    flat_mul (its dense instance), g2_point_dbl, g2_point_add,
+    miller_dbl_iter, miller_add_iter, cyclo_sqr, flat_conj)."""
     lib = _lib()
     out = np.zeros(5, dtype=np.int32)
     rc = getattr(lib, KERNELS[name].symbol + "_attrs")(out.ctypes.data)

@@ -146,6 +146,79 @@ def test_fp2_kernels_match_plain_versions_on_card(cuda, n):
     assert torch.equal(got, T._fp2_stack(T._fp2_sqrs_plain(T._fp2_unstack(x))))
 
 
+@pytest.mark.parametrize("n", [1, 4, 8])
+def test_fp2_sqrs_kernel_matches_plain_version_on_card(cuda, n):
+    """K6 (two lanes a row, 32-row blocks) at the path's n = 1, 4, 8 on
+    ragged row counts 1, 31, 33 and 16384 + 7, with every pair of 0, 1,
+    p-1 (Montgomery and raw), x1 = 0 and x0 = x1 in item 0; on a [n, 2,
+    3, 50] stack; and through towers.fp2_sqrs on coordinates of
+    broadcast shapes."""
+    from drand_tpu_torch.crypto.bls12381.constants import P
+    from drand_tpu_torch.ops import kernels as K
+    from drand_tpu_torch.ops import towers as T
+    from drand_tpu_torch.ops.field import FP
+    from test_torch_kernel_harness import _raw
+    rng = np.random.default_rng(30 + n)
+    edge = torch.from_numpy(np.concatenate([FP.encode([0, 1, P - 1]),
+                                            _raw([1, P - 1])]))
+    for rows in (1, 31, 33, 16384 + 7):
+        x = _fp_rows(rng, (n, 2, rows))
+        e = min(rows, 25)
+        x[0, 0, :e] = edge[torch.arange(e) // 5]
+        x[0, 1, :e] = edge[torch.arange(e) % 5]
+        if rows > 33:
+            x[0, 1, 25:29] = 0
+            x[0, 1, 29:33] = x[0, 0, 29:33]
+        x = x.to(cuda)
+        got = K.fp2_sqrs(x, FP)
+        assert torch.equal(got, T._fp2_stack(T._fp2_sqrs_plain(
+            T._fp2_unstack(x))))
+    x = _fp_rows(rng, (n, 2, 3, 50)).to(cuda)
+    assert torch.equal(K.fp2_sqrs(x, FP), T._fp2_stack(T._fp2_sqrs_plain(
+        T._fp2_unstack(x))))
+    a = (x[0, 0, :1], x[0, 1])                 # [1, 50] against [3, 50]
+    got = T.fp2_sqrs([a] * n)
+    want = T._fp2_sqrs_plain([tuple(c.cpu() for c in a)] * n)
+    for g, w in zip(got, want):
+        assert torch.equal(g[0].cpu(), w[0]) and torch.equal(g[1].cpu(), w[1])
+
+
+def test_flat_conj_kernel_matches_plain_version_on_card(cuda):
+    """K15 (eight lanes a coefficient, a grid-stride loop over as many
+    blocks as the card holds) on ragged row counts 1, 31, 33 and 16384 +
+    7, the harness's edge coefficients (borrows crossing lanes) in every
+    slot of the first rows and zero and all-(p-1) rows among them; on a
+    broadcast [3, 50] leading shape."""
+    from drand_tpu_torch.ops import flat12 as F
+    from drand_tpu_torch.ops import kernels as K
+    from drand_tpu_torch.ops.field import FP
+    from test_torch_kernel_harness import _conj_edges
+    rng = np.random.default_rng(31)
+    edges = torch.from_numpy(_conj_edges())
+    E = len(edges)
+    for rows in (1, 31, 33, 16384 + 7):
+        a = _fp_rows(rng, (rows, 12))
+        for r in range(min(rows, E)):
+            a[r] = edges[(torch.arange(12) + r) % E]
+        if rows > E + 2:
+            a[E] = 0
+            a[E + 1] = _max_flat_row()
+        a = a.to(cuda)
+        assert torch.equal(K.flat_conj(a, FP), F._flat_conj_plain(a))
+    b = _fp_rows(rng, (1, 50, 12)).to(cuda).expand(3, 50, 12, 32)
+    assert torch.equal(F.flat_conj(b), F._flat_conj_plain(b))
+
+
+def test_k6_k15_attrs_show_no_spill_on_card(cuda):
+    """kernel_attrs of K6 and K15: no local memory, at least one block a
+    SM."""
+    from drand_tpu_torch.ops import kernels as K
+    for name in ("fp2_sqrs", "flat_conj"):
+        at = K.kernel_attrs(name)
+        assert at["local_bytes"] == 0, (name, at)
+        assert at["blocks_per_sm"] >= 1, (name, at)
+
+
 @pytest.mark.parametrize("b_idx", [tuple(range(12)), (0, 2, 3, 6, 8, 9),
                                    (11,), (0, 5, 6, 11)])
 def test_flat_mul_kernel_matches_plain_version_on_card(cuda, b_idx):

@@ -12,7 +12,8 @@ at the edge of its input contract, the 32-bit carry-chain product and
 square of K1 and K4 (`field_arith32.cuh`, its carry flag emulated) on
 edge values, K4's programs (whole addition chains) against
 `Field._pow_addchain_plain` and `pow`; K5/K6 (`towers._fp2_*_plain`) on
-random values plus 0, 1 and p-1, K5 as its two lanes; K13
+random values plus 0, 1 and p-1, each as its two lanes (K6's product on
+the 32-bit carry chains, also on raw p-1, x1 = 0 and x0 = x1); K13
 (`flat12._flat_mul_plain`) through each of its instances, dense (its
 Karatsuba phases in both orders, half sums wrapping past p) and sparse,
 with the all-(p-1) stored-coefficient operand and 0, 1, p-1 in every
@@ -26,7 +27,9 @@ level shares; K11/K12
 (`pairing._miller_*_iter_plain`), their steps split into shares, with
 active and inactive pairs, and against f^2 (or f) times the two lines
 one after the other;
-K15/K16 (`flat12._flat_conj_plain`, `_flat_frob_plain`); K17/K20
+K15/K16 (`flat12._flat_conj_plain`, `_flat_frob_plain`), K15 as its
+eight-lane groups with the warp's ballots built lane by lane, on
+coefficients whose borrow crosses lanes; K17/K20
 (`flat12._flat_sqr_plain`, `_line_merge_plain`) with the all-(p-1) and
 zero operands; K18/K19 (`pairing._dbl_step_plain`, `_add_step_plain`)
 on K-stacked rows; K21/K22 (`Field.add`, `Field.sub`) at
@@ -71,7 +74,7 @@ def host_lib(tmp_path_factory):
     lib.dth_mont_reduce.argtypes = [P_, P_, LL, P_]
     lib.dth_sqr_chain_mul.argtypes = [P_, P_, P_, LL, I, P_]
     lib.dth_fp2_products.argtypes = [P_, P_, P_, LL, I, I, P_]
-    lib.dth_fp2_sqrs.argtypes = [P_, P_, LL, I, P_]
+    lib.dth_fp2_sqrs.argtypes = [P_, P_, LL, I, I, P_]
     lib.dth_flat_mul.argtypes = [P_, P_, P_, LL, P_, I, I, P_]
     lib.dth_cyclo_sqr.argtypes = [P_, P_, LL, I, I, P_]
     lib.dth_fp2_sqr_chain_mul.argtypes = [P_, P_, P_, LL, I, I, P_]
@@ -269,7 +272,7 @@ def test_fp2_products_and_sqrs(host_lib, n):
                               _ptr(FP.kernel_arg))
     want = T._fp2_products_plain(list(zip(_fp2_list(x), _fp2_list(y))))
     np.testing.assert_array_equal(out, T._fp2_stack(want).numpy())
-    host_lib.dth_fp2_sqrs(_ptr(x), _ptr(out), 7, n, _ptr(FP.kernel_arg))
+    host_lib.dth_fp2_sqrs(_ptr(x), _ptr(out), 7, n, 0, _ptr(FP.kernel_arg))
     want = T._fp2_sqrs_plain(_fp2_list(x))
     np.testing.assert_array_equal(out, T._fp2_stack(want).numpy())
 
@@ -300,6 +303,36 @@ def test_fp2_products_lanes(host_lib, n, reverse):
     host_lib.dth_fp2_products(_ptr(x), _ptr(y), _ptr(out), rows, n, reverse,
                               _ptr(FP.kernel_arg))
     want = T._fp2_products_plain(list(zip(_fp2_list(x), _fp2_list(y))))
+    np.testing.assert_array_equal(out, T._fp2_stack(want).numpy())
+
+
+def _raw(vals):
+    """Stored limbs of the values themselves (not their Montgomery forms):
+    raw p - 1 is the largest stored value."""
+    return np.stack([int_to_limbs(v) for v in vals]).astype(np.int32)
+
+
+@pytest.mark.parametrize("reverse", [0, 1])
+@pytest.mark.parametrize("n", [1, 4, 8])
+def test_fp2_sqrs_lanes(host_lib, n, reverse):
+    """K6's two lanes a row (half h of the square on lane h,
+    fp2_sqr_lane32 on the 32-bit carry chains), in the kernel's order and
+    in reverse, at the path's n = 1, 4 and 8: item 0's rows hold every
+    pair of 0, 1, p-1 (Montgomery and raw), x1 = 0 and x0 = x1 on random
+    x0, and the all-(p-1) row; the other items random, against the plain
+    squares."""
+    rows = 40
+    x = _fp_rows((n, 2, rows), seed=90 + n)
+    edge = np.concatenate([FP.encode([0, 1, P - 1]), _raw([1, P - 1])])
+    for r in range(25):                   # every pair of the five
+        x[0, 0, r], x[0, 1, r] = edge[r // 5], edge[r % 5]
+    x[0, 1, 25:29] = 0                    # x1 = 0
+    x[0, 1, 29:33] = x[0, 0, 29:33]       # x0 = x1
+    x[0, :, 33] = _raw([P - 1])[0]
+    out = np.empty_like(x)
+    host_lib.dth_fp2_sqrs(_ptr(x), _ptr(out), rows, n, reverse,
+                          _ptr(FP.kernel_arg))
+    want = T._fp2_sqrs_plain(_fp2_list(x))
     np.testing.assert_array_equal(out, T._fp2_stack(want).numpy())
 
 
@@ -436,6 +469,57 @@ def test_flat_conj_and_frob(host_lib, n):
     host_lib.dth_flat_conj(_ptr(a), _ptr(out), len(a), _ptr(FP.kernel_arg))
     np.testing.assert_array_equal(
         out, F._flat_conj_plain(torch.as_tensor(a)).numpy())
+
+
+def _conj_edges():
+    """Stored coefficients for K15's limb-level negation: 0, 1, 2, p-1
+    (raw: p - a is 1) and their Montgomery forms; coefficients whose
+    chunks above a borrowing chunk equal p's (chunk 0 above p's chunk 0,
+    chunks 1-6 equal p's, chunk 7 below: the borrow crosses six lanes;
+    the same from chunk 0 into chunk 4 and from chunk 2 into chunk 7);
+    one whose chunks equal p's but the lowest, which is below; one zero
+    but for its top chunk; and the all-(p-1) coefficient."""
+    mask = (1 << 48) - 1
+    c = [(P >> (48 * j)) & mask for j in range(8)]
+
+    def from_chunks(ch):
+        v = sum(x << (48 * j) for j, x in enumerate(ch))
+        assert v < P
+        return v
+
+    cross = [from_chunks([c[0] + 1] + c[1:7] + [c[7] - 1]),
+             from_chunks([c[0] + 1] + c[1:4] + [c[4] - 1] + c[5:]),
+             from_chunks(c[:2] + [c[2] + 5] + c[3:7] + [c[7] - 1]),
+             from_chunks([c[0] - 7] + c[1:]),
+             from_chunks([0] * 7 + [c[7] - 1])]
+    return np.concatenate([_raw([0, 1, 2, P - 1] + cross),
+                           FP.encode([1, 2, P - 1])])
+
+
+def test_flat_conj_lanes(host_lib):
+    """K15's lanes, eight a coefficient and a warp's three masks built
+    lane by lane as the kernel's ballots give them: every edge coefficient
+    (_conj_edges) in odd and even slots, rows whose coefficients are all
+    zero, all p-1 or all one edge value, then random rows, against the
+    plain conjugation."""
+    edges = _conj_edges()
+    E = len(edges)
+    rows = E + 2 * E + 3 + 4
+    a = _fp_rows((rows, 12), seed=23)
+    for r in range(E):                    # each edge in every slot
+        a[r] = edges[(np.arange(12) + r) % E]
+    for r in range(E):                    # rows of one edge value
+        a[E + r] = edges[r]
+    for r in range(E):                    # odd slots only
+        a[2 * E + r, 1::2] = edges[r]
+    a[3 * E] = 0
+    a[3 * E + 1] = _max_flat()
+    a[3 * E + 2, ::2] = 0
+    out = np.empty_like(a)
+    host_lib.dth_flat_conj(_ptr(a), _ptr(out), rows, _ptr(FP.kernel_arg))
+    want = F._flat_conj_plain(torch.as_tensor(a)).numpy()
+    np.testing.assert_array_equal(out, want)
+    assert (out[3 * E] == 0).all()
 
 
 def _g2_cases(seed):

@@ -1,5 +1,5 @@
 """The plain versions of the port's Fp2 and flat-Fp12 kernels (K5, K6, K13,
-K14) against drand_tpu, limb for limb.
+K14, K15) against drand_tpu, limb for limb.
 
 The same inputs (numpy, fixed seed) go through the port's plain version
 on the CPU -- what the kernel is held against on the card -- and through
@@ -115,10 +115,24 @@ def test_fp2_products_plain_vs_pallas_kernel(sim):
         TT.fp2_decode(tuple(map(_t, ys[-1])), 2))
 
 
+def _raw_fp(v):
+    """The stored limbs of v itself (not its Montgomery form)."""
+    return np.asarray([(v >> (12 * i)) & 0xFFF for i in range(32)], np.int32)
+
+
 def test_fp2_sqrs_plain_vs_pallas_kernel(sim):
-    xs, _ = _fp2_pairs(9)
+    """One simulated kernel call on 9 items whose rows hold 0, 1, p-1
+    (Montgomery forms) and raw p-1 in both coordinates, x1 = 0 and
+    x0 = x1; the port's plain version on the first 1, 4, 8 and 9 (n = 1,
+    4 and 8 are the path's calls)."""
+    xs = [tuple(np.array(c) for c in x) for x in _fp2_pairs(9, rows=6)[0]]
+    top = _raw_fp(P - 1)
+    for x0, x1 in xs:
+        x0[3], x1[3] = top, top          # raw p - 1 in both
+        x1[4] = 0                        # x1 = 0
+        x1[5] = x0[5]                    # x0 = x1
     want = sim.fp2_sqrs([tuple(map(jnp.asarray, x)) for x in xs])
-    for n in (1, 4, 9):
+    for n in (1, 4, 8, 9):
         got = TT._fp2_sqrs_plain([tuple(map(_t, x)) for x in xs[:n]])
         for w, g in zip(want, got):
             _eq(w[0], g[0])
@@ -155,3 +169,27 @@ def test_flat_cyclo_sqr_plain_vs_pallas_kernel(sim):
     _eq(want, TFL.flat_cyclo_sqr(_t(a)))
     for i, v in enumerate(vals):
         assert TFL.flat_decode(got, i) == G.fp12_mul(v, v)
+
+
+def test_flat_conj_plain_vs_pallas_kernel(sim):
+    """drand_tpu's packed conjugation (PallasField.flat_conj under the
+    simulator, reached through flat12.flat_tile with use_pallas patched,
+    as tests/test_sim_kats.py drives it) on random rows, a row with zero
+    coefficients in odd and even slots, the flat one and the all-(p-1)
+    row, against the port's plain version."""
+    from unittest import mock
+    a = np.array(JF.flat_encode(_fp12_vals(3, 8)))
+    a[1, 3] = 0
+    a[1, 4] = 0
+    one = np.asarray(JF.flat_encode([G.FP12_ONE]))
+    a = np.concatenate([a, one, _max_flat()[None]])
+    with mock.patch.object(PFm, "use_pallas", return_value=True):
+        ft = JF.flat_tile(jnp.asarray(a))
+        assert isinstance(ft, PFm.TileForm)
+        want = np.asarray(JF.flat_untile(JF.flat_conj(ft))).reshape(a.shape)
+    got = TFL._flat_conj_plain(_t(a))
+    _eq(want, got)
+    _eq(want, TFL.flat_conj(_t(a)))
+    assert (got.numpy()[1, 3] == 0).all()
+    for i in (0, 2):                      # the rows left as encoded
+        assert TFL.flat_decode(got, i) == G.fp12_conj(_fp12_vals(3, 8)[i])
