@@ -10,7 +10,7 @@ Phases, each printing one JSON line:
           memory and resident blocks per SM (cudaFuncGetAttributes and
           cudaOccupancyMaxActiveBlocksPerMultiprocessor, on a line of its
           own): K1, K4, K5, K6, K7, K13 (its dense instance), K9, K10,
-          K11, K12, K14, K15
+          K11, K12, K14, K15, K16, K18
   slice   drand_tpu_torch.verify.Verifier (drand_tpu's merged Miller
           executor) on the committed 16384-round pedersen-bls-unchained
           segment (all true; one flipped byte gives exactly one false;
@@ -78,9 +78,12 @@ exponentiation's inversion (mont_mul, sqr_chain_mul, fp2_products).
           flat_conj also on 16384, 33 and 1 rows holding in every slot
           the coefficients whose borrow crosses lanes (chunks equal to
           p's above a borrowing one), 0, 1, p-1, with zero and
-          all-(p-1) rows, flat_frob at n = 1, 2, 3, flat_sqr and line_merge
+          all-(p-1) rows, flat_frob at n = 1, 2, 3 (also on 16384, 33
+          and 1 rows with zero and all-(p-1) rows), flat_sqr and line_merge
           on all-(p-1) and zero rows, g2_dbl_line and g2_add_line on three
-          stacked pairs, add and sub at 0, 1, m-1 and on all-(m-1) and
+          stacked pairs with Z = 1 and Z = 0 rows (g2_dbl_line also on 1,
+          31 and 33 rows: ragged blocks), add and sub at 0, 1, m-1 and on
+          all-(m-1) and
           zero rows; on random values plus 0, 1, m-1 (mont_reduce: wide
           values up to the top of its input contract, in limbs up to
           2^14 - 1); then the device time of kernel and plain version at
@@ -95,8 +98,10 @@ ms in one more profiled batch of its path: the trio batch for flat_sqr,
 g2_dbl_line and g2_add_line, the default one for the others),
 bound_ms_batch (its bound summed over every call that path's batch made)
 and loss_ms (the difference), path_ms and loss_ms null where none of up
-to four profiled sessions saw every launch of the kernel, and, last,
-{"ok": true, "device": ...}.
+to four profiled sessions saw every launch of the kernel, and, for
+flat_frob and g2_dbl_line, "code": registers, local memory and blocks per
+SM (kernel_attrs), stack frame and spill stores (ptxas) and SASS
+instructions (cuobjdump); and, last, {"ok": true, "device": ...}.
 Any mismatch or error exits non-zero before the last line.  It imports
 nothing of JAX or drand_tpu.  Details go to chiprun_out/chip_smoke.json.
 """
@@ -148,6 +153,9 @@ LINE_IDX = (0, 2, 3, 6, 8, 9)
 # torch path)
 OFF_PATH = ("mont_sqr", "mont_reduce", "fp2_sqr5_mul", "line_merge", "add",
             "sub")
+# the kernels whose code statistics the kernels line gives, by their name
+# in ptxas's and cuobjdump's output
+CODE_STATS = {"flat_frob": "k_flat_frob", "g2_dbl_line": "k_g2_dbl_line"}
 # kernels of the trio Miller executor only, and of the merged one only
 TRIO = ("flat_sqr", "g2_dbl_line", "g2_add_line")
 MERGED = ("miller_dbl_iter", "miller_add_iter")
@@ -181,6 +189,26 @@ MULADDS_FLAT_SQR = 66 * MULADDS_WIDE + 12 * MULADDS_TRI + 23 * MULADDS_REDC
 MULADDS_LINE_MERGE = muladds_flat(LINE_IDX, LINE_IDX)
 # f times the two lines of K11/K12: one sparse product after the other
 MULADDS_LINES = 2 * muladds_flat(LINE_IDX)
+
+
+_FROB_PRODUCTS = {}
+
+
+def frob_products(n: int) -> int:
+    """The Montgomery products a row of f^(p^n) needs: its constants
+    (flat12._FROB[n]) other than 0, one and minus one, whose terms K16
+    takes without a product."""
+    if n not in _FROB_PRODUCTS:
+        import torch
+
+        from drand_tpu_torch.ops import flat12 as FL
+        from drand_tpu_torch.ops.field import FP
+        one = FP.one_mont
+        special = (torch.zeros_like(one), one, FP.neg(one))
+        _FROB_PRODUCTS[n] = sum(
+            not any(torch.equal(c[s], x) for x in special)
+            for c in FL._FROB[n] for s in range(6))
+    return _FROB_PRODUCTS[n]
 
 
 def emit(obj) -> None:
@@ -285,7 +313,7 @@ def work(name: str, call: tuple):
         return 24 * 128 * math.prod(call[:-2]), 0
     if name == "flat_frob":
         rows = math.prod(call[0][:-2])
-        return 24 * 128 * rows, 24 * MULADDS_MUL * rows
+        return 24 * 128 * rows, frob_products(call[1]) * MULADDS_MUL * rows
     if name in ("fp2_products", "fp2_sqrs"):
         items = call[1] * math.prod(call[0][:-1])
         if name == "fp2_products":
@@ -331,15 +359,14 @@ def bound_ms(nbytes: float, muladds: float):
 def kernel_of(device_name: str):
     """The port's kernel (a key of ops/kernels.py KERNELS) that a device
     kernel of a profile is, from its demangled name, or None for torch's
-    own.  K11/K12, K18/K19 and K21/K22 are the two instances of one
-    template; K7 and K8 share one kernel (K8 has no caller on a path), and
-    K4's kernel is k_fp_pow_chain."""
+    own.  K11/K12 and K21/K22 are the two instances of one template; K7
+    and K8 share one kernel (K8 has no caller on a path), and K4's kernel
+    is k_fp_pow_chain."""
     m = re.search(r"::k_(\w+)(?:<([^>]*)>)?\(", device_name)
     if not m:
         return None
     base, arg = m.groups()
     pairs = {"miller_iter": ("miller_dbl_iter", "miller_add_iter"),
-             "g2_line_step": ("g2_dbl_line", "g2_add_line"),
              "add_sub": ("add", "sub")}
     if base in pairs:
         return pairs[base][arg == "true"]
@@ -382,6 +409,7 @@ def main() -> int:
     import numpy as np
 
     from drand_tpu_torch import fixtures as FX
+    from drand_tpu_torch import kernel_bench as KB
     from drand_tpu_torch import verify as V
     from drand_tpu_torch.profiling import trio_batch_async
     from drand_tpu_torch.crypto.bls12381 import curve as GC
@@ -420,7 +448,8 @@ def main() -> int:
         for name in ("mont_mul", "sqr_chain_mul", "fp2_products",
                      "fp2_sqrs", "fp2_sqr_chain_mul", "flat_mul",
                      "g2_point_dbl", "g2_point_add", "miller_dbl_iter",
-                     "miller_add_iter", "cyclo_sqr", "flat_conj")}}
+                     "miller_add_iter", "cyclo_sqr", "flat_conj",
+                     "flat_frob", "g2_dbl_line")}}
     emit(report["occupancy"])
 
     def pairing_rows(k_pairs: int, n: int):
@@ -856,6 +885,7 @@ def main() -> int:
             x = field_rows(FP, call)
             x[..., :8, 4, :] = FP.one_mont.to(dev)      # Z = 1, as at start
             x[..., :8, 5, :] = 0
+            x[..., 8:16, 4:6, :] = 0                    # Z = 0: infinity
             return (x,)
         if name in ("add", "sub"):
             F, shape = fields[call[0]], call[1]
@@ -881,7 +911,11 @@ def main() -> int:
             return ((conj_edge_rows(call) if kind == "edges"
                      else field_rows(FP, call)),)
         if name == "flat_frob":
-            return (field_rows(FP, call[0]),)
+            a = field_rows(FP, call[0])
+            if kind == "edge":
+                a[1::3] = 0
+                a[2::3] = max_flat(a[2::3].shape)
+            return (a,)
         if name in ("fp2_products", "fp2_sqrs"):
             shape, n = call
             x = (fp2_edge_rows((n, 2) + shape) if kind == "edges"
@@ -1065,6 +1099,8 @@ def main() -> int:
         cases["flat_conj"].add(((rows_, 12, 32), "edges"))
     for n in (1, 2, 3):
         cases["flat_frob"].add(((flat12, n), "random"))
+        for rows_ in (BATCH, 33, 1):
+            cases["flat_frob"].add((((rows_, 12, 32), n), "edge"))
     for kind in ("random", "edge"):
         cases["flat_sqr"].add((flat12, kind))
         cases["line_merge"].add((flat12, kind))
@@ -1072,6 +1108,8 @@ def main() -> int:
             cases["add"].add(((f, flat32), kind))
             cases["sub"].add(((f, flat32), kind))
     cases["g2_dbl_line"].add(((3, BATCH, 8, 32), "random"))
+    for shape in ((3, 33, 8, 32), (1, 31, 8, 32), (1, 1, 8, 32)):
+        cases["g2_dbl_line"].add((shape, "random"))
     cases["g2_add_line"].add(((3, BATCH, 12, 32), "random"))
 
     rows = []
@@ -1170,6 +1208,15 @@ def main() -> int:
     bound_batch = {name: sum(n * bound_ms(*work(name, call))[0]
                              for call, n in main_path_calls[name].items())
                    for name in K.KERNELS}
+    ptxas = KB.ptxas_stats(info["log"] or open(os.path.join(
+        info["dir"], "nvcc.log")).read())
+    sass = KB._sass_sizes(os.path.join(info["dir"], K.LIB_NAME)) or {}
+    code = {name: {**{k: report["occupancy"][name][k]
+                      for k in ("num_regs", "local_bytes", "blocks_per_sm")},
+                   **{k: ptxas.get(dev_name, {}).get(k)
+                      for k in ("stack_bytes", "spill_stores")},
+                   "sass_instructions": sass.get(dev_name)}
+            for name, dev_name in CODE_STATS.items()}
     kernels = []
     for name, kern in K.KERNELS.items():
         tm = per_kernel[name]
@@ -1184,7 +1231,8 @@ def main() -> int:
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": None, "path_ms": path,
             "bound_ms_batch": bound_batch[name],
-            "loss_ms": None if path is None else path - bound_batch[name]})
+            "loss_ms": None if path is None else path - bound_batch[name],
+            **({"code": code[name]} if name in code else {})})
     report["kernels"] = kernels
     report["parity_rows"] = rows
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

@@ -35,31 +35,6 @@ struct LineF2 {
   F2 a, b, c;
 };
 
-// The Miller doubling step (ops/pairing.py _dbl_step): T <- 2T, and the
-// line scaled by 2YZ^3, a = 3X^3 - 2Y^2, b = -3X^2 Z^2 xp, c = 2YZ^3 yp.
-DT_HD LineF2 miller_dbl_step(G2J &T, const uint64_t *xp, const uint64_t *yp,
-                             const Mod &M) {
-  const F2 XX = f2_sqr(T.X, M), YY = f2_sqr(T.Y, M), ZZ = f2_sqr(T.Z, M);
-  const F2 YZ = f2_mul(T.Y, T.Z, M);
-  const F2 xyy = f2_add(T.X, YY, M);
-  const F2 E = f2_add(f2_dbl(XX, M), XX, M);
-  const F2 X3c = f2_mul(XX, T.X, M), YZ3 = f2_mul(YZ, ZZ, M);
-  const F2 XXZZ = f2_mul(XX, ZZ, M), C = f2_sqr(YY, M);
-  const F2 S2 = f2_sqr(xyy, M), F_ = f2_sqr(E, M);
-  const F2 a = f2_sub(f2_add(f2_dbl(X3c, M), X3c, M), f2_dbl(YY, M), M);
-  const F2 nb3 = f2_neg(f2_add(f2_dbl(XXZZ, M), XXZZ, M), M);
-  const F2 b = f2_mul_fp(nb3, xp, M);
-  const F2 c = f2_mul_fp(f2_dbl(YZ3, M), yp, M);
-  F2 D = f2_sub(S2, f2_add(XX, C, M), M);
-  D = f2_dbl(D, M);
-  const F2 X2 = f2_sub(F_, f2_dbl(D, M), M);
-  const F2 Et = f2_mul(E, f2_sub(D, X2, M), M);
-  T.Y = f2_sub(Et, f2_dbl(f2_dbl(f2_dbl(C, M), M), M), M);
-  T.X = X2;
-  T.Z = f2_dbl(YZ, M);
-  return {a, b, c};
-}
-
 // The Miller mixed-addition step (ops/pairing.py _add_step), Q = (xq, yq)
 // affine: with H = xq Z^2 - X and r = 2(yq Z^3 - Y), the line is
 // a = r xq - 2HZ yq, b = -r xp, c = 2HZ yp.
@@ -110,23 +85,21 @@ DT_HD void g2_store6(const G2J &p, int32_t *c, long long cs) {
   f2_store(p.Z, c + 4 * cs, c + 5 * cs);
 }
 
-// B18 (q == nullptr) and B19, one stacked row of the trio loop's step: in
-// holds T (X0 X1 Y0 Y1 Z0 Z1), for B19 Q (xq0 xq1 yq0 yq1), then P (xp
-// yp), 32 limbs each; T' goes to t_out and the line triple a0 a1 b0 b1 c0
-// c1 to l_out, six coordinates of 32 limbs each.  No mask: the trio loop
-// masks the lines and selects T itself (ops/pairing.py).
-DT_HD void miller_line_step(const int32_t *in, bool add, int32_t *t_out,
-                            int32_t *l_out, const Mod &M) {
+// B19, one stacked row of the trio loop's addition step: in holds T (X0
+// X1 Y0 Y1 Z0 Z1), Q (xq0 xq1 yq0 yq1), then P (xp yp), 32 limbs each; T'
+// goes to t_out and the line triple a0 a1 b0 b1 c0 c1 to l_out, six
+// coordinates of 32 limbs each.  No mask: the trio loop masks the lines
+// and selects T itself (ops/pairing.py).
+DT_HD void miller_add_line(const int32_t *in, int32_t *t_out, int32_t *l_out,
+                           const Mod &M) {
   G2J T = g2_load6(in, N_LIMBS);
-  const int32_t *p = in + (add ? 10 : 6) * N_LIMBS;
+  const int32_t *p = in + 10 * N_LIMBS;
   uint64_t xp[N_WORDS], yp[N_WORDS];
   load_words(p, xp);
   load_words(p + N_LIMBS, yp);
   const LineF2 l =
-      add ? miller_add_step(T, f2_load(in + 6 * N_LIMBS, in + 7 * N_LIMBS),
-                            f2_load(in + 8 * N_LIMBS, in + 9 * N_LIMBS), xp,
-                            yp, M)
-          : miller_dbl_step(T, xp, yp, M);
+      miller_add_step(T, f2_load(in + 6 * N_LIMBS, in + 7 * N_LIMBS),
+                      f2_load(in + 8 * N_LIMBS, in + 9 * N_LIMBS), xp, yp, M);
   g2_store6(T, t_out, N_LIMBS);
   f2_store(l.a, l_out, l_out + N_LIMBS);
   f2_store(l.b, l_out + 2 * N_LIMBS, l_out + 3 * N_LIMBS);
@@ -144,17 +117,21 @@ DT_HD void flat_unstage(const uint64_t *lo, const uint64_t *hi, int j,
 
 
 // ---------------------------------------------------------------------------
-// B11's doubling step split over three threads of a pair (K11): the
-// formula of miller_dbl_step by its dependency levels, each level's Fp2
-// values passed to the next through buffers in flat_load's layout
-// (element e, word v at base[(e * 6 + v) * stride]), a barrier between
-// levels.  Per pair:
+// The Miller doubling step (ops/pairing.py _dbl_step_plain: T <- 2T, and
+// the line scaled by 2YZ^3, a = 3X^3 - 2Y^2, b = -3X^2 Z^2 xp, c = 2YZ^3
+// yp) split over three threads of a pair by its dependency levels, for
+// both Miller executors: K11 (the merged iteration, B11) and K18 (the trio
+// loop's step, B18).  Each level's Fp2 values pass to the next through
+// buffers in flat_load's layout (element e, word v at base[(e * 6 + v) *
+// stride]), a barrier between levels.  Per pair:
 //
 //   t   T, elements X0 X1 Y0 Y1 Z0 Z1 (read at levels 0 and 1)
 //   s1  level 0's XX YY ZZ YZ, elements 0-7
 //   s2  level 1's X3c C YZ3 S2 XXZZ F, elements 0-11
-//   l   the flat line, elements 0-5 on LINE_IDX (line_put_cell),
-//       written at level 2 (it may alias t: level 2 reads no T)
+//
+// and where level 2 reads P and puts the line and T', fixed at compile
+// time by the executor's Io (MergedDblIo, TrioDblIo below; level 2 reads
+// no T, so either may write over it).
 //
 // Share j of each level (the work of one thread, in Fp2 products and
 // squares of 1776 and 1248 multiply-adds, Fp products of 600):
@@ -167,9 +144,7 @@ DT_HD void flat_unstage(const uint64_t *lo, const uint64_t *hi, int j,
 //            1: its c = 2 YZ3 yp, and Z' = 2 YZ; 2: D = 2 (S2 - XX - C),
 //            X' = F - 2D, Y' = E (D - X') - 8C
 //
-// Level 2 writes the pair's line (the flat one where the pair is
-// inactive) and T' (6 x 32 limbs at t_out, skipped when t_out is null).
-// Every intermediate is canonical, so the shares give miller_dbl_step's
+// Every intermediate is canonical, so the shares give _dbl_step_plain's
 // outputs bit for bit.
 // ---------------------------------------------------------------------------
 
@@ -231,11 +206,61 @@ constexpr int MA_T = 0, MA_Q = 12, MA_S = 20, MA_SW = 24;
 constexpr int MA_F = 0, MA_MID = MA_S + 6;
 constexpr int MB_DBL = 64, MB_ADD = MA_S + 2 * MA_SW;   // elements K11, K12 use
 
-// p: the pair's P (xp then yp, 32 limbs each); active: the pair's mask.
+// K11's level 2: P (xp then yp, 32 limbs each) from device memory at p;
+// the pair's flat line on LINE_IDX at l (line_put_cell: the flat one
+// where the pair is inactive); T' to device memory, 6 x 32 limbs at t_out,
+// skipped when t_out is null.
+struct MergedDblIo {
+  uint64_t *l;
+  const int32_t *p;
+  bool active;
+  int32_t *t_out;
+  const One &one;
+  int stride;
+
+  DT_HD void load_p(int i, uint64_t *x) const {
+    load_words(p + i * N_LIMBS, x);
+  }
+  DT_HD void line(const F2 &c, int i, const Mod &M) const {
+    line_put_cell(c, i, active, one, l, stride, M);
+  }
+  DT_HD bool keeps_t() const { return t_out != nullptr; }
+  DT_HD void point(const F2 &v, int e) const {
+    f2_store(v, t_out + e * N_LIMBS, t_out + (e + 1) * N_LIMBS);
+  }
+};
+
+// A K18 row's buffer, in elements: T and P as staged (X0 X1 Y0 Y1 Z0 Z1 xp
+// yp: DL_T, DL_P), the level values (DL_S1: 8, DL_S2: 12) and the line
+// triple a0 a1 b0 b1 c0 c1 (DL_L); T' goes over T.
+constexpr int DL_T = 0, DL_P = 6, DL_S1 = 8, DL_S2 = 16, DL_L = 28;
+constexpr int DL_BUF = DL_L + 6;
+
+// K18's level 2: P beside T in the row's buffer t (DL_P), the unmasked
+// line triple to l, T' over T.
+struct TrioDblIo {
+  uint64_t *t, *l;
+  int stride;
+
+  DT_HD void load_p(int i, uint64_t *x) const {
+    flat_load(t, DL_P + i, stride, x);
+  }
+  DT_HD void line(const F2 &c, int i, const Mod &) const {
+    f2_put(c, l, 2 * i, stride);
+  }
+  DT_HD bool keeps_t() const { return true; }
+  DT_HD void point(const F2 &v, int e) const {
+    f2_put(v, t, DL_T + e, stride);
+  }
+};
+
+// Share j of `level` for one pair: t, s1, s2 its buffers, io where level 2
+// reads P and puts the line (cell i = 0, 1, 2 for a, b, c) and T'
+// (element e = 0, 2, 4 for X', Y', Z').
+template <class Io>
 DT_HD void miller_dbl_share(int level, int j, const uint64_t *t,
-                            uint64_t *s1, uint64_t *s2, uint64_t *l,
-                            const int32_t *p, bool active, int32_t *t_out,
-                            const One &one, int stride, const Mod &M) {
+                            uint64_t *s1, uint64_t *s2, const Io &io,
+                            int stride, const Mod &M) {
   if (level == 0) {
     if (j < 2) {                          // XX or YY, and half of ZZ
       f2_put(f2_sqr(f2_at(t, 2 * j, stride), M), s1, 2 * j, stride);
@@ -269,29 +294,26 @@ DT_HD void miller_dbl_share(int level, int j, const uint64_t *t,
     const F2 a = f2_sub(f2_triple(f2_at(s2, 0, stride), M),
                         f2_dbl(f2_at(s1, 2, stride), M), M);
     uint64_t xp[N_WORDS];
-    load_words(p, xp);
+    io.load_p(0, xp);
     const F2 b = f2_mul_fp(f2_neg(f2_triple(f2_at(s2, 8, stride), M), M),
                            xp, M);
-    line_put_cell(a, 0, active, one, l, stride, M);
-    line_put_cell(b, 1, active, one, l, stride, M);
+    io.line(a, 0, M);
+    io.line(b, 1, M);
   } else if (j == 1) {
     uint64_t yp[N_WORDS];
-    load_words(p + N_LIMBS, yp);
+    io.load_p(1, yp);
     const F2 c = f2_mul_fp(f2_dbl(f2_at(s2, 4, stride), M), yp, M);
-    line_put_cell(c, 2, active, one, l, stride, M);
-    if (t_out != nullptr)
-      f2_store(f2_dbl(f2_at(s1, 6, stride), M), t_out + 4 * N_LIMBS,
-               t_out + 5 * N_LIMBS);
+    io.line(c, 2, M);
+    if (io.keeps_t()) io.point(f2_dbl(f2_at(s1, 6, stride), M), 4);
   } else {
     const F2 XX = f2_at(s1, 0, stride), C = f2_at(s2, 2, stride);
     F2 D = f2_sub(f2_at(s2, 6, stride), f2_add(XX, C, M), M);
     D = f2_dbl(D, M);
     const F2 X2 = f2_sub(f2_at(s2, 10, stride), f2_dbl(D, M), M);
-    if (t_out != nullptr) f2_store(X2, t_out, t_out + N_LIMBS);
+    if (io.keeps_t()) io.point(X2, 0);
     const F2 Et = f2_mul(f2_triple(XX, M), f2_sub(D, X2, M), M);
     const F2 Y2 = f2_sub(Et, f2_dbl(f2_dbl(f2_dbl(C, M), M), M), M);
-    if (t_out != nullptr)
-      f2_store(Y2, t_out + 2 * N_LIMBS, t_out + 3 * N_LIMBS);
+    if (io.keeps_t()) io.point(Y2, 2);
   }
 }
 

@@ -45,18 +45,28 @@
 //   forms.
 // K18 dt_g2_dbl_line -- replaces PallasField.g2_dbl_line (:1538, body
 //   _g2_dbl_line_kernel :1392, rows _g2_dbl_line_rows :1401).  The Miller
-//   doubling step of the trio loop over the K pairs stacked on the rows,
-//   one thread a row: in [rows, 8, 32] (X0 X1 Y0 Y1 Z0 Z1 xp yp), out T'
-//   and the line triple (a0 a1 b0 b1 c0 c1), [rows, 6, 32] each.  6 Fp2
-//   squares, 5 products and 4 Fp products, ~18.8k multiply-adds on 2.5 KB,
-//   bound by operations.
+//   doubling step of the trio loop over the K pairs stacked on the rows:
+//   in [rows, 8, 32] (X0 X1 Y0 Y1 Z0 Z1 xp yp), out T' and the line
+//   triple (a0 a1 b0 b1 c0 c1), [rows, 6, 32] each.  6 Fp2 squares, 5
+//   products and 4 Fp products, ~18.8k multiply-adds on 2.5 KB, bound by
+//   operations.  K11's launch shape on K11's shares: a block takes 32
+//   rows with three threads a row, one warp a share; the rows are staged
+//   once, coalesced (stage.cuh), into shared memory as words, the three
+//   dependency levels of curve_arith.cuh miller_dbl_share run with a
+//   barrier after each (its TrioDblIo instance: P from the staged row,
+//   the unmasked line triple and T' into shared memory), and T' and the
+//   line are staged out.  A row's buffer is 34 elements (curve_arith.cuh
+//   DL_*), 52,224 bytes of dynamic shared memory a block: four blocks (12
+//   warps) a SM at 168 registers at most (ptxas keeps four 32-bit values
+//   across the level loop in 24 bytes of local memory).  Its time is the
+//   shares' word arithmetic, as in K11.
 // K19 dt_g2_add_line -- replaces PallasField.g2_add_line (:1551, body
 //   :1450, rows :1460).  The mixed addition step, in [rows, 12, 32] (T,
 //   xq0 xq1 yq0 yq1, xp yp): 4 squares, 10 products and 4 Fp products,
-//   ~25.2k multiply-adds on 3 KB, bound by operations.  Both run the
-//   one-thread step functions (curve_arith.cuh miller_dbl_step,
-//   miller_add_step) whose formulas K11's and K12's level shares split,
-//   so the merged and trio loops share one formula.
+//   ~25.2k multiply-adds on 3 KB, bound by operations.  One thread a row
+//   runs curve_arith.cuh miller_add_line (the formula of miller_add_step,
+//   which K12's level shares split), so the merged and trio loops share
+//   one formula.
 //
 // The file is compiled twice, in parallel (ops/kernels.py SOURCES):
 // -DDT_CURVE_PART=0 gives K9 and K10, =1 K18 and K19, so the build waits
@@ -147,16 +157,45 @@ __global__ void __launch_bounds__(ADD_THREADS, 4)
                             o + c * cs);
 }
 #else
-template <bool ADD>
-__global__ void k_g2_line_step(const int32_t *__restrict__ in,
-                               int32_t *__restrict__ to,
-                               int32_t *__restrict__ lo, long long rows,
-                               dt::Mod M) {
+constexpr int DL_ROWS = 32;               // rows of a K18 block
+constexpr int DL_THREADS = 3 * DL_ROWS;   // three threads a row
+
+// a block's row buffers: 52,224 bytes, dynamic (over 48 KB)
+constexpr int DL_SMEM =
+    dt::DL_BUF * dt::N_WORDS * DL_ROWS * sizeof(uint64_t);
+
+__global__ void __launch_bounds__(DL_THREADS, 4)
+    k_g2_dbl_line(const int32_t *__restrict__ in, int32_t *__restrict__ to,
+                  int32_t *__restrict__ lo, long long rows, dt::Mod M) {
+  // element e of block row r, word v at [(e * 6 + v) * DL_ROWS + r]
+  // (curve_arith.cuh DL_*)
+  extern __shared__ uint64_t sm[];
+  constexpr int SLOT = dt::N_WORDS * DL_ROWS;
+  const long long row0 = (long long)blockIdx.x * DL_ROWS;
+  dt::stage_in<DL_ROWS>(in, 8, row0, rows, sm + dt::DL_T * SLOT);
+  __syncthreads();
+  const int j = threadIdx.x / DL_ROWS, r = threadIdx.x % DL_ROWS;
+  const dt::TrioDblIo io{sm + dt::DL_T * SLOT + r, sm + dt::DL_L * SLOT + r,
+                         DL_ROWS};
+#pragma unroll
+  for (int level = 0; level < 3; level++) {
+    dt::miller_dbl_share(level, j, sm + dt::DL_T * SLOT + r,
+                         sm + dt::DL_S1 * SLOT + r, sm + dt::DL_S2 * SLOT + r,
+                         io, DL_ROWS, M);
+    __syncthreads();
+  }
+  dt::stage_out<DL_ROWS>(sm + dt::DL_T * SLOT, 6, row0, rows, to);
+  dt::stage_out<DL_ROWS>(sm + dt::DL_L * SLOT, 6, row0, rows, lo);
+}
+
+__global__ void k_g2_add_line(const int32_t *__restrict__ in,
+                              int32_t *__restrict__ to,
+                              int32_t *__restrict__ lo, long long rows,
+                              dt::Mod M) {
   const long long r = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (r >= rows) return;
   const long long at = r * 6 * dt::N_LIMBS;
-  dt::miller_line_step(in + r * (ADD ? 12 : 8) * dt::N_LIMBS, ADD, to + at,
-                       lo + at, M);
+  dt::miller_add_line(in + r * 12 * dt::N_LIMBS, to + at, lo + at, M);
 }
 #endif
 
@@ -203,18 +242,26 @@ int dt_g2_point_add_attrs(int *out) {
 int dt_g2_dbl_line(const int32_t *in, int32_t *to, int32_t *lo,
                    long long rows, const uint64_t *mod7, void *stream) {
   if (rows <= 0) return 0;
-  k_g2_line_step<false><<<blocks(rows, THREADS), THREADS, 0,
-                          (cudaStream_t)stream>>>(in, to, lo, rows,
-                                                  dt::mod_from_words(mod7));
+  cudaError_t e = cudaFuncSetAttribute(
+      k_g2_dbl_line, cudaFuncAttributeMaxDynamicSharedMemorySize, DL_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  k_g2_dbl_line<<<blocks(rows, DL_ROWS), DL_THREADS, DL_SMEM,
+                  (cudaStream_t)stream>>>(in, to, lo, rows,
+                                          dt::mod_from_words(mod7));
   return (int)cudaGetLastError();
+}
+
+// K18's, with its dynamic shared memory.
+int dt_g2_dbl_line_attrs(int *out) {
+  return dt::kernel_attrs(k_g2_dbl_line, DL_THREADS, DL_SMEM, out);
 }
 
 int dt_g2_add_line(const int32_t *in, int32_t *to, int32_t *lo,
                    long long rows, const uint64_t *mod7, void *stream) {
   if (rows <= 0) return 0;
-  k_g2_line_step<true><<<blocks(rows, THREADS), THREADS, 0,
-                         (cudaStream_t)stream>>>(in, to, lo, rows,
-                                                 dt::mod_from_words(mod7));
+  k_g2_add_line<<<blocks(rows, THREADS), THREADS, 0,
+                  (cudaStream_t)stream>>>(in, to, lo, rows,
+                                          dt::mod_from_words(mod7));
   return (int)cudaGetLastError();
 }
 #endif

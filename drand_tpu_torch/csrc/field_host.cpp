@@ -298,14 +298,35 @@ void dth_flat_conj(const int32_t *a, int32_t *o, long long rows,
   }
 }
 
+// K16: per row the twelve warps' output coefficients in turn (slot s =
+// w % 6, half w / 6), each through its constants' classes, on one row's
+// words laid out with stride 1.
 void dth_flat_frob(const int32_t *a, int32_t *o, long long rows,
                    const uint64_t *consts, const uint64_t *mod7) {
   const dt::Mod M = dt::mod_from_words(mod7);
-  const dt::FrobConsts F = dt::frob_from_words(consts);
-  for (long long r = 0; r < rows; r++)
-    for (int s = 0; s < 6; s++)
-      dt::flat_frob_pair(a + r * dt::FLAT * dt::N_LIMBS,
-                         o + r * dt::FLAT * dt::N_LIMBS, s, F, M);
+  const dt::Mod32 M32 = dt::mod32_from_words(mod7);
+  const dt::FrobConsts F = dt::frob_from_words(consts, M);
+  uint64_t w[dt::FLAT * dt::N_WORDS], out[dt::N_WORDS];
+  for (long long r = 0; r < rows; r++) {
+    for (int i = 0; i < dt::FLAT; i++)
+      dt::load_words(a + (r * dt::FLAT + i) * dt::N_LIMBS,
+                     w + i * dt::N_WORDS);
+    for (int k = 0; k < 12; k++) {
+      const int s = k % 6, h = k / 6;
+      dt::flat_frob_out(s, h, w, 1, F, out, M, M32);
+      dt::store_words(out, o + (r * dt::FLAT + s + 6 * h) * dt::N_LIMBS);
+    }
+  }
+}
+
+// K16's classes of the 24 constants (dt::FrobClass), cls[s * 4 + q] for
+// matrix q = A, B, C, D of slot s, as the entry point finds them.
+void dth_frob_classes(const uint64_t *consts, const uint64_t *mod7,
+                      int32_t *cls) {
+  const dt::FrobConsts F =
+      dt::frob_from_words(consts, dt::mod_from_words(mod7));
+  for (int s = 0; s < 6; s++)
+    for (int q = 0; q < 4; q++) cls[s * 4 + q] = F.cls[s][q];
 }
 
 // K9's chain: per row n doublings, the shares of each level in turn (in
@@ -357,22 +378,39 @@ void dth_g2_point_add(const int32_t *p1, const int32_t *p2, int32_t *o,
   }
 }
 
+// K18: per row the shares of each level in turn (in reverse order when
+// `reverse`, as in dth_cyclo_sqr), on one row's buffer as the kernel lays
+// it out (curve_arith.cuh DL_*: T and P as staged, the level values, the
+// line triple; T' over T) with stride 1.
 void dth_g2_dbl_line(const int32_t *in, int32_t *to, int32_t *lo,
-                     long long rows, const uint64_t *mod7) {
+                     long long rows, int reverse, const uint64_t *mod7) {
   const dt::Mod M = dt::mod_from_words(mod7);
-  for (long long r = 0; r < rows; r++)
-    dt::miller_line_step(in + r * 8 * dt::N_LIMBS, false,
-                         to + r * 6 * dt::N_LIMBS, lo + r * 6 * dt::N_LIMBS,
-                         M);
+  const int W = dt::N_WORDS;
+  uint64_t buf[dt::DL_BUF * dt::N_WORDS];
+  const dt::TrioDblIo io{buf + dt::DL_T * W, buf + dt::DL_L * W, 1};
+  for (long long r = 0; r < rows; r++) {
+    for (int i = 0; i < 8; i++)
+      dt::load_words(in + (r * 8 + i) * dt::N_LIMBS, buf + i * W);
+    for (int level = 0; level < 3; level++)
+      for (int s = 0; s < 3; s++)
+        dt::miller_dbl_share(level, reverse ? 2 - s : s, buf + dt::DL_T * W,
+                             buf + dt::DL_S1 * W, buf + dt::DL_S2 * W, io, 1,
+                             M);
+    for (int i = 0; i < 6; i++) {
+      dt::store_words(buf + (dt::DL_T + i) * W,
+                      to + (r * 6 + i) * dt::N_LIMBS);
+      dt::store_words(buf + (dt::DL_L + i) * W,
+                      lo + (r * 6 + i) * dt::N_LIMBS);
+    }
+  }
 }
 
 void dth_g2_add_line(const int32_t *in, int32_t *to, int32_t *lo,
                      long long rows, const uint64_t *mod7) {
   const dt::Mod M = dt::mod_from_words(mod7);
   for (long long r = 0; r < rows; r++)
-    dt::miller_line_step(in + r * 12 * dt::N_LIMBS, true,
-                         to + r * 6 * dt::N_LIMBS, lo + r * 6 * dt::N_LIMBS,
-                         M);
+    dt::miller_add_line(in + r * 12 * dt::N_LIMBS, to + r * 6 * dt::N_LIMBS,
+                        lo + r * 6 * dt::N_LIMBS, M);
 }
 
 void dth_add(const int32_t *a, const int32_t *b, int32_t *o, long long n,
@@ -426,11 +464,13 @@ static void miller_iter(const int32_t *f, const int32_t *T, const int32_t *Q,
                                P + pk * 2 * dt::N_LIMBS, mask[pk] != 0,
                                To + pk * 6 * dt::N_LIMBS, one, 1, M);
         else
-          dt::miller_dbl_share(level, j, at(dt::MB_L + 6 * k),
-                               at(dt::MB_S1 + 8 * k), at(dt::MB_S2 + 12 * k),
-                               at(dt::MB_L + 6 * k), P + pk * 2 * dt::N_LIMBS,
-                               mask[pk] != 0, To + pk * 6 * dt::N_LIMBS, one,
-                               1, M);
+          dt::miller_dbl_share(
+              level, j, at(dt::MB_L + 6 * k), at(dt::MB_S1 + 8 * k),
+              at(dt::MB_S2 + 12 * k),
+              dt::MergedDblIo{at(dt::MB_L + 6 * k), P + pk * 2 * dt::N_LIMBS,
+                              mask[pk] != 0, To + pk * 6 * dt::N_LIMBS, one,
+                              1},
+              1, M);
       }
     int cur = dt::MA_F, l1 = dt::MA_S, l2 = dt::MA_S + dt::MA_SW,
         mid = dt::MA_MID, out = dt::MA_F;

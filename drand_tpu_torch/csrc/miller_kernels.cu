@@ -102,12 +102,14 @@ __global__ void __launch_bounds__(MT, 2)
                              P + pk * 2 * dt::N_LIMBS, mask[pk] != 0,
                              To + pk * 6 * dt::N_LIMBS, one, MR, M);
       else
-        dt::miller_dbl_share(level, j, sm + (dt::MB_L + 6 * k) * SLOT + r,
-                             sm + (dt::MB_S1 + 8 * k) * SLOT + r,
-                             sm + (dt::MB_S2 + 12 * k) * SLOT + r,
-                             sm + (dt::MB_L + 6 * k) * SLOT + r,
-                             P + pk * 2 * dt::N_LIMBS, mask[pk] != 0,
-                             To + pk * 6 * dt::N_LIMBS, one, MR, M);
+        dt::miller_dbl_share(
+            level, j, sm + (dt::MB_L + 6 * k) * SLOT + r,
+            sm + (dt::MB_S1 + 8 * k) * SLOT + r,
+            sm + (dt::MB_S2 + 12 * k) * SLOT + r,
+            dt::MergedDblIo{sm + (dt::MB_L + 6 * k) * SLOT + r,
+                            P + pk * 2 * dt::N_LIMBS, mask[pk] != 0,
+                            To + pk * 6 * dt::N_LIMBS, one, MR},
+            MR, M);
     }
     __syncthreads();
   }

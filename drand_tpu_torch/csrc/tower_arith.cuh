@@ -831,38 +831,84 @@ DT_HD void conj_chunk(int lane, bool odd, const int32_t *x,
 }
 
 // ---------------------------------------------------------------------------
-// Flat Fp12 Frobenius (B16), one slot pair of a row at a time
+// Flat Fp12 Frobenius (B16), one output coefficient of a slot pair
 // ---------------------------------------------------------------------------
+//
+// f^(p^n) maps each slot pair (c_s, c_(s+6)) by a 2x2 matrix of Montgomery
+// constants (ops/flat12.py _frob_consts): A c_s + B c_(s+6) to slot s, C
+// c_s + D c_(s+6) to slot s + 6.  Many of the 24 constants are 0, one
+// (R mod m) or minus one (m - (R mod m)); a term by such a constant needs
+// no product (Montgomery multiplication by one returns a canonical value
+// unchanged, by minus one its negation).  The class of each constant is
+// found once a launch from its words (frob_from_words), so no table of
+// classes is written down for any n.
 
-// The per-slot 2x2 Montgomery constants of f^(p^n) (ops/flat12.py
-// _frob_consts): c[s] = {A, B, C, D}, each 6 words.
+enum FrobClass : int32_t { FROB_ZERO = 0, FROB_ONE = 1, FROB_NEG = 2,
+                           FROB_MUL = 3 };
+
+// c[s] = {A, B, C, D} of slot s as 32-bit words (mont_mul32's
+// multiplicand), and cls[s] their classes.
 struct FrobConsts {
-  uint64_t c[6][4][N_WORDS];
+  uint32_t c[6][4][N_WORDS32];
+  int32_t cls[6][4];
 };
 
-inline FrobConsts frob_from_words(const uint64_t *w) {
+// From the C entry point's 6 x 4 x 6 words: the constants, and each one's
+// class against 0, one = 2^384 mod m (384 doublings of 1) and m - one.
+inline FrobConsts frob_from_words(const uint64_t *w, const Mod &M) {
+  uint64_t zero[N_WORDS] = {0, 0, 0, 0, 0, 0};
+  uint64_t one[N_WORDS] = {1, 0, 0, 0, 0, 0}, neg[N_WORDS];
+  for (int i = 0; i < 384; i++) add_mod(one, one, one, M);
+  sub_mod(zero, one, neg, M);
   FrobConsts F;
   for (int s = 0; s < 6; s++)
-    for (int q = 0; q < 4; q++)
-      for (int v = 0; v < N_WORDS; v++)
-        F.c[s][q][v] = w[(s * 4 + q) * N_WORDS + v];
+    for (int q = 0; q < 4; q++) {
+      const uint64_t *c = w + (s * 4 + q) * N_WORDS;
+      F.cls[s][q] = fp_eq(c, zero)  ? FROB_ZERO
+                    : fp_eq(c, one) ? FROB_ONE
+                    : fp_eq(c, neg) ? FROB_NEG
+                                    : FROB_MUL;
+      words_to_words32(c, F.c[s][q]);
+    }
   return F;
 }
 
-// Slots s and s + 6 of f^(p^n): (A lo + B hi, C lo + D hi).
-DT_HD void flat_frob_pair(const int32_t *row, int32_t *out, int s,
-                          const FrobConsts &F, const Mod &M) {
-  uint64_t lo[N_WORDS], hi[N_WORDS], u[N_WORDS], v[N_WORDS];
-  load_words(row + s * N_LIMBS, lo);
-  load_words(row + (s + 6) * N_LIMBS, hi);
-  mont_mul_words(lo, F.c[s][0], u, M);
-  mont_mul_words(hi, F.c[s][1], v, M);
-  add_mod(u, v, u, M);
-  store_words(u, out + s * N_LIMBS);
-  mont_mul_words(lo, F.c[s][2], u, M);
-  mont_mul_words(hi, F.c[s][3], v, M);
-  add_mod(u, v, u, M);
-  store_words(u, out + (s + 6) * N_LIMBS);
+// r = x times the constant c of class cls, canonical: 0, x, 0 - x
+// (sub_mod, so 0 stays 0), or the 32-bit carry-chain Montgomery product
+// with c as the canonical multiplicand.  Each is the canonical residue the
+// plain version's Montgomery product gives.
+DT_HD void frob_term(int cls, const uint32_t *c, const uint64_t *x,
+                     uint64_t *r, const Mod &M, const Mod32 &M32) {
+  if (cls == FROB_MUL) {
+    uint32_t y[N_WORDS32];
+    words_to_words32(x, y);
+    mont_mul32(c, y, y, M32);
+    words32_to_words(y, r);
+  } else if (cls == FROB_NEG) {
+    const uint64_t zero[N_WORDS] = {0, 0, 0, 0, 0, 0};
+    sub_mod(zero, x, r, M);
+  } else {
+    DT_UNROLL
+    for (int v = 0; v < N_WORDS; v++) r[v] = cls == FROB_ONE ? x[v] : 0;
+  }
+}
+
+// Coefficient s + 6 o of f^(p^n) (o = 0: A c_s + B c_(s+6); o = 1: C c_s
+// + D c_(s+6)) from a's slots s and s + 6 in flat_load's layout: the two
+// terms in one rolled loop (one product body), summed from 0 by add_mod
+// as the plain version sums its two products.
+DT_HD void flat_frob_out(int s, int o, const uint64_t *a, int stride,
+                         const FrobConsts &F, uint64_t *r, const Mod &M,
+                         const Mod32 &M32) {
+  DT_UNROLL
+  for (int v = 0; v < N_WORDS; v++) r[v] = 0;
+  DT_NO_UNROLL
+  for (int t = 0; t < 2; t++) {
+    uint64_t x[N_WORDS], y[N_WORDS];
+    flat_load(a, s + 6 * t, stride, x);
+    frob_term(F.cls[s][2 * o + t], F.c[s][2 * o + t], x, y, M, M32);
+    add_mod(r, y, r, M);
+  }
 }
 
 }  // namespace dt

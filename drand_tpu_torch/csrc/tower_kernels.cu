@@ -101,8 +101,20 @@
 //   before any is used, over as many blocks as the card holds at once.
 // K16 dt_flat_frob -- replaces PallasField.flat_frob (:1834, body :1817).
 //   f^(p^n), n = 1..3: per slot pair (s, s + 6) a 2x2 matrix of Montgomery
-//   constants (passed by value), four products and two adds, one thread
-//   per slot pair: 24 Montgomery products on 3 KB a row, bound by bytes.
+//   constants, at most 24 Montgomery products and 12 adds on 3 KB a row,
+//   bound by bytes at every n.  Many constants are 0, one or minus one
+//   (n = 2: every matrix diagonal, slot 0 the identity and slot 3 its
+//   negation, 8 products a row; n = 1: 17; n = 3: 12), so the entry point
+//   sorts each constant into its class from the words it is given
+//   (tower_arith.cuh frob_from_words) and a term by a zero constant costs
+//   nothing, by one a copy, by minus one a subtraction from 0, and only
+//   the others a product (mont_mul32, the 32-bit carry chains of K1).  A
+//   block stages 32 rows in and out coalesced (stage.cuh, every load of a
+//   thread in flight at once); each of its twelve warps computes one
+//   output coefficient (slot s, half h) of the 32 rows, so the constants
+//   and their classes are read at warp-uniform indices of a
+//   __grid_constant__ argument (no copy to a local frame) and a warp's
+//   branch on the class never diverges.
 
 // K17 dt_flat_sqr -- replaces PallasField.flat_sqr (:1758, body
 //   _flat_sqr_kernel :1749, phase _sqr_phase :929).  The slot-symmetric
@@ -127,9 +139,11 @@
 
 namespace {
 
-constexpr int THREADS = 128;
 constexpr int FLAT_ROWS = 32;                 // rows of a K13 block
 constexpr int FLAT_THREADS = 6 * FLAT_ROWS;   // six threads a row
+
+constexpr int FROB_ROWS = 32;                 // rows of a K16 block
+constexpr int FROB_THREADS = 12 * FROB_ROWS;  // a warp an output coefficient
 
 constexpr int F2P_ROWS = 32;                  // pair-rows of a K5, K6 block
 constexpr int F2P_THREADS = 2 * F2P_ROWS;     // two threads a pair-row
@@ -409,14 +423,26 @@ __global__ void __launch_bounds__(CONJ_THREADS)
   }
 }
 
-__global__ void k_flat_frob(const int32_t *__restrict__ a,
-                            int32_t *__restrict__ o, long long rows,
-                            dt::FrobConsts F, dt::Mod M) {
-  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (e >= 6 * rows) return;
-  const long long r = e / 6;
-  dt::flat_frob_pair(a + r * dt::FLAT * dt::N_LIMBS,
-                     o + r * dt::FLAT * dt::N_LIMBS, (int)(e % 6), F, M);
+// K16: warp w of the block computes output coefficient s + 6 h, s = w %
+// 6, h = w / 6, of the block's 32 rows (lane = row); every warp has read
+// its two inputs before any writes its output over its slot.
+__global__ void __launch_bounds__(FROB_THREADS, 2)
+    k_flat_frob(const int32_t *__restrict__ a, int32_t *__restrict__ o,
+                long long rows, const __grid_constant__ dt::FrobConsts F,
+                dt::Mod M, dt::Mod32 M32) {
+  constexpr int R = FROB_ROWS;
+  __shared__ uint64_t sm[dt::FLAT * dt::N_WORDS * R];
+  const long long row0 = (long long)blockIdx.x * R;
+  dt::stage_in_all<R, FROB_THREADS, dt::FLAT>(a, row0, rows, sm);
+  __syncthreads();
+  const int w = threadIdx.x / 32, r = threadIdx.x % 32;
+  const int s = w % 6, h = w / 6;
+  uint64_t out[dt::N_WORDS];
+  dt::flat_frob_out(s, h, sm + r, R, F, out, M, M32);
+  __syncthreads();
+  dt::flat_store(out, sm + r, s + 6 * h, R);
+  __syncthreads();
+  dt::stage_out<R>(sm, dt::FLAT, row0, rows, o);
 }
 
 unsigned blocks(long long n, int threads) {
@@ -565,16 +591,22 @@ int dt_flat_conj_attrs(int *out) {
   return dt::kernel_attrs(k_flat_conj, CONJ_THREADS, 0, out);
 }
 
-// consts: the 6 x 4 x 6 words of dt::FrobConsts, host memory.
+// consts: the 6 x 4 x 6 words of the matrices A B C D of each slot, host
+// memory; their classes are found here (dt::frob_from_words).
 int dt_flat_frob(const int32_t *a, int32_t *o, long long rows,
                  const uint64_t *consts, const uint64_t *mod7,
                  void *stream) {
   if (rows <= 0) return 0;
-  k_flat_frob<<<blocks(6 * rows, THREADS), THREADS, 0,
+  const dt::Mod M = dt::mod_from_words(mod7);
+  k_flat_frob<<<blocks(rows, FROB_ROWS), FROB_THREADS, 0,
                 (cudaStream_t)stream>>>(a, o, rows,
-                                        dt::frob_from_words(consts),
-                                        dt::mod_from_words(mod7));
+                                        dt::frob_from_words(consts, M), M,
+                                        dt::mod32_from_words(mod7));
   return (int)cudaGetLastError();
+}
+
+int dt_flat_frob_attrs(int *out) {
+  return dt::kernel_attrs(k_flat_frob, FROB_THREADS, 0, out);
 }
 
 }  // extern "C"

@@ -2,16 +2,17 @@
 
     python -m drand_tpu_torch.kernel_bench [--walls N | --sass LIB...]
 
-Without --walls: the registers, spill and shared memory of K1, K4, K5,
-K6, K7, K9, K10, K11, K12, K13 (each instance), K14 and K15 (`-Xptxas
--v` in the build log) and the SASS instructions of every kernel in the
-library (`cuobjdump -sass`, null without it), then K1 on [16384, 32] x 2
+Without --walls: the registers, stack frame and spill of K1, K4, K5, K6,
+K7, K9, K10, K11, K12, K13 (each instance), K14, K15, K16 and K18
+(`-Xptxas -v` in the build log) and the SASS instructions of every kernel
+in the library (`cuobjdump -sass`, null without it), then K1 on [16384, 32] x 2
 (its path call), K4 on one Fermat inversion a^(p-2) of [16384, 32] (the
 path's call: one launch) and at the single step k = 13 with t, K5 on [1,
 2, 2, 16384, 32] (n = 1, the path's most common call), K6 on [n, 2,
 16384, 32] at n = 1 (its most common call) and n = 8, K15 on [16384, 12,
-32] and [4224, 12, 32], K13 on 16384 rows dense and on LINE_IDX and on
-4224 rows dense
+32] and [4224, 12, 32], K16 on [16384, 12, 32] at n = 1, 2, 3 (the
+path's calls), K18 on [2, 16384, 8, 32] (the trio path's call), K13 on
+16384 rows dense and on LINE_IDX and on 4224 rows dense
 (one 32-row block a SM), K9 at n = 1, 2, 3, 9, 16, 32, K10 without and
 with the doubling, K11 and K12 on 16384 rows, and K7 on [2, 16384] at
 k = 6 and at the longest k of the calls one default batch makes
@@ -51,7 +52,8 @@ ROUNDS = 16384
 KERNEL_NAMES = ("k_mont_mul", "k_fp_pow_chain", "k_fp2_products",
                 "k_fp2_sqrs", "k_fp2_sqr_chain_mul", "k_flat_mul",
                 "k_g2_point_dbl", "k_g2_point_add", "k_miller_iterILb0",
-                "k_miller_iterILb1", "k_cyclo_sqr", "k_flat_conj")
+                "k_miller_iterILb1", "k_cyclo_sqr", "k_flat_conj",
+                "k_flat_frob", "k_g2_dbl_line")
 
 
 def _kernel_name(mangled: str):
@@ -82,6 +84,27 @@ def _any_kernel_name(mangled: str) -> str:
                 arg = re.match(r"I(L\w+?E)", mangled[end:])
                 return mangled[i:end] + (f"<{arg.group(1)}>" if arg else "")
     return mangled
+
+
+def ptxas_stats(log: str) -> dict:
+    """Per KERNEL_NAMES kernel of a build log (`-Xptxas -v`): its two
+    ptxas lines, and from them its registers, stack frame and spill store
+    and load bytes."""
+    lines, out = log.splitlines(), {}
+    fields = (("stack_bytes", r"(\d+) bytes stack frame"),
+              ("spill_stores", r"(\d+) bytes spill stores"),
+              ("spill_loads", r"(\d+) bytes spill loads"),
+              ("registers", r"Used (\d+) registers"))
+    for i, line in enumerate(lines):
+        name = "Function properties" in line and _kernel_name(line)
+        if name:
+            text = " ".join(x.strip() for x in lines[i + 1:i + 3])
+            out[name] = {"ptxas": text}
+            for key, pat in fields:
+                m = re.search(pat, text)
+                if m:
+                    out[name][key] = int(m.group(1))
+    return out
 
 
 FIXTURE = "aot/fixtures/bench_sigs_unchained_16384_d6a762f2_ff8a2cc7.npy"
@@ -139,12 +162,7 @@ def kernels(dev) -> dict:
     from drand_tpu_torch.ops import towers as TW
     from drand_tpu_torch.ops.field import FP, addchain_plan
     # the build's nvcc log, also when an earlier process built the library
-    log = (Path(K.build()["dir"]) / "nvcc.log").read_text().splitlines()
-    ptxas = {}
-    for i, line in enumerate(log):
-        name = "Function properties" in line and _kernel_name(line)
-        if name:
-            ptxas[name] = " ".join(x.strip() for x in log[i + 1:i + 3])
+    ptxas = ptxas_stats((Path(K.build()["dir"]) / "nvcc.log").read_text())
     rng = np.random.default_rng(1)
 
     def rows(shape):
@@ -206,6 +224,25 @@ def kernels(dev) -> dict:
             sys.exit(f"flat_conj {n_rows} rows: kernel != plain")
         ms[f"flat_conj {n_rows} rows"] = _event_ms(
             lambda: K.flat_conj(f[:n_rows], FP))
+    # K16 at the path's calls (n = 2 twice a batch, n = 1 once) and n = 3
+    for n in (1, 2, 3):
+        if not torch.equal(K.flat_frob(f, n, FL._FROB_WORDS[n], FP),
+                           FL._flat_frob_plain(f, n)):
+            sys.exit(f"flat_frob n={n}: kernel != plain")
+        ms[f"flat_frob n={n}"] = _event_ms(
+            lambda: K.flat_frob(f, n, FL._FROB_WORDS[n], FP))
+    # K18 at the trio path's call: two pairs stacked on 16384 rows each
+    xl = rows((2, ROUNDS, 8))
+    xl[:, :8, 4] = FP.one_mont.to(dev)                    # Z = 1
+    xl[:, :8, 5] = 0
+    c = [xl[..., i, :] for i in range(8)]
+    Tn, L = PR._dbl_step_plain(((c[0], c[1]), (c[2], c[3]), (c[4], c[5])),
+                               c[6], c[7])
+    got = K.g2_dbl_line(xl, FP)
+    if not all(torch.equal(g, torch.stack([v for xy in w for v in xy], -2))
+               for g, w in zip(got, (Tn, L))):
+        sys.exit("g2_dbl_line: kernel != plain")
+    ms["g2_dbl_line"] = _event_ms(lambda: K.g2_dbl_line(xl, FP))
     b_dense = rows((ROUNDS, 12))
     for what, b_idx in (("dense", tuple(range(12))), ("line", FL.LINE_IDX)):
         b = b_dense if what == "dense" else rows((ROUNDS, len(b_idx)))

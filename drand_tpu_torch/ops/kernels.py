@@ -160,6 +160,8 @@ _ARGTYPES = {
     "dt_fp2_products_attrs": [_P],
     "dt_fp2_sqrs_attrs": [_P],
     "dt_flat_conj_attrs": [_P],
+    "dt_flat_frob_attrs": [_P],
+    "dt_g2_dbl_line_attrs": [_P],
     "dt_fp2_sqr_chain_mul_attrs": [_P],
     "dt_g2_point_dbl_attrs": [_P],
     "dt_g2_point_add_attrs": [_P],
@@ -250,7 +252,8 @@ def kernel_attrs(name: str) -> dict:
     `name` on the current device, for the kernels that export them
     (mont_mul, sqr_chain_mul, fp2_products, fp2_sqrs, fp2_sqr_chain_mul,
     flat_mul (its dense instance), g2_point_dbl, g2_point_add,
-    miller_dbl_iter, miller_add_iter, cyclo_sqr, flat_conj)."""
+    miller_dbl_iter, miller_add_iter, cyclo_sqr, flat_conj, flat_frob,
+    g2_dbl_line)."""
     lib = _lib()
     out = np.zeros(5, dtype=np.int32)
     rc = getattr(lib, KERNELS[name].symbol + "_attrs")(out.ctypes.data)

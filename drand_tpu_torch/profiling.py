@@ -47,7 +47,7 @@ OURS = ("k_mont_mul", "k_mont_sqr", "k_mont_reduce", "k_fp_pow_chain",
         "k_fp2_products", "k_fp2_sqrs", "k_fp2_sqr_chain_mul",
         "k_g2_point_dbl", "k_g2_point_add", "k_miller_iter", "k_flat_mul",
         "k_cyclo_sqr", "k_flat_conj", "k_flat_frob", "k_flat_sqr",
-        "k_g2_line_step", "k_line_merge", "k_add_sub")
+        "k_g2_dbl_line", "k_g2_add_line", "k_line_merge", "k_add_sub")
 
 
 def device_kernels(prof):

@@ -127,6 +127,14 @@ def _max_flat_row():
     return torch.tensor([row] * 12, dtype=torch.int32)
 
 
+def _random_rows(rng, shape):
+    """Canonical Fp limbs of `shape` + (32,) at any size: random limbs
+    below 2^379 < p."""
+    x = rng.integers(0, 4096, size=tuple(shape) + (32,), dtype=np.int32)
+    x[..., 31] &= 0x7F
+    return torch.from_numpy(x)
+
+
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 9])
 def test_fp2_kernels_match_plain_versions_on_card(cuda, n):
     """K5 and K6 on n stacked pairs of 300 rows, and K5 also on 16384 and
@@ -437,6 +445,64 @@ def test_flat_conj_and_frob_kernels_match_plain_versions_on_card(cuda):
     for n in (1, 2, 3):
         assert torch.equal(K.flat_frob(a, n, F._FROB_WORDS[n], FP),
                            F._flat_frob_plain(a, n))
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_flat_frob_kernel_matches_plain_version_on_card(cuda, n):
+    """K16 (a warp an output coefficient of 32 rows, each term by its
+    constant's class) on 1, 33 and 16384 rows: 0, 1, p-1 in the first
+    row's slots, then a zero row, an all-(p-1) row and random rows."""
+    from drand_tpu_torch.ops import flat12 as F
+    from drand_tpu_torch.ops import kernels as K
+    from drand_tpu_torch.ops.field import FP
+    rng = np.random.default_rng(40 + n)
+    for rows in (1, 33, 16384):
+        a = _random_rows(rng, (rows, 12))
+        a[0] = _fp_rows(rng, (12,))
+        if rows > 2:
+            a[1] = 0
+            a[2] = _max_flat_row()
+        a = a.to(cuda)
+        K.reset_launches()
+        got = K.flat_frob(a, n, F._FROB_WORDS[n], FP)
+        assert K.launch_counts()["flat_frob"] == 1
+        assert torch.equal(got, F._flat_frob_plain(a, n))
+
+
+def test_g2_dbl_line_kernel_matches_plain_version_on_card(cuda):
+    """K18 (three threads a row on K11's doubling shares, 32 rows a block)
+    on 1, 31 and 33 rows and on three pairs of 16384 rows stacked, Z = 1
+    and Z = 0 rows and 0, 1, p-1 coordinates among them."""
+    from drand_tpu_torch.ops import kernels as K
+    from drand_tpu_torch.ops import pairing as PR
+    from drand_tpu_torch.ops.field import FP
+    rng = np.random.default_rng(44)
+    for shape in ((1, 1), (1, 31), (1, 33), (3, 16384)):
+        x = _random_rows(rng, shape + (8,))
+        x[:, 0] = _fp_rows(rng, (shape[0], 8))
+        x[:, 1::4, 4] = FP.one_mont
+        x[:, 1::4, 5] = 0
+        x[:, 2::4, 4:6] = 0
+        x = x.to(cuda)
+        K.reset_launches()
+        to, lo = K.g2_dbl_line(x, FP)
+        assert K.launch_counts()["g2_dbl_line"] == 1
+        c = [x[..., i, :] for i in range(8)]
+        Tn, L = PR._dbl_step_plain(((c[0], c[1]), (c[2], c[3]), (c[4], c[5])),
+                                   c[6], c[7])
+        assert torch.equal(to, torch.stack([v for xy in Tn for v in xy], -2))
+        assert torch.equal(lo, torch.stack([v for xy in L for v in xy], -2))
+
+
+def test_k16_k18_attrs_show_no_spill_on_card(cuda):
+    """kernel_attrs of K16 and K18: no local memory (no spill, no stack
+    frame); K16 two 384-thread blocks a SM, K18 at most 168 registers and
+    four blocks (12 warps) a SM."""
+    from drand_tpu_torch.ops import kernels as K
+    frob, line = K.kernel_attrs("flat_frob"), K.kernel_attrs("g2_dbl_line")
+    assert frob["local_bytes"] == 0 and frob["blocks_per_sm"] >= 2, frob
+    assert line["local_bytes"] == 0 and line["num_regs"] <= 168, line
+    assert line["blocks_per_sm"] >= 4, line
 
 
 def test_curve_and_pairing_ops_reach_their_kernels_on_card(cuda, monkeypatch):

@@ -29,11 +29,15 @@ active and inactive pairs, and against f^2 (or f) times the two lines
 one after the other;
 K15/K16 (`flat12._flat_conj_plain`, `_flat_frob_plain`), K15 as its
 eight-lane groups with the warp's ballots built lane by lane, on
-coefficients whose borrow crosses lanes; K17/K20
+coefficients whose borrow crosses lanes, K16 as its twelve warps, each
+term by its constant's class (the classes found from the constants' words
+against a classification made here, and every class at every place of a
+made-up table); K17/K20
 (`flat12._flat_sqr_plain`, `_line_merge_plain`) with the all-(p-1) and
 zero operands; K18/K19 (`pairing._dbl_step_plain`, `_add_step_plain`)
-on K-stacked rows; K21/K22 (`Field.add`, `Field.sub`) at
-0, 1 and m-1.
+on K-stacked rows, K18 as K11's doubling shares in the kernel's order and
+reversed, with Z = 1 and Z = 0 rows, and against K11's T' and lines;
+K21/K22 (`Field.add`, `Field.sub`) at 0, 1 and m-1.
 """
 
 import ctypes
@@ -51,7 +55,7 @@ from drand_tpu_torch.ops import flat12 as F
 from drand_tpu_torch.ops import pairing as PR
 from drand_tpu_torch.ops import towers as T
 from drand_tpu_torch.ops.field import (FP, FR, addchain_plan, chain_program,
-                                       int_to_limbs)
+                                       int_to_limbs, int_to_words)
 
 CSRC = Path(__file__).resolve().parents[1] / "drand_tpu_torch" / "csrc"
 FIELDS = {"fp": FP, "fr": FR}
@@ -81,13 +85,14 @@ def host_lib(tmp_path_factory):
     lib.dth_fp2_sqr5_mul.argtypes = [P_, P_, P_, LL, P_]
     lib.dth_flat_conj.argtypes = [P_, P_, LL, P_]
     lib.dth_flat_frob.argtypes = [P_, P_, LL, P_, P_]
+    lib.dth_frob_classes.argtypes = [P_, P_, P_]
     lib.dth_g2_point_dbl.argtypes = [P_, P_, LL, I, I, P_]
     lib.dth_g2_point_add.argtypes = [P_, P_, P_, LL, I, I, P_, P_]
     lib.dth_miller_dbl_iter.argtypes = [P_] * 6 + [LL, I, P_, P_]
     lib.dth_miller_add_iter.argtypes = [P_] * 7 + [LL, I, P_, P_]
     lib.dth_flat_sqr.argtypes = [P_, P_, LL, P_]
     lib.dth_line_merge.argtypes = [P_, P_, P_, LL, P_]
-    lib.dth_g2_dbl_line.argtypes = [P_, P_, P_, LL, P_]
+    lib.dth_g2_dbl_line.argtypes = [P_, P_, P_, LL, I, P_]
     lib.dth_g2_add_line.argtypes = [P_, P_, P_, LL, P_]
     lib.dth_add.argtypes = [P_, P_, P_, LL, P_]
     lib.dth_sub.argtypes = [P_, P_, P_, LL, P_]
@@ -96,6 +101,7 @@ def host_lib(tmp_path_factory):
                lib.dth_sqr_chain_mul, lib.dth_fp2_products, lib.dth_fp2_sqrs,
                lib.dth_flat_mul, lib.dth_cyclo_sqr, lib.dth_fp2_sqr_chain_mul,
                lib.dth_fp2_sqr5_mul, lib.dth_flat_conj, lib.dth_flat_frob,
+               lib.dth_frob_classes,
                lib.dth_g2_point_dbl, lib.dth_g2_point_add,
                lib.dth_miller_dbl_iter, lib.dth_miller_add_iter,
                lib.dth_flat_sqr, lib.dth_line_merge, lib.dth_g2_dbl_line,
@@ -471,6 +477,96 @@ def test_flat_conj_and_frob(host_lib, n):
         out, F._flat_conj_plain(torch.as_tensor(a)).numpy())
 
 
+_FROB_CLASS = {"zero": 0, "one": 1, "neg": 2, "mul": 3}   # dt::FrobClass
+
+
+def _frob_class_words():
+    """The words of 0, one (R mod p) and minus one in Montgomery form, by
+    class name."""
+    return {"zero": int_to_words(0), "one": int_to_words(FP.R_int),
+            "neg": int_to_words((P - FP.R_int) % P)}
+
+
+def _classify(words):
+    """A constant's class from its 6 words, as K16's entry point sorts it."""
+    for name, w in _frob_class_words().items():
+        if np.array_equal(np.asarray(words, np.uint64), w.astype(np.uint64)):
+            return name
+    return "mul"
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_flat_frob_classes(host_lib, n):
+    """K16's classes of the 24 constants of f^(p^n), found from their
+    words, equal a classification made here: 17, 8 and 12 general
+    products at n = 1, 2, 3; at n = 2 every matrix diagonal, slot 0 the
+    identity and slot 3 its negation."""
+    consts = F._FROB_WORDS[n]
+    cls = np.empty(24, np.int32)
+    host_lib.dth_frob_classes(_ptr(consts), _ptr(FP.kernel_arg), _ptr(cls))
+    want = [_classify(consts[s, q]) for s in range(6) for q in range(4)]
+    assert cls.tolist() == [_FROB_CLASS[c] for c in want]
+    assert want.count("mul") == {1: 17, 2: 8, 3: 12}[n]
+    if n == 2:
+        table = np.array(want).reshape(6, 4)
+        assert (table[:, 1] == "zero").all() and (table[:, 2] == "zero").all()
+        assert list(table[0]) == ["one", "zero", "zero", "one"]
+        assert list(table[3]) == ["neg", "zero", "zero", "neg"]
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_flat_frob_warps(host_lib, n):
+    """K16 as its twelve warps (an output coefficient each, every term by
+    its constant's class) on random rows, zero rows and all-(p-1) rows,
+    against its plain version."""
+    a = _fp_rows((9, 12), seed=60 + n)
+    a[1] = a[4] = 0
+    a[2] = a[7] = _max_flat()
+    out = np.empty_like(a)
+    host_lib.dth_flat_frob(_ptr(a), _ptr(out), len(a),
+                           _ptr(F._FROB_WORDS[n]), _ptr(FP.kernel_arg))
+    np.testing.assert_array_equal(
+        out, F._flat_frob_plain(torch.as_tensor(a), n).numpy())
+
+
+@pytest.mark.parametrize("shift", [0, 1, 2, 3])
+def test_flat_frob_every_class_everywhere(host_lib, shift):
+    """K16 on made-up tables in which constant (s, q) has class (4s + q +
+    shift) mod 4, so over the four shifts every class stands at every
+    place of the 6 x 4 table (a general constant random): its output
+    against the plain products by the same constants, summed by
+    Field.add."""
+    rng = np.random.default_rng(64 + shift)
+    named = _frob_class_words()
+    consts = np.zeros((6, 4, 6), np.uint64)
+    limbs = np.zeros((4, 6, 32), np.int32)
+    for s in range(6):
+        for q in range(4):
+            name = list(_FROB_CLASS)[(4 * s + q + shift) % 4]
+            v = (int.from_bytes(rng.bytes(48), "little") % P if name == "mul"
+                 else sum(int(w) << (64 * i)
+                          for i, w in enumerate(named[name])))
+            consts[s, q] = int_to_words(v)
+            limbs[q, s] = int_to_limbs(v)
+    cls = np.empty(24, np.int32)
+    host_lib.dth_frob_classes(_ptr(consts), _ptr(FP.kernel_arg), _ptr(cls))
+    assert cls.tolist() == [(4 * s + q + shift) % 4
+                            for s in range(6) for q in range(4)]
+    a = _fp_rows((5, 12), seed=68 + shift)
+    a[1] = 0
+    a[2] = _max_flat()
+    out = np.empty_like(a)
+    host_lib.dth_flat_frob(_ptr(a), _ptr(out), len(a), _ptr(consts),
+                           _ptr(FP.kernel_arg))
+    ta = torch.as_tensor(a)
+    lo, hi = ta[:, :6], ta[:, 6:]
+    A, B, C, D = (torch.as_tensor(limbs[q]).expand(lo.shape) for q in range(4))
+    mul = FP._mont_mul_plain
+    want = torch.cat([FP.add(mul(lo, A), mul(hi, B)),
+                      FP.add(mul(lo, C), mul(hi, D))], -2)
+    np.testing.assert_array_equal(out, want.numpy())
+
+
 def _conj_edges():
     """Stored coefficients for K15's limb-level negation: 0, 1, 2, p-1
     (raw: p - a is 1) and their Montgomery forms; coefficients whose
@@ -707,8 +803,12 @@ def test_g2_line_steps(host_lib, add):
     x[:, 0, 5] = 0
     to = np.empty((3, 5, 6, 32), np.int32)
     lo = np.empty_like(to)
-    fn = host_lib.dth_g2_add_line if add else host_lib.dth_g2_dbl_line
-    fn(_ptr(x), _ptr(to), _ptr(lo), 15, _ptr(FP.kernel_arg))
+    if add:
+        host_lib.dth_g2_add_line(_ptr(x), _ptr(to), _ptr(lo), 15,
+                                 _ptr(FP.kernel_arg))
+    else:
+        host_lib.dth_g2_dbl_line(_ptr(x), _ptr(to), _ptr(lo), 15, 0,
+                                 _ptr(FP.kernel_arg))
     c = [torch.as_tensor(x[..., i, :]) for i in range(width)]
     Tj = ((c[0], c[1]), (c[2], c[3]), (c[4], c[5]))
     if add:
@@ -720,6 +820,77 @@ def test_g2_line_steps(host_lib, add):
         to, torch.stack([v for xy in Tn for v in xy], -2).numpy())
     np.testing.assert_array_equal(
         lo, torch.stack([v for xy in L for v in xy], -2).numpy())
+
+
+def _dbl_line_rows(seed):
+    """K = 3 pairs stacked on 6 rows each, [3, 6, 8, 32] (X0 X1 Y0 Y1 Z0
+    Z1 xp yp): Z = 1 in row 0 (as at the loop's start), Z = 0 (infinity)
+    in row 1, 0, 1, p-1 among the coordinates, random elsewhere."""
+    x = _fp_rows((3, 6, 8), seed=seed)
+    x[:, 0, 4] = FP.one_mont.numpy()
+    x[:, 0, 5] = 0
+    x[:, 1, 4:6] = 0
+    return x
+
+
+def _dbl_step_plain_rows(x):
+    """_dbl_step_plain on rows [..., 8, 32]: (T', the line triple), each
+    [..., 6, 32]."""
+    c = [torch.as_tensor(x[..., i, :]) for i in range(8)]
+    Tn, L = PR._dbl_step_plain(((c[0], c[1]), (c[2], c[3]), (c[4], c[5])),
+                               c[6], c[7])
+    return tuple(torch.stack([v for xy in o for v in xy], -2).numpy()
+                 for o in (Tn, L))
+
+
+@pytest.mark.parametrize("reverse", [0, 1])
+def test_g2_dbl_line_shares(host_lib, reverse):
+    """K18 as K11's doubling shares on the kernel's row buffer (P staged
+    beside T, T' over T, the unmasked line triple), the shares of each
+    level in the kernel's order and reversed, on K = 3 stacked pairs with
+    Z = 1 and Z = 0 rows, against _dbl_step_plain."""
+    x = _dbl_line_rows(seed=70 + reverse)
+    to = np.empty((3, 6, 6, 32), np.int32)
+    lo = np.empty_like(to)
+    host_lib.dth_g2_dbl_line(_ptr(x), _ptr(to), _ptr(lo), 18, reverse,
+                             _ptr(FP.kernel_arg))
+    want_t, want_l = _dbl_step_plain_rows(x)
+    np.testing.assert_array_equal(to, want_t)
+    np.testing.assert_array_equal(lo, want_l)
+    assert (to[:, 1, 4:6] == 0).all()             # 2 * infinity = infinity
+
+
+def test_dbl_shares_agree_across_executors(host_lib):
+    """One share body, two executors: on the same T and P (two pairs a
+    row, every pair mask), K11's T' equals K18's, and K11's f' equals f^2
+    times the two pairs' K18 lines, masked and made flat, one after the
+    other (as test_miller_iterations holds f' to the plain lines)."""
+    rows = 6
+    f = _fp_rows((rows, 12), seed=72)
+    x = _dbl_line_rows(seed=73)[:2].transpose(1, 0, 2, 3)   # [rows, 2, 8]
+    Ts = np.ascontiguousarray(x[:, :, :6])
+    Pp = np.ascontiguousarray(x[:, :, 6:])
+    masks = np.array([[1, 1], [1, 0], [0, 1], [0, 0], [1, 1], [0, 1]],
+                     np.int32)
+    fo, To = np.empty_like(f), np.empty_like(Ts)
+    host_lib.dth_miller_dbl_iter(_ptr(f), _ptr(Ts), _ptr(Pp), _ptr(masks),
+                                 _ptr(fo), _ptr(To), rows, 0,
+                                 _ptr(FP.kernel_one), _ptr(FP.kernel_arg))
+    xs = np.ascontiguousarray(x.transpose(1, 0, 2, 3))      # [2, rows, 8]
+    to = np.empty((2, rows, 6, 32), np.int32)
+    lo = np.empty_like(to)
+    host_lib.dth_g2_dbl_line(_ptr(xs), _ptr(to), _ptr(lo), 2 * rows, 0,
+                             _ptr(FP.kernel_arg))
+    np.testing.assert_array_equal(To, to.transpose(1, 0, 2, 3))
+    tm = torch.as_tensor(masks)
+    g = F._flat_mul_plain(torch.as_tensor(f), torch.as_tensor(f))
+    one = PR.line_one(tm.shape[:-1], tm.device)
+    for k in range(2):
+        lk = torch.as_tensor(lo[k])
+        lk = tuple((lk[:, 2 * i], lk[:, 2 * i + 1]) for i in range(3))
+        lk = PR.line_to_flat(PR.line_select(tm[:, k] != 0, lk, one))
+        g = F._flat_mul_plain(g, lk, F.LINE_IDX)
+    np.testing.assert_array_equal(fo, g.numpy())
 
 
 @pytest.mark.parametrize("name", ["fp", "fr"])

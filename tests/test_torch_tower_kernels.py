@@ -1,5 +1,5 @@
 """The plain versions of the port's Fp2 and flat-Fp12 kernels (K5, K6, K13,
-K14, K15) against drand_tpu, limb for limb.
+K14, K15, K16) against drand_tpu, limb for limb.
 
 The same inputs (numpy, fixed seed) go through the port's plain version
 on the CPU -- what the kernel is held against on the card -- and through
@@ -193,3 +193,24 @@ def test_flat_conj_plain_vs_pallas_kernel(sim):
     assert (got.numpy()[1, 3] == 0).all()
     for i in (0, 2):                      # the rows left as encoded
         assert TFL.flat_decode(got, i) == G.fp12_conj(_fp12_vals(3, 8)[i])
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_flat_frob_plain_vs_pallas_kernel(sim, n):
+    """drand_tpu's packed Frobenius (PallasField.flat_frob under the
+    simulator, reached through flat12.flat_tile with use_pallas patched,
+    as tests/test_sim_kats.py drives it) on random rows, a zero row and
+    the all-(p-1) row, against the port's plain version (K16's)."""
+    from unittest import mock
+    a = np.concatenate([np.array(JF.flat_encode(_fp12_vals(2, 20 + n))),
+                        np.zeros((1, 12, 32), np.int32), _max_flat()[None]])
+    with mock.patch.object(PFm, "use_pallas", return_value=True):
+        ft = JF.flat_tile(jnp.asarray(a))
+        assert isinstance(ft, PFm.TileForm)
+        want = np.asarray(JF.flat_untile(JF.flat_frob(ft, n))).reshape(a.shape)
+    got = TFL._flat_frob_plain(_t(a), n)
+    _eq(want, got)
+    _eq(want, TFL.flat_frob(_t(a), n))
+    assert (got.numpy()[2] == 0).all()
+    for i, v in enumerate(_fp12_vals(2, 20 + n)):
+        assert TFL.flat_decode(got, i) == G.fp12_frob_n(v, n)

@@ -136,6 +136,27 @@ def test_stacked_steps_plain_vs_composite(step):
             _eq(w[1], g[1])
 
 
+def test_g2_dbl_line_plain_vs_pallas_kernel(sim):
+    """K18's plain version against drand_tpu's g2_dbl_line kernel under the
+    simulator on K = 3 pairs stacked on the leading axis (Z = 1 in the
+    first row of each pair, as at the loop's start; Z = 0 in the second)."""
+    x = _rows((3, 3, 8), 54)
+    x[:, 0, 4] = FP.one_mont.numpy()
+    x[:, 0, 5] = 0
+    x[:, 1, 4:6] = 0
+
+    def args(arr, lib):
+        c = [lib(arr[..., i, :]) for i in range(8)]
+        return ((c[0], c[1]), (c[2], c[3]), (c[4], c[5])), c[6], c[7]
+
+    want = sim.g2_dbl_line(*args(x, jnp.asarray))
+    got = TP._dbl_step_plain(*args(x, torch.as_tensor))
+    for w_part, g_part in zip(want, got):
+        for w, g in zip(w_part, g_part):
+            _eq(w[0], g[0])
+            _eq(w[1], g[1])
+
+
 def _golden_pairs(n, seed):
     """n (P, Q) pairs of the golden model: Jacobian points a G1, b G2."""
     rng = random.Random(seed)
