@@ -10,7 +10,7 @@ Phases, each printing one JSON line:
           memory and resident blocks per SM (cudaFuncGetAttributes and
           cudaOccupancyMaxActiveBlocksPerMultiprocessor, on a line of its
           own): K1, K4, K5, K6, K7, K13 (its dense instance), K9, K10,
-          K11, K12, K14, K15, K16, K18
+          K11, K12, K14, K15, K16, K17, K18, K19, K20
   slice   drand_tpu_torch.verify.Verifier (drand_tpu's merged Miller
           executor) on the committed 16384-round pedersen-bls-unchained
           segment (all true; one flipped byte gives exactly one false;
@@ -80,9 +80,12 @@ exponentiation's inversion (mont_mul, sqr_chain_mul, fp2_products).
           p's above a borrowing one), 0, 1, p-1, with zero and
           all-(p-1) rows, flat_frob at n = 1, 2, 3 (also on 16384, 33
           and 1 rows with zero and all-(p-1) rows), flat_sqr and line_merge
-          on all-(p-1) and zero rows, g2_dbl_line and g2_add_line on three
-          stacked pairs with Z = 1 and Z = 0 rows (g2_dbl_line also on 1,
-          31 and 33 rows: ragged blocks), add and sub at 0, 1, m-1 and on
+          on all-(p-1) and zero rows (flat_sqr also on 1, 31 and 33 rows:
+          ragged blocks), g2_dbl_line and g2_add_line on three stacked
+          pairs with Z = 1 and Z = 0 rows (both also on 1, 31 and 33 rows;
+          g2_add_line also with T = Q and T = -Q rows in affine form, where
+          H = 0, on those and on three stacked pairs), add and sub at 0, 1,
+          m-1 and on
           all-(m-1) and
           zero rows; on random values plus 0, 1, m-1 (mont_reduce: wide
           values up to the top of its input contract, in limbs up to
@@ -99,7 +102,8 @@ g2_dbl_line and g2_add_line, the default one for the others),
 bound_ms_batch (its bound summed over every call that path's batch made)
 and loss_ms (the difference), path_ms and loss_ms null where none of up
 to four profiled sessions saw every launch of the kernel, and, for
-flat_frob and g2_dbl_line, "code": registers, local memory and blocks per
+flat_frob, flat_sqr, g2_dbl_line, g2_add_line and line_merge, "code":
+registers, local memory and blocks per
 SM (kernel_attrs), stack frame and spill stores (ptxas) and SASS
 instructions (cuobjdump); and, last, {"ok": true, "device": ...}.
 Any mismatch or error exits non-zero before the last line.  It imports
@@ -155,7 +159,9 @@ OFF_PATH = ("mont_sqr", "mont_reduce", "fp2_sqr5_mul", "line_merge", "add",
             "sub")
 # the kernels whose code statistics the kernels line gives, by their name
 # in ptxas's and cuobjdump's output
-CODE_STATS = {"flat_frob": "k_flat_frob", "g2_dbl_line": "k_g2_dbl_line"}
+CODE_STATS = {"flat_frob": "k_flat_frob", "flat_sqr": "k_flat_sqr",
+              "g2_dbl_line": "k_g2_dbl_line", "g2_add_line": "k_g2_add_line",
+              "line_merge": "k_line_merge"}
 # kernels of the trio Miller executor only, and of the merged one only
 TRIO = ("flat_sqr", "g2_dbl_line", "g2_add_line")
 MERGED = ("miller_dbl_iter", "miller_add_iter")
@@ -449,7 +455,8 @@ def main() -> int:
                      "fp2_sqrs", "fp2_sqr_chain_mul", "flat_mul",
                      "g2_point_dbl", "g2_point_add", "miller_dbl_iter",
                      "miller_add_iter", "cyclo_sqr", "flat_conj",
-                     "flat_frob", "g2_dbl_line")}}
+                     "flat_frob", "flat_sqr", "g2_dbl_line", "g2_add_line",
+                     "line_merge")}}
     emit(report["occupancy"])
 
     def pairing_rows(k_pairs: int, n: int):
@@ -871,8 +878,8 @@ def main() -> int:
         """Kernel arguments for `call`: random canonical values (with 0, 1,
         m-1 first), all-(p-1) flat rows ("max"), rows of all-(m-1) and of
         zero coefficients ("edge"), each kernel's edge operands ("edges":
-        K13's at block edges, K15's and K6's edge values) or unitary
-        ones."""
+        K13's at block edges, K15's and K6's edge values), K19's rows
+        with H = 0 among them ("h0") or unitary ones."""
         if name == "flat_sqr":
             return ((edge_rows(FP, call) if kind == "edge"
                      else field_rows(FP, call)),)
@@ -881,6 +888,20 @@ def main() -> int:
             if kind == "edge":
                 return edge_rows(FP, shape), edge_rows(FP, shape, 2)
             return field_rows(FP, shape), field_rows(FP, shape)
+        if name == "g2_add_line" and kind == "h0":
+            # rows in turn: T = Q and T = -Q in affine form (Z = 1, so
+            # H = 0), Z = 1, Z = 0, random
+            x = field_rows(FP, call)
+            for at, sign in ((0, 1), (1, -1)):
+                y = x[..., at::5, :, :]
+                y[..., 0:2, :] = y[..., 6:8, :]
+                y[..., 2:4, :] = (y[..., 8:10, :] if sign > 0
+                                  else FP.neg(y[..., 8:10, :]))
+            for at in (0, 1, 2):
+                x[..., at::5, 4, :] = FP.one_mont.to(dev)
+                x[..., at::5, 5, :] = 0
+            x[..., 3::5, 4:6, :] = 0
+            return (x,)
         if name in ("g2_dbl_line", "g2_add_line"):
             x = field_rows(FP, call)
             x[..., :8, 4, :] = FP.one_mont.to(dev)      # Z = 1, as at start
@@ -1103,6 +1124,8 @@ def main() -> int:
             cases["flat_frob"].add((((rows_, 12, 32), n), "edge"))
     for kind in ("random", "edge"):
         cases["flat_sqr"].add((flat12, kind))
+        for rows_ in (1, 31, 33):
+            cases["flat_sqr"].add((((rows_, 12, 32)), kind))
         cases["line_merge"].add((flat12, kind))
         for f in fields:
             cases["add"].add(((f, flat32), kind))
@@ -1111,6 +1134,9 @@ def main() -> int:
     for shape in ((3, 33, 8, 32), (1, 31, 8, 32), (1, 1, 8, 32)):
         cases["g2_dbl_line"].add((shape, "random"))
     cases["g2_add_line"].add(((3, BATCH, 12, 32), "random"))
+    for shape in ((3, BATCH, 12, 32), (3, 33, 12, 32), (1, 31, 12, 32),
+                  (1, 1, 12, 32)):
+        cases["g2_add_line"].add((shape, "h0"))
 
     rows = []
     for name in K.KERNELS:

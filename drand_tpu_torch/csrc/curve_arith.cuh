@@ -5,9 +5,10 @@
 //
 // Each function follows the formula of its plain PyTorch version step for
 // step (ops/curve.py point_double and point_add, ops/pairing.py _dbl_step
-// and _add_step): every intermediate is canonical, so the outputs equal
-// the plain version's bit for bit -- Jacobian coordinates are not unique,
-// so the same formula, not only the same point, is what is held equal.
+// and _add_step), split into level shares: every intermediate is
+// canonical, so the outputs equal the plain version's bit for bit --
+// Jacobian coordinates are not unique, so the same formula, not only the
+// same point, is what is held equal.
 #pragma once
 
 #include "tower_arith.cuh"
@@ -26,86 +27,7 @@ inline One one_from_words(const uint64_t *w) {
   return one;
 }
 
-struct G2J {
-  F2 X, Y, Z;                             // Z = 0 encodes infinity
-};
-
-// A Miller step's line a + b w^2 + c w^3 as its Fp2 triple (a, b, c).
-struct LineF2 {
-  F2 a, b, c;
-};
-
-// The Miller mixed-addition step (ops/pairing.py _add_step), Q = (xq, yq)
-// affine: with H = xq Z^2 - X and r = 2(yq Z^3 - Y), the line is
-// a = r xq - 2HZ yq, b = -r xp, c = 2HZ yp.
-DT_HD LineF2 miller_add_step(G2J &T, const F2 &xq, const F2 &yq,
-                             const uint64_t *xp, const uint64_t *yp,
-                             const Mod &M) {
-  const F2 ZZ = f2_sqr(T.Z, M), yqZ = f2_mul(yq, T.Z, M);
-  const F2 U2 = f2_mul(xq, ZZ, M), S2 = f2_mul(yqZ, ZZ, M);
-  const F2 H = f2_sub(U2, T.X, M);
-  const F2 r = f2_dbl(f2_sub(S2, T.Y, M), M);
-  const F2 ZH = f2_add(T.Z, H, M);
-  const F2 HH = f2_sqr(H, M), rr = f2_sqr(r, M), ZH2 = f2_sqr(ZH, M);
-  const F2 HZ = f2_mul(H, T.Z, M);
-  const F2 I = f2_dbl(f2_dbl(HH, M), M);
-  const F2 HZ2 = f2_dbl(HZ, M);
-  const F2 J = f2_mul(H, I, M), V = f2_mul(T.X, I, M);
-  const F2 rxq = f2_mul(r, xq, M), hzyq = f2_mul(HZ2, yq, M);
-  const F2 X3 = f2_sub(f2_sub(rr, J, M), f2_dbl(V, M), M);
-  const F2 rV = f2_mul(r, f2_sub(V, X3, M), M), YJ = f2_mul(T.Y, J, M);
-  T.Y = f2_sub(rV, f2_dbl(YJ, M), M);
-  T.Z = f2_sub(ZH2, f2_add(ZZ, HH, M), M);
-  T.X = X3;
-  const F2 a = f2_sub(rxq, hzyq, M);
-  const F2 b = f2_mul_fp(f2_neg(r, M), xp, M);
-  const F2 c = f2_mul_fp(HZ2, yp, M);
-  return {a, b, c};
-}
-
-
-// ---------------------------------------------------------------------------
-// Pieces of the merged Miller iterations (B11, B12) for the two-pair check,
-// shared by the kernels and the harness.  A row's state is f [12 x 32
-// limbs], T [2 pairs x (X0 X1 Y0 Y1 Z0 Z1) x 32], P [2 x (xp yp) x 32],
-// Q [2 x (xq0 xq1 yq0 yq1) x 32] and two int32 masks (0: inactive pair).
-// ---------------------------------------------------------------------------
-
-// A point's six coordinates X0 X1 Y0 Y1 Z0 Z1, coordinate c at c * cs
-// limbs: cs = 32 for a row's own block, rows * 32 for a coordinate-major
-// stack.
-DT_HD G2J g2_load6(const int32_t *c, long long cs) {
-  return {f2_load(c, c + cs), f2_load(c + 2 * cs, c + 3 * cs),
-          f2_load(c + 4 * cs, c + 5 * cs)};
-}
-
-DT_HD void g2_store6(const G2J &p, int32_t *c, long long cs) {
-  f2_store(p.X, c, c + cs);
-  f2_store(p.Y, c + 2 * cs, c + 3 * cs);
-  f2_store(p.Z, c + 4 * cs, c + 5 * cs);
-}
-
-// B19, one stacked row of the trio loop's addition step: in holds T (X0
-// X1 Y0 Y1 Z0 Z1), Q (xq0 xq1 yq0 yq1), then P (xp yp), 32 limbs each; T'
-// goes to t_out and the line triple a0 a1 b0 b1 c0 c1 to l_out, six
-// coordinates of 32 limbs each.  No mask: the trio loop masks the lines
-// and selects T itself (ops/pairing.py).
-DT_HD void miller_add_line(const int32_t *in, int32_t *t_out, int32_t *l_out,
-                           const Mod &M) {
-  G2J T = g2_load6(in, N_LIMBS);
-  const int32_t *p = in + 10 * N_LIMBS;
-  uint64_t xp[N_WORDS], yp[N_WORDS];
-  load_words(p, xp);
-  load_words(p + N_LIMBS, yp);
-  const LineF2 l =
-      miller_add_step(T, f2_load(in + 6 * N_LIMBS, in + 7 * N_LIMBS),
-                      f2_load(in + 8 * N_LIMBS, in + 9 * N_LIMBS), xp, yp, M);
-  g2_store6(T, t_out, N_LIMBS);
-  f2_store(l.a, l_out, l_out + N_LIMBS);
-  f2_store(l.b, l_out + 2 * N_LIMBS, l_out + 3 * N_LIMBS);
-  f2_store(l.c, l_out + 4 * N_LIMBS, l_out + 5 * N_LIMBS);
-}
-
+// A product class's output slots j and j + 6 into dst (flat_load's layout).
 DT_HD void flat_unstage(const uint64_t *lo, const uint64_t *hi, int j,
                         uint64_t *dst, int stride) {
   DT_UNROLL
@@ -225,6 +147,7 @@ struct MergedDblIo {
     line_put_cell(c, i, active, one, l, stride, M);
   }
   DT_HD bool keeps_t() const { return t_out != nullptr; }
+  DT_HD void fence() const {}
   DT_HD void point(const F2 &v, int e) const {
     f2_store(v, t_out + e * N_LIMBS, t_out + (e + 1) * N_LIMBS);
   }
@@ -237,7 +160,10 @@ constexpr int DL_T = 0, DL_P = 6, DL_S1 = 8, DL_S2 = 16, DL_L = 28;
 constexpr int DL_BUF = DL_L + 6;
 
 // K18's level 2: P beside T in the row's buffer t (DL_P), the unmasked
-// line triple to l, T' over T.
+// line triple to l, T' over T.  Its fence is a __syncwarp (every lane of a
+// K18 warp runs the same share): ptxas then does not start a share's next
+// product before the last one is stored, and the shares fit 168 registers
+// with no local memory (56 bytes of spill stores without).
 struct TrioDblIo {
   uint64_t *t, *l;
   int stride;
@@ -249,6 +175,11 @@ struct TrioDblIo {
     f2_put(c, l, 2 * i, stride);
   }
   DT_HD bool keeps_t() const { return true; }
+  DT_HD void fence() const {
+#if defined(__CUDA_ARCH__)
+    __syncwarp();
+#endif
+  }
   DT_HD void point(const F2 &v, int e) const {
     f2_put(v, t, DL_T + e, stride);
   }
@@ -256,7 +187,8 @@ struct TrioDblIo {
 
 // Share j of `level` for one pair: t, s1, s2 its buffers, io where level 2
 // reads P and puts the line (cell i = 0, 1, 2 for a, b, c) and T'
-// (element e = 0, 2, 4 for X', Y', Z').
+// (element e = 0, 2, 4 for X', Y', Z'), and io.fence() between a share's
+// products (K11's is empty).
 template <class Io>
 DT_HD void miller_dbl_share(int level, int j, const uint64_t *t,
                             uint64_t *s1, uint64_t *s2, const Io &io,
@@ -264,6 +196,7 @@ DT_HD void miller_dbl_share(int level, int j, const uint64_t *t,
   if (level == 0) {
     if (j < 2) {                          // XX or YY, and half of ZZ
       f2_put(f2_sqr(f2_at(t, 2 * j, stride), M), s1, 2 * j, stride);
+      io.fence();
       const F2 Z = f2_at(t, 4, stride);
       uint64_t h[N_WORDS];
       if (j == 0)
@@ -279,15 +212,18 @@ DT_HD void miller_dbl_share(int level, int j, const uint64_t *t,
     if (j == 0) {
       f2_put(f2_mul(f2_at(s1, 0, stride), f2_at(t, 0, stride), M), s2, 0,
              stride);
+      io.fence();
       f2_put(f2_sqr(f2_at(s1, 2, stride), M), s2, 2, stride);
     } else if (j == 1) {
       f2_put(f2_mul(f2_at(s1, 6, stride), f2_at(s1, 4, stride), M), s2, 4,
              stride);
+      io.fence();
       const F2 xyy = f2_add(f2_at(t, 0, stride), f2_at(s1, 2, stride), M);
       f2_put(f2_sqr(xyy, M), s2, 6, stride);
     } else {
       const F2 XX = f2_at(s1, 0, stride);
       f2_put(f2_mul(XX, f2_at(s1, 4, stride), M), s2, 8, stride);
+      io.fence();
       f2_put(f2_sqr(f2_triple(XX, M), M), s2, 10, stride);
     }
   } else if (j == 0) {
@@ -298,12 +234,14 @@ DT_HD void miller_dbl_share(int level, int j, const uint64_t *t,
     const F2 b = f2_mul_fp(f2_neg(f2_triple(f2_at(s2, 8, stride), M), M),
                            xp, M);
     io.line(a, 0, M);
+    io.fence();
     io.line(b, 1, M);
   } else if (j == 1) {
     uint64_t yp[N_WORDS];
     io.load_p(1, yp);
     const F2 c = f2_mul_fp(f2_dbl(f2_at(s2, 4, stride), M), yp, M);
     io.line(c, 2, M);
+    io.fence();
     if (io.keeps_t()) io.point(f2_dbl(f2_at(s1, 6, stride), M), 4);
   } else {
     const F2 XX = f2_at(s1, 0, stride), C = f2_at(s2, 2, stride);
@@ -311,6 +249,7 @@ DT_HD void miller_dbl_share(int level, int j, const uint64_t *t,
     D = f2_dbl(D, M);
     const F2 X2 = f2_sub(f2_at(s2, 10, stride), f2_dbl(D, M), M);
     if (io.keeps_t()) io.point(X2, 0);
+    io.fence();
     const F2 Et = f2_mul(f2_triple(XX, M), f2_sub(D, X2, M), M);
     const F2 Y2 = f2_sub(Et, f2_dbl(f2_dbl(f2_dbl(C, M), M), M), M);
     if (io.keeps_t()) io.point(Y2, 2);
@@ -319,17 +258,22 @@ DT_HD void miller_dbl_share(int level, int j, const uint64_t *t,
 
 
 // ---------------------------------------------------------------------------
-// B12's mixed-addition step split over three threads of a pair (K12), as
-// miller_dbl_share splits B11's: the formula of miller_add_step by its
-// dependency levels, a barrier between levels.  Per pair, in flat_load's
-// layout:
+// The Miller mixed-addition step (ops/pairing.py _add_step_plain, Q = (xq,
+// yq) affine: with H = xq Z^2 - X and r = 2 (yq Z^3 - Y), the line is a =
+// r xq - 2HZ yq, b = -r xp, c = 2HZ yp) split over three threads of a pair
+// by its dependency levels, as miller_dbl_share splits the doubling, for
+// both Miller executors: K12 (the merged iteration, B12) and K19 (the trio
+// loop's step, B19).  Per pair, in flat_load's layout:
 //
-//   t   T, elements X0 X1 Y0 Y1 Z0 Z1 (read only: T' goes to t_out)
+//   t   T, elements X0 X1 Y0 Y1 Z0 Z1
 //   q   Q, elements xq0 xq1 yq0 yq1
 //   s   the level values, elements: ZZ 0-1, yqZ 2-3 (then ZH2 from level
 //       2 on), H 4-5, HH 6-7, r 8-9, HZ2 = 2 H Z 10-11, rr 12-13, the
 //       line's b 14-15, J 16-17, V 18-19, the line's c 20-21, hzyq 22-23;
-//       the flat line over elements 0-5, written at level 4
+//       the line over elements 0-5, written at level 4
+//
+// and where the shares read P and put T' and the line, fixed at compile
+// time by the executor's Io (MergedAddIo, TrioAddIo below).
 //
 // Share j of each level (Fp2 products 1776 multiply-adds, a product's
 // half 888, squares 1248, Fp products 600):
@@ -346,16 +290,84 @@ DT_HD void miller_dbl_share(int level, int j, const uint64_t *t,
 //            hzyq, b, c
 //
 // so no level holds more than 2,496 multiply-adds on a thread (one
-// thread alone: 25,152 a step).  T' goes to t_out (6 x 32 limbs), T where
-// the pair is inactive, and the line is the flat one there.  Every
-// intermediate is canonical, so the shares give miller_add_step's outputs
-// bit for bit.
+// thread alone: 25,152 a step).  Reads by level, for where T' may go: T.Z
+// at levels 0 and 2, T.X at 1 and 3, T.Y at 1 and 4 (both j < 2 shares of
+// level 4 read it whole), yq at 0 and 3, xq at 1 and 4, xp at 2, yp at 3;
+// level 4 reads no element of s below 8.  Every intermediate is
+// canonical, so the shares give _add_step_plain's outputs bit for bit.
 // ---------------------------------------------------------------------------
 
-// p: the pair's P (xp then yp, 32 limbs each); active: the pair's mask.
+// K12's: P (xp then yp, 32 limbs each) from device memory at p; T' to
+// device memory, 6 x 32 limbs at t_out, T where the pair is inactive; the
+// pair's flat line on LINE_IDX over the first six level values
+// (line_put_cell: the flat one where the pair is inactive).
+struct MergedAddIo {
+  const int32_t *p;
+  bool active;
+  int32_t *t_out;
+  const One &one;
+
+  DT_HD void load_p(int i, uint64_t *x) const {
+    load_words(p + i * N_LIMBS, x);
+  }
+  // T' coordinate pair e, e + 1 (e = 0 for X', 4 for Z')
+  DT_HD void point(const F2 &v, int e, const uint64_t *t, int stride) const {
+    f2_store(f2_select(active, v, f2_at(t, e, stride)), t_out + e * N_LIMBS,
+             t_out + (e + 1) * N_LIMBS);
+  }
+  // T' coordinate e alone (e = 2, 3: Y's halves)
+  DT_HD void point_half(uint64_t *h, int e, const uint64_t *t,
+                        int stride) const {
+    uint64_t w[N_WORDS];
+    flat_load(t, e, stride, w);
+    DT_UNROLL
+    for (int v = 0; v < N_WORDS; v++) h[v] = active ? h[v] : w[v];
+    store_words(h, t_out + e * N_LIMBS);
+  }
+  DT_HD void line(const F2 &c, int i, uint64_t *s, int stride,
+                  const Mod &M) const {
+    line_put_cell(c, i, active, one, s, stride, M);
+  }
+};
+
+// A K19 row's buffer, in elements: T, Q and P as staged (X0 X1 Y0 Y1 Z0
+// Z1 xq0 xq1 yq0 yq1 xp yp: AL_T, AL_Q, AL_P), then the level values
+// (AL_S, miller_add_share's s).  T' goes where nothing of its level or a
+// later one still reads: Z' over T.Z (level 3), X' over T.X and Y' over yq
+// (level 4: both Y' shares read T.Y whole); the unmasked line triple a0
+// a1 b0 b1 c0 c1 over the first six level values.
+constexpr int AL_T = 0, AL_Q = 6, AL_P = 10, AL_S = 12;
+constexpr int AL_BUF = AL_S + MA_SW;
+
+// The element of a K19 row's buffer that holds coordinate c of T'.
+DT_HD int al_t_out(int c) { return c == 2 || c == 3 ? AL_Q + c : AL_T + c; }
+
+// K19's: P from the row's buffer b (AL_P), T' into it (al_t_out), the
+// line triple over s.
+struct TrioAddIo {
+  uint64_t *b;
+  int stride;
+
+  DT_HD void load_p(int i, uint64_t *x) const {
+    flat_load(b, AL_P + i, stride, x);
+  }
+  DT_HD void point(const F2 &v, int e, const uint64_t *, int) const {
+    f2_put(v, b, al_t_out(e), stride);
+  }
+  DT_HD void point_half(uint64_t *h, int e, const uint64_t *, int) const {
+    flat_store(h, b, al_t_out(e), stride);
+  }
+  DT_HD void line(const F2 &c, int i, uint64_t *s, int,
+                  const Mod &) const {
+    f2_put(c, s, 2 * i, stride);
+  }
+};
+
+// Share j of `level` for one pair: t, q, s its buffers, io where the
+// shares read P and put T' and the line.
+template <class Io>
 DT_HD void miller_add_share(int level, int j, const uint64_t *t,
-                            const uint64_t *q, uint64_t *s, const int32_t *p,
-                            bool active, int32_t *t_out, const One &one,
+                            const uint64_t *q, uint64_t *s, const Io &io,
                             int stride, const Mod &M) {
   uint64_t h[N_WORDS], u[N_WORDS], w[N_WORDS];
   if (level == 0) {
@@ -387,7 +399,7 @@ DT_HD void miller_add_share(int level, int j, const uint64_t *t,
     } else {
       const F2 r = f2_at(s, 8, stride);
       f2_put(f2_sqr(r, M), s, 12, stride);
-      load_words(p, w);
+      io.load_p(0, w);
       f2_put(f2_mul_fp(f2_neg(r, M), w, M), s, 14, stride);
     }
   } else if (level == 3) {
@@ -395,7 +407,7 @@ DT_HD void miller_add_share(int level, int j, const uint64_t *t,
     if (j < 2) {
       const F2 HX = j == 0 ? f2_at(s, 4, stride) : f2_at(t, 0, stride);
       f2_put(f2_mul(HX, I, M), s, 16 + 2 * j, stride);
-      load_words(p + N_LIMBS, w);
+      io.load_p(1, w);
       flat_load(s, 10 + j, stride, u);
       mont_mul_words(u, w, h, M);
       flat_store(h, s, 20 + j, stride);
@@ -405,8 +417,7 @@ DT_HD void miller_add_share(int level, int j, const uint64_t *t,
       const F2 Z2 = f2_sub(f2_at(s, 2, stride),
                            f2_add(f2_at(s, 0, stride), f2_at(s, 6, stride), M),
                            M);
-      f2_store(f2_select(active, Z2, f2_at(t, 4, stride)),
-               t_out + 4 * N_LIMBS, t_out + 5 * N_LIMBS);
+      io.point(Z2, 4, t, stride);
     }
   } else {
     const F2 r = f2_at(s, 8, stride), J = f2_at(s, 16, stride),
@@ -418,18 +429,14 @@ DT_HD void miller_add_share(int level, int j, const uint64_t *t,
       f2_mul_half(j, Y, J, w, M);
       add_mod(w, w, w, M);
       sub_mod(u, w, h, M);
-      flat_load(t, 2 + j, stride, w);
-      DT_UNROLL
-      for (int v = 0; v < N_WORDS; v++) h[v] = active ? h[v] : w[v];
-      store_words(h, t_out + (2 + j) * N_LIMBS);
+      io.point_half(h, 2 + j, t, stride);
     } else {
-      f2_store(f2_select(active, X2, f2_at(t, 0, stride)), t_out,
-               t_out + N_LIMBS);
+      io.point(X2, 0, t, stride);
       const F2 a = f2_sub(f2_mul(r, f2_at(q, 0, stride), M),
                           f2_at(s, 22, stride), M);
-      line_put_cell(a, 0, active, one, s, stride, M);
-      line_put_cell(f2_at(s, 14, stride), 1, active, one, s, stride, M);
-      line_put_cell(f2_at(s, 20, stride), 2, active, one, s, stride, M);
+      io.line(a, 0, s, stride, M);
+      io.line(f2_at(s, 14, stride), 1, s, stride, M);
+      io.line(f2_at(s, 20, stride), 2, s, stride, M);
     }
   }
 }

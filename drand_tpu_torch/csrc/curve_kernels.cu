@@ -54,19 +54,26 @@
 //   once, coalesced (stage.cuh), into shared memory as words, the three
 //   dependency levels of curve_arith.cuh miller_dbl_share run with a
 //   barrier after each (its TrioDblIo instance: P from the staged row,
-//   the unmasked line triple and T' into shared memory), and T' and the
-//   line are staged out.  A row's buffer is 34 elements (curve_arith.cuh
-//   DL_*), 52,224 bytes of dynamic shared memory a block: four blocks (12
-//   warps) a SM at 168 registers at most (ptxas keeps four 32-bit values
-//   across the level loop in 24 bytes of local memory).  Its time is the
-//   shares' word arithmetic, as in K11.
+//   the unmasked line triple and T' into shared memory, a __syncwarp
+//   between a share's products), and T' and the line are staged out.  A
+//   row's buffer is 34 elements (curve_arith.cuh DL_*), 52,224 bytes of
+//   dynamic shared memory a block: four blocks (12 warps) a SM at 168
+//   registers, no local memory.  Its time is the shares' word arithmetic,
+//   as in K11.
 // K19 dt_g2_add_line -- replaces PallasField.g2_add_line (:1551, body
 //   :1450, rows :1460).  The mixed addition step, in [rows, 12, 32] (T,
-//   xq0 xq1 yq0 yq1, xp yp): 4 squares, 10 products and 4 Fp products,
-//   ~25.2k multiply-adds on 3 KB, bound by operations.  One thread a row
-//   runs curve_arith.cuh miller_add_line (the formula of miller_add_step,
-//   which K12's level shares split), so the merged and trio loops share
-//   one formula.
+//   xq0 xq1 yq0 yq1, xp yp), out T' and the line triple: 4 squares, 10
+//   products and 4 Fp products, ~25.2k multiply-adds on 3 KB, bound by
+//   operations.  K18's launch shape on K12's shares: the 12 input
+//   coordinates staged once, the five dependency levels of curve_arith.cuh
+//   miller_add_share with a barrier after each (its TrioAddIo instance: P
+//   from the staged row, T' into the buffer where no later share reads --
+//   X' and Z' over T's, Y' over yq -- and the unmasked line triple over the
+//   first six level values), then T' and the line staged out, coalesced.
+//   A row's buffer is 36 elements (curve_arith.cuh AL_*), 55,296 bytes a
+//   block: four blocks (12 warps) a SM at 168 registers, no local memory;
+//   two stacked pairs of 16384 rows are 1,024 blocks, 1.94 waves on 132
+//   SMs.
 //
 // The file is compiled twice, in parallel (ops/kernels.py SOURCES):
 // -DDT_CURVE_PART=0 gives K9 and K10, =1 K18 and K19, so the build waits
@@ -82,8 +89,6 @@
 #endif
 
 namespace {
-
-constexpr int THREADS = 128;
 
 unsigned blocks(long long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
@@ -157,12 +162,36 @@ __global__ void __launch_bounds__(ADD_THREADS, 4)
                             o + c * cs);
 }
 #else
-constexpr int DL_ROWS = 32;               // rows of a K18 block
+constexpr int DL_ROWS = 32;               // rows of a K18 or K19 block
 constexpr int DL_THREADS = 3 * DL_ROWS;   // three threads a row
+constexpr int DL_SLOT = dt::N_WORDS * DL_ROWS;   // words of one element
 
-// a block's row buffers: 52,224 bytes, dynamic (over 48 KB)
-constexpr int DL_SMEM =
-    dt::DL_BUF * dt::N_WORDS * DL_ROWS * sizeof(uint64_t);
+// a block's row buffers, dynamic (over 48 KB): K18 52,224 bytes, K19
+// 55,296
+constexpr int DL_SMEM = dt::DL_BUF * DL_SLOT * sizeof(uint64_t);
+constexpr int AL_SMEM = dt::AL_BUF * DL_SLOT * sizeof(uint64_t);
+
+// One level of K18's (ADD false) or K19's (ADD true) shares on a block's
+// row buffers in sm, then a barrier.  The kernels call it once a level
+// with the level written out: a loop over the levels stays a loop even
+// under #pragma unroll, and ptxas keeps its counter in local memory.
+template <bool ADD>
+__device__ __forceinline__ void line_level(int level, uint64_t *sm,
+                                           const dt::Mod &M) {
+  const int t = threadIdx.x, j = t / DL_ROWS;
+  uint64_t *b = sm + t % DL_ROWS;
+  if constexpr (ADD)
+    dt::miller_add_share(level, j, b + dt::AL_T * DL_SLOT,
+                         b + dt::AL_Q * DL_SLOT, b + dt::AL_S * DL_SLOT,
+                         dt::TrioAddIo{b, DL_ROWS}, DL_ROWS, M);
+  else
+    dt::miller_dbl_share(level, j, b + dt::DL_T * DL_SLOT,
+                         b + dt::DL_S1 * DL_SLOT, b + dt::DL_S2 * DL_SLOT,
+                         dt::TrioDblIo{b + dt::DL_T * DL_SLOT,
+                                       b + dt::DL_L * DL_SLOT, DL_ROWS},
+                         DL_ROWS, M);
+  __syncthreads();
+}
 
 __global__ void __launch_bounds__(DL_THREADS, 4)
     k_g2_dbl_line(const int32_t *__restrict__ in, int32_t *__restrict__ to,
@@ -170,32 +199,36 @@ __global__ void __launch_bounds__(DL_THREADS, 4)
   // element e of block row r, word v at [(e * 6 + v) * DL_ROWS + r]
   // (curve_arith.cuh DL_*)
   extern __shared__ uint64_t sm[];
-  constexpr int SLOT = dt::N_WORDS * DL_ROWS;
-  const long long row0 = (long long)blockIdx.x * DL_ROWS;
-  dt::stage_in<DL_ROWS>(in, 8, row0, rows, sm + dt::DL_T * SLOT);
+  dt::stage_in<DL_ROWS>(in, 8, (long long)blockIdx.x * DL_ROWS, rows,
+                        sm + dt::DL_T * DL_SLOT);
   __syncthreads();
-  const int j = threadIdx.x / DL_ROWS, r = threadIdx.x % DL_ROWS;
-  const dt::TrioDblIo io{sm + dt::DL_T * SLOT + r, sm + dt::DL_L * SLOT + r,
-                         DL_ROWS};
-#pragma unroll
-  for (int level = 0; level < 3; level++) {
-    dt::miller_dbl_share(level, j, sm + dt::DL_T * SLOT + r,
-                         sm + dt::DL_S1 * SLOT + r, sm + dt::DL_S2 * SLOT + r,
-                         io, DL_ROWS, M);
-    __syncthreads();
-  }
-  dt::stage_out<DL_ROWS>(sm + dt::DL_T * SLOT, 6, row0, rows, to);
-  dt::stage_out<DL_ROWS>(sm + dt::DL_L * SLOT, 6, row0, rows, lo);
+  line_level<false>(0, sm, M);
+  line_level<false>(1, sm, M);
+  line_level<false>(2, sm, M);
+  const long long row0 = (long long)blockIdx.x * DL_ROWS;
+  dt::stage_out<DL_ROWS>(sm + dt::DL_T * DL_SLOT, 6, row0, rows, to);
+  dt::stage_out<DL_ROWS>(sm + dt::DL_L * DL_SLOT, 6, row0, rows, lo);
 }
 
-__global__ void k_g2_add_line(const int32_t *__restrict__ in,
-                              int32_t *__restrict__ to,
-                              int32_t *__restrict__ lo, long long rows,
-                              dt::Mod M) {
-  const long long r = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  const long long at = r * 6 * dt::N_LIMBS;
-  dt::miller_add_line(in + r * 12 * dt::N_LIMBS, to + at, lo + at, M);
+__global__ void __launch_bounds__(DL_THREADS, 4)
+    k_g2_add_line(const int32_t *__restrict__ in, int32_t *__restrict__ to,
+                  int32_t *__restrict__ lo, long long rows, dt::Mod M) {
+  // element e of block row r, word v at [(e * 6 + v) * DL_ROWS + r]
+  // (curve_arith.cuh AL_*)
+  extern __shared__ uint64_t sm[];
+  dt::stage_in<DL_ROWS>(in, 12, (long long)blockIdx.x * DL_ROWS, rows,
+                        sm + dt::AL_T * DL_SLOT);
+  __syncthreads();
+  line_level<true>(0, sm, M);
+  line_level<true>(1, sm, M);
+  line_level<true>(2, sm, M);
+  line_level<true>(3, sm, M);
+  line_level<true>(4, sm, M);
+  const long long row0 = (long long)blockIdx.x * DL_ROWS;
+  for (int c = 0; c < 6; c += 2)          // X', Y', Z' (dt::al_t_out)
+    dt::stage_out_at<DL_ROWS>(sm + dt::al_t_out(c) * DL_SLOT, 2, 6, c, row0,
+                              rows, to);
+  dt::stage_out<DL_ROWS>(sm + dt::AL_S * DL_SLOT, 6, row0, rows, lo);
 }
 #endif
 
@@ -259,10 +292,18 @@ int dt_g2_dbl_line_attrs(int *out) {
 int dt_g2_add_line(const int32_t *in, int32_t *to, int32_t *lo,
                    long long rows, const uint64_t *mod7, void *stream) {
   if (rows <= 0) return 0;
-  k_g2_add_line<<<blocks(rows, THREADS), THREADS, 0,
+  cudaError_t e = cudaFuncSetAttribute(
+      k_g2_add_line, cudaFuncAttributeMaxDynamicSharedMemorySize, AL_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  k_g2_add_line<<<blocks(rows, DL_ROWS), DL_THREADS, AL_SMEM,
                   (cudaStream_t)stream>>>(in, to, lo, rows,
                                           dt::mod_from_words(mod7));
   return (int)cudaGetLastError();
+}
+
+// K19's, with its dynamic shared memory.
+int dt_g2_add_line_attrs(int *out) {
+  return dt::kernel_attrs(k_g2_add_line, DL_THREADS, AL_SMEM, out);
 }
 #endif
 

@@ -172,25 +172,24 @@ void dth_flat_mul(const int32_t *a, const int32_t *b, int32_t *o,
     flat_mul_rows(a, b, o, rows, idx, J, M);
 }
 
-// K17 and K20 the same way: the six classes in turn on one row's words.
+// K17: the six classes in turn on one row's words, each folding its
+// coefficients into its two output elements of wo (flat_sqr_slots).
 void dth_flat_sqr(const int32_t *a, int32_t *o, long long rows,
                   const uint64_t *mod7) {
   const dt::Mod M = dt::mod_from_words(mod7);
-  uint64_t wa[dt::FLAT * dt::N_WORDS];
+  uint64_t wa[dt::FLAT * dt::N_WORDS], wo[dt::FLAT * dt::N_WORDS];
   for (long long r = 0; r < rows; r++) {
     for (int i = 0; i < dt::FLAT; i++)
       dt::load_words(a + (r * dt::FLAT + i) * dt::N_LIMBS,
                      wa + i * dt::N_WORDS);
-    int32_t *out = o + r * dt::FLAT * dt::N_LIMBS;
-    for (int j = 0; j < 6; j++) {
-      uint64_t lo[dt::N_WORDS], hi[dt::N_WORDS];
-      dt::flat_sqr_class(j, wa, 1, lo, hi, M);
-      dt::store_words(lo, out + j * dt::N_LIMBS);
-      dt::store_words(hi, out + (j + 6) * dt::N_LIMBS);
-    }
+    for (int j = 0; j < 6; j++) dt::flat_sqr_slots(j, wa, wo, 1, M);
+    for (int i = 0; i < dt::FLAT; i++)
+      dt::store_words(wo + i * dt::N_WORDS,
+                      o + (r * dt::FLAT + i) * dt::N_LIMBS);
   }
 }
 
+// K20: the six classes in turn on one row's words.
 void dth_line_merge(const int32_t *l1, const int32_t *l2, int32_t *o,
                     long long rows, const uint64_t *mod7) {
   const dt::Mod M = dt::mod_from_words(mod7);
@@ -405,12 +404,30 @@ void dth_g2_dbl_line(const int32_t *in, int32_t *to, int32_t *lo,
   }
 }
 
+// K19 the same way (curve_arith.cuh AL_*: T, Q and P as staged, the
+// level values; T' into the elements al_t_out names, the line triple over
+// the first six level values).
 void dth_g2_add_line(const int32_t *in, int32_t *to, int32_t *lo,
-                     long long rows, const uint64_t *mod7) {
+                     long long rows, int reverse, const uint64_t *mod7) {
   const dt::Mod M = dt::mod_from_words(mod7);
-  for (long long r = 0; r < rows; r++)
-    dt::miller_add_line(in + r * 12 * dt::N_LIMBS, to + r * 6 * dt::N_LIMBS,
-                        lo + r * 6 * dt::N_LIMBS, M);
+  const int W = dt::N_WORDS;
+  uint64_t buf[dt::AL_BUF * dt::N_WORDS];
+  const dt::TrioAddIo io{buf, 1};
+  for (long long r = 0; r < rows; r++) {
+    for (int i = 0; i < 12; i++)
+      dt::load_words(in + (r * 12 + i) * dt::N_LIMBS, buf + i * W);
+    for (int level = 0; level < 5; level++)
+      for (int s = 0; s < 3; s++)
+        dt::miller_add_share(level, reverse ? 2 - s : s, buf + dt::AL_T * W,
+                             buf + dt::AL_Q * W, buf + dt::AL_S * W, io, 1,
+                             M);
+    for (int i = 0; i < 6; i++) {
+      dt::store_words(buf + dt::al_t_out(i) * W,
+                      to + (r * 6 + i) * dt::N_LIMBS);
+      dt::store_words(buf + (dt::AL_S + i) * W,
+                      lo + (r * 6 + i) * dt::N_LIMBS);
+    }
+  }
 }
 
 void dth_add(const int32_t *a, const int32_t *b, int32_t *o, long long n,
@@ -458,11 +475,12 @@ static void miller_iter(const int32_t *f, const int32_t *T, const int32_t *Q,
         const int js = reverse ? 5 - s : s, j = js / 2, k = js % 2;
         const long long pk = r * 2 + k;
         if (add)
-          dt::miller_add_share(level, j, at(dt::MA_T + 6 * k),
-                               at(dt::MA_Q + 4 * k),
-                               at(dt::MA_S + dt::MA_SW * k),
-                               P + pk * 2 * dt::N_LIMBS, mask[pk] != 0,
-                               To + pk * 6 * dt::N_LIMBS, one, 1, M);
+          dt::miller_add_share(
+              level, j, at(dt::MA_T + 6 * k), at(dt::MA_Q + 4 * k),
+              at(dt::MA_S + dt::MA_SW * k),
+              dt::MergedAddIo{P + pk * 2 * dt::N_LIMBS, mask[pk] != 0,
+                              To + pk * 6 * dt::N_LIMBS, one},
+              1, M);
         else
           dt::miller_dbl_share(
               level, j, at(dt::MB_L + 6 * k), at(dt::MB_S1 + 8 * k),

@@ -36,7 +36,8 @@
 // The steps run on all six threads of a row, three a pair, each warp on
 // one (share, pair), so no thread holds a whole point and its
 // temporaries: K11 the shares of curve_arith.cuh miller_dbl_share (three
-// dependency levels), K12 those of miller_add_share (five), a barrier
+// dependency levels, MergedDblIo), K12 those of miller_add_share (five,
+// MergedAddIo), a barrier
 // after each level, the values between levels in shared memory (the
 // buffer map MB_*, MA_* of curve_arith.cuh).  K11 stages f and T, K12 T
 // and Q and, once its steps are done, f over T.  Shared memory, in
@@ -96,11 +97,13 @@ __global__ void __launch_bounds__(MT, 2)
   for (int level = 0; level < (ADD ? 5 : 3); level++) {
     if (row < rows) {
       if constexpr (ADD)
-        dt::miller_add_share(level, j, sm + (dt::MA_T + 6 * k) * SLOT + r,
-                             sm + (dt::MA_Q + 4 * k) * SLOT + r,
-                             sm + (dt::MA_S + dt::MA_SW * k) * SLOT + r,
-                             P + pk * 2 * dt::N_LIMBS, mask[pk] != 0,
-                             To + pk * 6 * dt::N_LIMBS, one, MR, M);
+        dt::miller_add_share(
+            level, j, sm + (dt::MA_T + 6 * k) * SLOT + r,
+            sm + (dt::MA_Q + 4 * k) * SLOT + r,
+            sm + (dt::MA_S + dt::MA_SW * k) * SLOT + r,
+            dt::MergedAddIo{P + pk * 2 * dt::N_LIMBS, mask[pk] != 0,
+                            To + pk * 6 * dt::N_LIMBS, one},
+            MR, M);
       else
         dt::miller_dbl_share(
             level, j, sm + (dt::MB_L + 6 * k) * SLOT + r,

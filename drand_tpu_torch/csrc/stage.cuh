@@ -2,10 +2,11 @@
 // 12-bit limbs, row-major, the layout of drand_tpu_torch/ops/field.py)
 // and shared memory (64-bit words in flat_load's layout: element e of
 // block row r, word v at [(e * 6 + v) * R + r]), for the kernels that keep
-// their rows on chip across phases: K9-K12 (curve_kernels.cu,
-// miller_kernels.cu), K5, K6, K13 and K14 (tower_kernels.cu), and K1 and
-// K2 (field_kernels.cu); and kernel_attrs, the occupancy report of every
-// kernel file's *_attrs entry points.  CUDA code only.
+// their rows on chip across phases: K9-K12, K18 and K19 (curve_kernels.cu,
+// miller_kernels.cu), K5, K6, K13, K14, K16, K17 and K20
+// (tower_kernels.cu), and K1 and K2 (field_kernels.cu); and kernel_attrs,
+// the occupancy report of every kernel file's *_attrs entry points.  CUDA
+// code only.
 //
 // A row of `width` elements is width * 128 contiguous bytes.  An element
 // is eight 16-byte chunks of four limbs, 48 bits each.  Eight
@@ -91,25 +92,36 @@ __device__ __forceinline__ void stage_in_all(const int32_t *__restrict__ src,
   }
 }
 
-// The inverse: src's rows [row0, row0 + R) to dst [rows, width, 32],
-// rows past `rows` skipped.  Called by every thread of the block.
+// The inverse of stage_in for n elements: src's rows [row0, row0 + R)
+// into elements [at, at + n) of dst [rows, width, 32], rows past `rows`
+// skipped.  Called by every thread of the block.
 template <int R>
-__device__ __forceinline__ void stage_out(const uint64_t *src, int width,
-                                          long long row0, long long rows,
-                                          int32_t *__restrict__ dst) {
+__device__ __forceinline__ void stage_out_at(const uint64_t *src, int n,
+                                             int width, int at,
+                                             long long row0, long long rows,
+                                             int32_t *__restrict__ dst) {
   const int lane = threadIdx.x & 31, p = lane & 7, base = lane & ~7;
   const int wa = (48 * p) >> 6, off = (48 * p) & 63;
-  for (int s = threadIdx.x; s < R * width * 8; s += blockDim.x) {
+  for (int s = threadIdx.x; s < R * n * 8; s += blockDim.x) {
     const int g = s >> 3, r = g % R, e = g / R;
     const uint64_t w = p < N_WORDS ? src[(e * N_WORDS + p) * R + r] : 0;
     const uint64_t lo = shfl64(w, base + wa), hi = shfl64(w, base + wa + 1);
     const uint64_t x = off > 16 ? (lo >> off) | (hi << (64 - off))
                                 : lo >> off;
     if (row0 + r < rows)
-      reinterpret_cast<int4 *>(dst + ((row0 + r) * width + e) * N_LIMBS)[p] =
+      reinterpret_cast<int4 *>(
+          dst + ((row0 + r) * width + at + e) * N_LIMBS)[p] =
           make_int4((int)(x & 0xFFF), (int)((x >> 12) & 0xFFF),
                     (int)((x >> 24) & 0xFFF), (int)((x >> 36) & 0xFFF));
   }
+}
+
+// All `width` elements: src's rows to dst [rows, width, 32].
+template <int R>
+__device__ __forceinline__ void stage_out(const uint64_t *src, int width,
+                                          long long row0, long long rows,
+                                          int32_t *__restrict__ dst) {
+  stage_out_at<R>(src, width, width, 0, row0, rows, dst);
 }
 
 // A kernel's registers, local memory and shared memory (static plus the

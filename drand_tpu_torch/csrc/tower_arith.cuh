@@ -407,6 +407,66 @@ DT_HD void flat_sqr_class(int j, const uint64_t *a, int stride, uint64_t *lo,
   flat_recombine(r, lo, hi, M);
 }
 
+// K17's class loop: flat_sqr_class's coefficients c_k, k = j + 6q, each
+// reduced on its own and folded straight into output elements j and j + 6
+// of o (flat_load's layout, the same stride as a) with flat_mul_slots's
+// weights, so lo and hi live in shared memory, not in registers, while
+// the products run.  Both loops are kept rolled: one product body, one
+// triangular square and one REDC in the code.  c_k is below 12 m^2 and
+// every fold a modular add or subtract of canonical values, so o gets
+// flat_sqr_class's lo and hi bit for bit.  o must not alias a.
+DT_HD void flat_sqr_slots(int j, const uint64_t *a, uint64_t *o, int stride,
+                          const Mod &M) {
+  DT_NO_UNROLL
+  for (int q = 0; q < 4; q++) {
+    const int k = j + 6 * q;
+    uint64_t r[N_WORDS] = {0, 0, 0, 0, 0, 0};
+    if (k <= 2 * (FLAT - 1)) {
+      uint64_t w[W_WORDS];
+      zero_wide(w);
+      DT_NO_UNROLL
+      for (int i = k > FLAT - 1 ? k - (FLAT - 1) : 0; 2 * i < k; i++) {
+        uint64_t x[N_WORDS], y[N_WORDS];
+        flat_load(a, i, stride, x);
+        flat_load(a, k - i, stride, y);
+        mul_acc(x, y, w);
+      }
+      // at most 6 products, < 6 m^2 < 2^766: the doubling stays in 13 words
+      DT_UNROLL
+      for (int i = W_WORDS - 1; i > 0; i--)
+        w[i] = (w[i] << 1) | (w[i - 1] >> 63);
+      w[0] <<= 1;
+      if (k % 2 == 0) {
+        uint64_t x[N_WORDS], d[W_WORDS];
+        flat_load(a, k / 2, stride, x);
+        sqr_wide(x, d);
+        uint64_t c = 0;
+        DT_UNROLL
+        for (int i = 0; i < W_WORDS; i++) {
+          const uint64_t s = w[i] + d[i];
+          const uint64_t c1 = s < d[i];
+          w[i] = s + c;
+          c = c1 | (w[i] < s);
+        }
+      }
+      redc_to(w, r, 2, M);
+    }
+    if (q < 2) {                          // c_j to slot j, c_(j+6) to j + 6
+      flat_store(r, o, j + 6 * q, stride);
+    } else {                              // 2 c_k: + in slot j+6, - in j
+      uint64_t lo[N_WORDS], hi[N_WORDS];
+      flat_load(o, j, stride, lo);
+      flat_load(o, j + 6, stride, hi);
+      add_mod(r, r, r, M);
+      add_mod(hi, r, hi, M);
+      sub_mod(lo, r, lo, M);
+      if (q == 3) sub_mod(lo, r, lo, M);  // c_(j+18): -4 in slot j
+      flat_store(lo, o, j, stride);
+      flat_store(hi, o, j + 6, stride);
+    }
+  }
+}
+
 // B20, one thread's share of the product L = l1 l2 of two sparse lines,
 // each six coefficients on LINE_IDX: the 36 products grouped by their
 // power k = p_i + p_j in 0..18 (at most four a power, so below 4 m^2),

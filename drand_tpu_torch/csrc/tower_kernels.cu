@@ -118,19 +118,25 @@
 
 // K17 dt_flat_sqr -- replaces PallasField.flat_sqr (:1758, body
 //   _flat_sqr_kernel :1749, phase _sqr_phase :929).  The slot-symmetric
-//   flat Fp12 square: K13's launch shape (32 rows staged in shared memory,
-//   six threads a row, thread j owning the powers k = j mod 6), a only,
-//   with flat_sqr_class: 66 general and 12 triangular word products and 23
+//   flat Fp12 square: 66 general and 12 triangular word products and 23
 //   REDCs a row where K13 takes 144 and 23, ~28.2k multiply-adds on 3 KB,
-//   bound by operations.  K11's square is the same device function.
+//   bound by operations.  K13's launch shape on one operand: a block
+//   stages 32 rows coalesced, every load of a thread in flight at once
+//   (stage.cuh stage_in_all), six threads a row, thread j owning the
+//   powers k = j mod 6 (tower_arith.cuh flat_sqr_slots: rolled loops, one
+//   product body, each coefficient folded into the output rows in shared
+//   memory as it is reduced, so no thread keeps lo and hi in registers
+//   through its products), and the square is staged out coalesced.  Four
+//   blocks a SM: 16384 rows in one wave.  K11's square is flat_sqr_class,
+//   the same coefficients recombined in registers.
 // K20 dt_line_merge -- replaces PallasField.line_merge (:1898, body
 //   _line_merge_kernel :1887, phase _line_merge_phase :1864).  The dense
 //   product of two sparse lines on LINE_IDX, the same launch shape with
 //   line_merge_class: 36 word products and 16 REDCs a row, ~15.4k
 //   multiply-adds on 3 KB, bound by operations and bytes alike (0.92 ns
-//   a row each).  Like drand_tpu's, it has no
-//   caller on the verify path: its body runs inside K11 and K12, which
-//   merge the two lines before the dense product.
+//   a row each); staged in and out through stage.cuh.  Like drand_tpu's,
+//   it has no caller on the verify path: K11 and K12 multiply f by their
+//   two lines one after the other.
 
 #include <cuda_runtime.h>
 
@@ -215,23 +221,6 @@ __global__ void __launch_bounds__(F2P_THREADS)
                      o + at + c * plane);
 }
 
-// Stages `width` coefficients of each of a block's FLAT_ROWS rows of x
-// [rows, width, 32] into dst as words, coefficient c of block row r at
-// [(c * 6 + v) * FLAT_ROWS + r]; rows past the end are zero.  Called by
-// every thread of the block.
-__device__ void stage_rows(const int32_t *__restrict__ x, int width,
-                           long long row0, long long rows, uint64_t *dst) {
-  for (int s = threadIdx.x; s < FLAT_ROWS * width; s += FLAT_THREADS) {
-    const int r = s % FLAT_ROWS, c = s / FLAT_ROWS;
-    uint64_t w[dt::N_WORDS] = {0, 0, 0, 0, 0, 0};
-    if (row0 + r < rows)
-      dt::load_words(x + ((row0 + r) * width + c) * dt::N_LIMBS, w);
-#pragma unroll
-    for (int v = 0; v < dt::N_WORDS; v++)
-      dst[(c * dt::N_WORDS + v) * FLAT_ROWS + r] = w[v];
-  }
-}
-
 // K13, one instance a pattern of b's powers (tower_arith.cuh FlatB).
 // Four blocks a SM (so at most 80 registers a thread): 16384 rows, 512
 // blocks, in one wave on 132 SMs.  Rows past the end compute on zeros and
@@ -277,39 +266,49 @@ __global__ void __launch_bounds__(FLAT_THREADS, 4)
   dt::stage_out<FLAT_ROWS>(sa, dt::FLAT, row0, rows, o);
 }
 
-__global__ void __launch_bounds__(FLAT_THREADS)
+// K17: K13's launch shape on one operand.  Four blocks a SM (at most 80
+// registers a thread): 16384 rows, 512 blocks, in one wave on 132 SMs.
+// Thread j's coefficients fold into elements j and j + 6 of so as they
+// are reduced (tower_arith.cuh flat_sqr_slots), so no thread holds lo and
+// hi in registers through its products; rows past the end compute on
+// zeros and store nothing.
+__global__ void __launch_bounds__(FLAT_THREADS, 4)
     k_flat_sqr(const int32_t *__restrict__ a, int32_t *__restrict__ o,
                long long rows, dt::Mod M) {
+  // word v of coefficient i of block row r at [(i * 6 + v) * FLAT_ROWS + r]
   __shared__ uint64_t sa[dt::FLAT * dt::N_WORDS * FLAT_ROWS];
+  __shared__ uint64_t so[dt::FLAT * dt::N_WORDS * FLAT_ROWS];
   const long long row0 = (long long)blockIdx.x * FLAT_ROWS;
-  stage_rows(a, dt::FLAT, row0, rows, sa);
+  dt::stage_in_all<FLAT_ROWS, FLAT_THREADS, dt::FLAT>(a, row0, rows, sa);
   __syncthreads();
   const int j = threadIdx.x / FLAT_ROWS, r = threadIdx.x % FLAT_ROWS;
-  if (row0 + r >= rows) return;
-  uint64_t lo[dt::N_WORDS], hi[dt::N_WORDS];
-  dt::flat_sqr_class(j, sa + r, FLAT_ROWS, lo, hi, M);
-  int32_t *out = o + (row0 + r) * dt::FLAT * dt::N_LIMBS;
-  dt::store_words(lo, out + j * dt::N_LIMBS);
-  dt::store_words(hi, out + (j + 6) * dt::N_LIMBS);
+  dt::flat_sqr_slots(j, sa + r, so + r, FLAT_ROWS, M);
+  __syncthreads();
+  dt::stage_out<FLAT_ROWS>(so, dt::FLAT, row0, rows, o);
 }
 
+// K20, off every path: the two lines staged side by side (l1 at elements
+// 0-5, l2 at 6-11), the product written over them once every thread has
+// read its operands, and staged out; rows past the end compute on zeros
+// and store nothing.
 __global__ void __launch_bounds__(FLAT_THREADS)
     k_line_merge(const int32_t *__restrict__ l1,
                  const int32_t *__restrict__ l2, int32_t *__restrict__ o,
                  long long rows, dt::Mod M) {
-  __shared__ uint64_t s1[6 * dt::N_WORDS * FLAT_ROWS];
-  __shared__ uint64_t s2[6 * dt::N_WORDS * FLAT_ROWS];
+  constexpr int SLOT = dt::N_WORDS * FLAT_ROWS;
+  __shared__ uint64_t s[dt::FLAT * SLOT];
   const long long row0 = (long long)blockIdx.x * FLAT_ROWS;
-  stage_rows(l1, 6, row0, rows, s1);
-  stage_rows(l2, 6, row0, rows, s2);
+  dt::stage_in_all<FLAT_ROWS, FLAT_THREADS, 6>(l1, row0, rows, s);
+  dt::stage_in_all<FLAT_ROWS, FLAT_THREADS, 6>(l2, row0, rows, s + 6 * SLOT);
   __syncthreads();
   const int j = threadIdx.x / FLAT_ROWS, r = threadIdx.x % FLAT_ROWS;
-  if (row0 + r >= rows) return;
   uint64_t lo[dt::N_WORDS], hi[dt::N_WORDS];
-  dt::line_merge_class(j, s1 + r, s2 + r, FLAT_ROWS, lo, hi, M);
-  int32_t *out = o + (row0 + r) * dt::FLAT * dt::N_LIMBS;
-  dt::store_words(lo, out + j * dt::N_LIMBS);
-  dt::store_words(hi, out + (j + 6) * dt::N_LIMBS);
+  dt::line_merge_class(j, s + r, s + 6 * SLOT + r, FLAT_ROWS, lo, hi, M);
+  __syncthreads();                             // every thread done with s
+  dt::flat_store(lo, s + r, j, FLAT_ROWS);
+  dt::flat_store(hi, s + r, j + 6, FLAT_ROWS);
+  __syncthreads();
+  dt::stage_out<FLAT_ROWS>(s, dt::FLAT, row0, rows, o);
 }
 
 constexpr int CY_ROWS = 32;                    // rows of a K14 block
@@ -520,6 +519,10 @@ int dt_flat_sqr(const int32_t *a, int32_t *o, long long rows,
   return (int)cudaGetLastError();
 }
 
+int dt_flat_sqr_attrs(int *out) {
+  return dt::kernel_attrs(k_flat_sqr, FLAT_THREADS, 0, out);
+}
+
 // l1, l2 [rows, 6, 32] on LINE_IDX; o [rows, 12, 32] dense.
 int dt_line_merge(const int32_t *l1, const int32_t *l2, int32_t *o,
                   long long rows, const uint64_t *mod7, void *stream) {
@@ -528,6 +531,10 @@ int dt_line_merge(const int32_t *l1, const int32_t *l2, int32_t *o,
                  (cudaStream_t)stream>>>(l1, l2, o, rows,
                                          dt::mod_from_words(mod7));
   return (int)cudaGetLastError();
+}
+
+int dt_line_merge_attrs(int *out) {
+  return dt::kernel_attrs(k_line_merge, FLAT_THREADS, 0, out);
 }
 
 // k >= 1 squares in one launch.

@@ -3,7 +3,7 @@
     python -m drand_tpu_torch.kernel_bench [--walls N | --sass LIB...]
 
 Without --walls: the registers, stack frame and spill of K1, K4, K5, K6,
-K7, K9, K10, K11, K12, K13 (each instance), K14, K15, K16 and K18
+K7, K9, K10, K11, K12, K13 (each instance), K14-K20
 (`-Xptxas -v` in the build log) and the SASS instructions of every kernel
 in the library (`cuobjdump -sass`, null without it), then K1 on [16384, 32] x 2
 (its path call), K4 on one Fermat inversion a^(p-2) of [16384, 32] (the
@@ -11,7 +11,8 @@ path's call: one launch) and at the single step k = 13 with t, K5 on [1,
 2, 2, 16384, 32] (n = 1, the path's most common call), K6 on [n, 2,
 16384, 32] at n = 1 (its most common call) and n = 8, K15 on [16384, 12,
 32] and [4224, 12, 32], K16 on [16384, 12, 32] at n = 1, 2, 3 (the
-path's calls), K18 on [2, 16384, 8, 32] (the trio path's call), K13 on
+path's calls), K17 on [16384, 12, 32], K18 on [2, 16384, 8, 32] and K19
+on [2, 16384, 12, 32] (the trio path's calls), K13 on
 16384 rows dense and on LINE_IDX and on 4224 rows dense
 (one 32-row block a SM), K9 at n = 1, 2, 3, 9, 16, 32, K10 without and
 with the doubling, K11 and K12 on 16384 rows, and K7 on [2, 16384] at
@@ -53,7 +54,8 @@ KERNEL_NAMES = ("k_mont_mul", "k_fp_pow_chain", "k_fp2_products",
                 "k_fp2_sqrs", "k_fp2_sqr_chain_mul", "k_flat_mul",
                 "k_g2_point_dbl", "k_g2_point_add", "k_miller_iterILb0",
                 "k_miller_iterILb1", "k_cyclo_sqr", "k_flat_conj",
-                "k_flat_frob", "k_g2_dbl_line")
+                "k_flat_frob", "k_flat_sqr", "k_g2_dbl_line",
+                "k_g2_add_line", "k_line_merge")
 
 
 def _kernel_name(mangled: str):
@@ -231,18 +233,27 @@ def kernels(dev) -> dict:
             sys.exit(f"flat_frob n={n}: kernel != plain")
         ms[f"flat_frob n={n}"] = _event_ms(
             lambda: K.flat_frob(f, n, FL._FROB_WORDS[n], FP))
-    # K18 at the trio path's call: two pairs stacked on 16384 rows each
-    xl = rows((2, ROUNDS, 8))
-    xl[:, :8, 4] = FP.one_mont.to(dev)                    # Z = 1
-    xl[:, :8, 5] = 0
-    c = [xl[..., i, :] for i in range(8)]
-    Tn, L = PR._dbl_step_plain(((c[0], c[1]), (c[2], c[3]), (c[4], c[5])),
-                               c[6], c[7])
-    got = K.g2_dbl_line(xl, FP)
-    if not all(torch.equal(g, torch.stack([v for xy in w for v in xy], -2))
-               for g, w in zip(got, (Tn, L))):
-        sys.exit("g2_dbl_line: kernel != plain")
-    ms["g2_dbl_line"] = _event_ms(lambda: K.g2_dbl_line(xl, FP))
+    # K17 at the trio path's call
+    if not torch.equal(K.flat_sqr(f, FP), FL._flat_sqr_plain(f)):
+        sys.exit("flat_sqr: kernel != plain")
+    ms["flat_sqr"] = _event_ms(lambda: K.flat_sqr(f, FP))
+    # K18 and K19 at the trio path's calls: two pairs stacked on 16384 rows
+    # each
+    for name, width in (("g2_dbl_line", 8), ("g2_add_line", 12)):
+        xl = rows((2, ROUNDS, width))
+        xl[:, :8, 4] = FP.one_mont.to(dev)                # Z = 1
+        xl[:, :8, 5] = 0
+        c = [xl[..., i, :] for i in range(width)]
+        Tj = ((c[0], c[1]), (c[2], c[3]), (c[4], c[5]))
+        Tn, L = (PR._dbl_step_plain(Tj, c[6], c[7]) if width == 8 else
+                 PR._add_step_plain(Tj, ((c[6], c[7]), (c[8], c[9])), c[10],
+                                    c[11]))
+        got = getattr(K, name)(xl, FP)
+        if not all(torch.equal(g, torch.stack([v for xy in w for v in xy],
+                                              -2))
+                   for g, w in zip(got, (Tn, L))):
+            sys.exit(f"{name}: kernel != plain")
+        ms[name] = _event_ms(lambda: getattr(K, name)(xl, FP))
     b_dense = rows((ROUNDS, 12))
     for what, b_idx in (("dense", tuple(range(12))), ("line", FL.LINE_IDX)):
         b = b_dense if what == "dense" else rows((ROUNDS, len(b_idx)))

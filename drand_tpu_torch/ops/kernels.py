@@ -162,6 +162,9 @@ _ARGTYPES = {
     "dt_flat_conj_attrs": [_P],
     "dt_flat_frob_attrs": [_P],
     "dt_g2_dbl_line_attrs": [_P],
+    "dt_flat_sqr_attrs": [_P],
+    "dt_g2_add_line_attrs": [_P],
+    "dt_line_merge_attrs": [_P],
     "dt_fp2_sqr_chain_mul_attrs": [_P],
     "dt_g2_point_dbl_attrs": [_P],
     "dt_g2_point_add_attrs": [_P],
@@ -253,7 +256,7 @@ def kernel_attrs(name: str) -> dict:
     (mont_mul, sqr_chain_mul, fp2_products, fp2_sqrs, fp2_sqr_chain_mul,
     flat_mul (its dense instance), g2_point_dbl, g2_point_add,
     miller_dbl_iter, miller_add_iter, cyclo_sqr, flat_conj, flat_frob,
-    g2_dbl_line)."""
+    flat_sqr, g2_dbl_line, g2_add_line, line_merge)."""
     lib = _lib()
     out = np.zeros(5, dtype=np.int32)
     rc = getattr(lib, KERNELS[name].symbol + "_attrs")(out.ctypes.data)

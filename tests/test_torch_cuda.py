@@ -494,6 +494,61 @@ def test_g2_dbl_line_kernel_matches_plain_version_on_card(cuda):
         assert torch.equal(lo, torch.stack([v for xy in L for v in xy], -2))
 
 
+def test_flat_sqr_kernel_matches_plain_version_on_card(cuda):
+    """K17 (32 rows a block staged through stage.cuh, six threads a row
+    folding their coefficients into the output rows) on 1, 31 and 33 rows
+    and on a [3, 16384] stack, one launch each: 0, 1, p-1 in the first
+    row's slots, then a zero row, an all-(p-1) row and random rows."""
+    from drand_tpu_torch.ops import flat12 as F
+    from drand_tpu_torch.ops import kernels as K
+    from drand_tpu_torch.ops.field import FP
+    rng = np.random.default_rng(45)
+    for shape in ((1,), (31,), (33,), (3, 16384)):
+        a = _random_rows(rng, shape + (12,))
+        a.view(-1, 12, 32)[0] = _fp_rows(rng, (12,))
+        if a.numel() > 2 * 12 * 32:
+            a.view(-1, 12, 32)[1] = 0
+            a.view(-1, 12, 32)[2] = _max_flat_row()
+        a = a.to(cuda)
+        K.reset_launches()
+        got = K.flat_sqr(a, FP)
+        assert K.launch_counts()["flat_sqr"] == 1
+        assert torch.equal(got, F._flat_sqr_plain(a))
+
+
+def test_g2_add_line_kernel_matches_plain_version_on_card(cuda):
+    """K19 (three threads a row on K12's addition shares, 32 rows a block)
+    on 1, 31 and 33 rows and on three pairs of 16384 rows stacked, one
+    launch each: Z = 1 rows, Z = 0 rows, T = Q and T = -Q in affine form
+    (H = 0) and 0, 1, p-1 coordinates among them."""
+    from drand_tpu_torch.ops import kernels as K
+    from drand_tpu_torch.ops import pairing as PR
+    from drand_tpu_torch.ops.field import FP
+    rng = np.random.default_rng(46)
+    for shape in ((1, 1), (1, 31), (1, 33), (3, 16384)):
+        x = _random_rows(rng, shape + (12,))
+        x[:, 0] = _fp_rows(rng, (shape[0], 12))
+        x[:, 1::5, 4] = FP.one_mont
+        x[:, 1::5, 5] = 0
+        x[:, 2::5, 4:6] = 0
+        for k, row in ((3, 0), (4, 1)):        # T = Q, T = -Q, affine
+            x[:, k::5, 0:2] = x[:, k::5, 6:8]
+            x[:, k::5, 2:4] = x[:, k::5, 8:10]
+            if row:
+                x[:, k::5, 2:4] = FP.neg(x[:, k::5, 8:10])
+            x[:, k::5, 4] = FP.one_mont
+            x[:, k::5, 5] = 0
+        x = x.to(cuda)
+        K.reset_launches()
+        to, lo = K.g2_add_line(x, FP)
+        assert K.launch_counts()["g2_add_line"] == 1
+        c = [x[..., i, :] for i in range(12)]
+        Tn, L = PR._add_step_plain(((c[0], c[1]), (c[2], c[3]), (c[4], c[5])),
+                                   ((c[6], c[7]), (c[8], c[9])), c[10], c[11])
+        assert torch.equal(to, torch.stack([v for xy in Tn for v in xy], -2))
+        assert torch.equal(lo, torch.stack([v for xy in L for v in xy], -2))
+
+
 def test_k16_k18_attrs_show_no_spill_on_card(cuda):
     """kernel_attrs of K16 and K18: no local memory (no spill, no stack
     frame); K16 two 384-thread blocks a SM, K18 at most 168 registers and
@@ -503,6 +558,17 @@ def test_k16_k18_attrs_show_no_spill_on_card(cuda):
     assert frob["local_bytes"] == 0 and frob["blocks_per_sm"] >= 2, frob
     assert line["local_bytes"] == 0 and line["num_regs"] <= 168, line
     assert line["blocks_per_sm"] >= 4, line
+
+
+def test_k17_k19_attrs_show_no_spill_on_card(cuda):
+    """kernel_attrs of K17 and K19: no local memory (no spill, no stack
+    frame); K17 four 192-thread blocks a SM (16384 rows in one wave), K19
+    at most 168 registers and four 96-thread blocks a SM."""
+    from drand_tpu_torch.ops import kernels as K
+    sqr, add = K.kernel_attrs("flat_sqr"), K.kernel_attrs("g2_add_line")
+    assert sqr["local_bytes"] == 0 and sqr["blocks_per_sm"] >= 4, sqr
+    assert add["local_bytes"] == 0 and add["num_regs"] <= 168, add
+    assert add["blocks_per_sm"] >= 4, add
 
 
 def test_curve_and_pairing_ops_reach_their_kernels_on_card(cuda, monkeypatch):

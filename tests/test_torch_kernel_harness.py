@@ -34,10 +34,13 @@ term by its constant's class (the classes found from the constants' words
 against a classification made here, and every class at every place of a
 made-up table); K17/K20
 (`flat12._flat_sqr_plain`, `_line_merge_plain`) with the all-(p-1) and
-zero operands; K18/K19 (`pairing._dbl_step_plain`, `_add_step_plain`)
-on K-stacked rows, K18 as K11's doubling shares in the kernel's order and
-reversed, with Z = 1 and Z = 0 rows, and against K11's T' and lines;
-K21/K22 (`Field.add`, `Field.sub`) at 0, 1 and m-1.
+zero operands, K17 as its class loop folding into the output rows on 33
+rows; K18/K19 (`pairing._dbl_step_plain`, `_add_step_plain`) on
+K-stacked rows, K18 as K11's doubling shares and K19 as K12's addition
+shares, each level's shares in the kernel's order and reversed, with Z =
+1 and Z = 0 rows (K19 also T = Q and T = -Q, where H = 0), and against
+K11's and K12's T' and lines; K21/K22 (`Field.add`, `Field.sub`) at 0, 1
+and m-1.
 """
 
 import ctypes
@@ -93,7 +96,7 @@ def host_lib(tmp_path_factory):
     lib.dth_flat_sqr.argtypes = [P_, P_, LL, P_]
     lib.dth_line_merge.argtypes = [P_, P_, P_, LL, P_]
     lib.dth_g2_dbl_line.argtypes = [P_, P_, P_, LL, I, P_]
-    lib.dth_g2_add_line.argtypes = [P_, P_, P_, LL, P_]
+    lib.dth_g2_add_line.argtypes = [P_, P_, P_, LL, I, P_]
     lib.dth_add.argtypes = [P_, P_, P_, LL, P_]
     lib.dth_sub.argtypes = [P_, P_, P_, LL, P_]
     for fn in (lib.dth_mont_mul, lib.dth_mont_sqr,
@@ -761,9 +764,11 @@ def test_miller_iterations(host_lib, reverse):
 
 
 def test_flat_sqr(host_lib):
-    """K17 on random rows, the all-(p-1) row and the zero row, against
-    its plain version and the general product K13."""
-    a = _fp_rows((7, 12), seed=40)
+    """K17's class loop (each coefficient folded into the output rows as
+    it is reduced) on 33 rows, a count that is not a multiple of the
+    kernel's 32-row block: random rows, the all-(p-1) row and the zero
+    row, against its plain version and the general product K13."""
+    a = _fp_rows((33, 12), seed=40)
     a[0] = _max_flat()
     a[1] = 0
     out = np.empty_like(a)
@@ -804,7 +809,7 @@ def test_g2_line_steps(host_lib, add):
     to = np.empty((3, 5, 6, 32), np.int32)
     lo = np.empty_like(to)
     if add:
-        host_lib.dth_g2_add_line(_ptr(x), _ptr(to), _ptr(lo), 15,
+        host_lib.dth_g2_add_line(_ptr(x), _ptr(to), _ptr(lo), 15, 0,
                                  _ptr(FP.kernel_arg))
     else:
         host_lib.dth_g2_dbl_line(_ptr(x), _ptr(to), _ptr(lo), 15, 0,
@@ -884,6 +889,87 @@ def test_dbl_shares_agree_across_executors(host_lib):
     np.testing.assert_array_equal(To, to.transpose(1, 0, 2, 3))
     tm = torch.as_tensor(masks)
     g = F._flat_mul_plain(torch.as_tensor(f), torch.as_tensor(f))
+    one = PR.line_one(tm.shape[:-1], tm.device)
+    for k in range(2):
+        lk = torch.as_tensor(lo[k])
+        lk = tuple((lk[:, 2 * i], lk[:, 2 * i + 1]) for i in range(3))
+        lk = PR.line_to_flat(PR.line_select(tm[:, k] != 0, lk, one))
+        g = F._flat_mul_plain(g, lk, F.LINE_IDX)
+    np.testing.assert_array_equal(fo, g.numpy())
+
+
+def _add_line_rows(seed):
+    """K = 3 pairs stacked on 8 rows each, [3, 8, 12, 32] (X0 X1 Y0 Y1 Z0
+    Z1 xq0 xq1 yq0 yq1 xp yp): Z = 1 in row 0 (the loop's start), Z = 0
+    (infinity) in row 1, T = Q and T = -Q in affine form (Z = 1, so H = 0)
+    in rows 2 and 3, 0, 1, p-1 among the coordinates, random elsewhere."""
+    x = _fp_rows((3, 8, 12), seed=seed)
+    x[:, 0, 4] = FP.one_mont.numpy()
+    x[:, 0, 5] = 0
+    x[:, 1, 4:6] = 0
+    for row, sign in ((2, 1), (3, -1)):
+        x[:, row, 0:2] = x[:, row, 6:8]
+        x[:, row, 2:4] = (x[:, row, 8:10] if sign > 0 else
+                          FP.neg(torch.as_tensor(x[:, row, 8:10])).numpy())
+        x[:, row, 4] = FP.one_mont.numpy()
+        x[:, row, 5] = 0
+    return x
+
+
+def _add_step_plain_rows(x):
+    """_add_step_plain on rows [..., 12, 32]: (T', the line triple), each
+    [..., 6, 32]."""
+    c = [torch.as_tensor(x[..., i, :]) for i in range(12)]
+    Tn, L = PR._add_step_plain(((c[0], c[1]), (c[2], c[3]), (c[4], c[5])),
+                               ((c[6], c[7]), (c[8], c[9])), c[10], c[11])
+    return tuple(torch.stack([v for xy in o for v in xy], -2).numpy()
+                 for o in (Tn, L))
+
+
+@pytest.mark.parametrize("reverse", [0, 1])
+def test_g2_add_line_shares(host_lib, reverse):
+    """K19 as K12's addition shares on the kernel's row buffer (P staged
+    beside T and Q, T' where no later share reads, the unmasked line
+    triple), the shares of each level in the kernel's order and reversed,
+    on K = 3 stacked pairs with Z = 1, Z = 0, T = Q and T = -Q rows (H =
+    0), against _add_step_plain."""
+    x = _add_line_rows(seed=74 + reverse)
+    to = np.empty((3, 8, 6, 32), np.int32)
+    lo = np.empty_like(to)
+    host_lib.dth_g2_add_line(_ptr(x), _ptr(to), _ptr(lo), 24, reverse,
+                             _ptr(FP.kernel_arg))
+    want_t, want_l = _add_step_plain_rows(x)
+    np.testing.assert_array_equal(to, want_t)
+    np.testing.assert_array_equal(lo, want_l)
+    assert (to[:, 2:4, 4:6] == 0).all()           # H = 0: Z' = 0
+
+
+def test_add_shares_agree_across_executors(host_lib):
+    """One share body, two executors: on the same T, Q and P (two pairs a
+    row, every pair mask), K12's T' equals K19's where the pair is active
+    and T where it is not, and K12's f' equals f times the two pairs'
+    K19 lines, masked and made flat, one after the other."""
+    rows = 8
+    f = _fp_rows((rows, 12), seed=76)
+    x = _add_line_rows(seed=77)[:2].transpose(1, 0, 2, 3)   # [rows, 2, 12]
+    Ts = np.ascontiguousarray(x[:, :, :6])
+    Q = np.ascontiguousarray(x[:, :, 6:10])
+    Pp = np.ascontiguousarray(x[:, :, 10:])
+    masks = np.array([[1, 1], [1, 0], [0, 1], [0, 0]] * 2, np.int32)
+    fo, To = np.empty_like(f), np.empty_like(Ts)
+    host_lib.dth_miller_add_iter(_ptr(f), _ptr(Ts), _ptr(Q), _ptr(Pp),
+                                 _ptr(masks), _ptr(fo), _ptr(To), rows, 0,
+                                 _ptr(FP.kernel_one), _ptr(FP.kernel_arg))
+    xs = np.ascontiguousarray(x.transpose(1, 0, 2, 3))      # [2, rows, 12]
+    to = np.empty((2, rows, 6, 32), np.int32)
+    lo = np.empty_like(to)
+    host_lib.dth_g2_add_line(_ptr(xs), _ptr(to), _ptr(lo), 2 * rows, 0,
+                             _ptr(FP.kernel_arg))
+    active = masks.astype(bool)[..., None, None]
+    np.testing.assert_array_equal(
+        To, np.where(active, to.transpose(1, 0, 2, 3), Ts))
+    tm = torch.as_tensor(masks)
+    g = torch.as_tensor(f)
     one = PR.line_one(tm.shape[:-1], tm.device)
     for k in range(2):
         lk = torch.as_tensor(lo[k])
