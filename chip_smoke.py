@@ -34,23 +34,41 @@ Phases, each printing one JSON line:
           tiled from 64 rows of distinct golden-model pairs, some
           inactive, some with product 1: every verdict equal to the
           golden pairing_check of its row
+  g1      the short-signature scheme bls-unchained-g1-rfc9380 (signatures
+          on G1, the key on G2) through Verifier(pk, SHAPE_UNCHAINED_G1)
+          on the committed 16384-round G1 fixture: fixture_keypair_g2()
+          and DST_G1 must hash to the two hashes in the fixture's name;
+          all rounds true; one flipped byte gives exactly its row false;
+          the infinity flag, x >= p and an on-curve point outside G1 (the
+          port's golden model, [r]P != O) each false in exactly their
+          rows; the trio executor's verdicts on that batch equal the
+          default's; the first batch's wall and issue time and the next
+          one's, and the device kernels of one more profiled batch, their
+          busy time and each path kernel's device ms, bound and loss; and
+          the launches, device kernels and busy time of one G1 |x| ladder
+          on the batch's points (the batch runs three: no G1 point kernel)
 
-Each run of the slice and trio phases must launch every kernel of its
+Each run of the slice, trio and g1 phases must launch every kernel of its
 path and no other, and never call the plain limb convolution
 `_poly_mul_var`: the default batch all but the trio kernels (flat_sqr,
-g2_dbl_line, g2_add_line) and those off every path (mont_sqr,
+g2_dbl_line, g2_add_line) and those off the G2 paths (mont_sqr,
 mont_reduce, fp2_sqr5_mul, line_merge, add, sub); the trio batch all but
-the merged iterations and those off every path; a pairing check the trio
+the merged iterations and those off the G2 paths; a pairing check the trio
 kernels, flat_mul, flat_conj, flat_frob, cyclo_sqr and the final
-exponentiation's inversion (mont_mul, sqr_chain_mul, fp2_products).
+exponentiation's inversion (mont_mul, sqr_chain_mul, fp2_products); a G1
+batch mont_mul, mont_sqr, sqr_chain_mul, fp2_products, the merged
+iterations, flat_mul, cyclo_sqr, flat_conj and flat_frob (the trio G1
+batch the trio kernels in place of the merged iterations).
 
   parity  every kernel against its plain PyTorch version on the card, bit
-          for bit, at every call the batches above made (g2_point_dbl
+          for bit, at every call the batches above made, the G1 ones
+          included (g2_point_dbl
           and cyclo_sqr at each of their chain lengths) and at fixed
           cases: 16384 rows for Fp and Fr (sqr_chain_mul, whose path
           calls are whole addition chains held against the plan's plain
           steps, also at the single steps k = 1, 4, 5, 9, 13, 63 with and
-          without t and on the chains of r - 2 and (p + 1) / 4;
+          without t and on the chains of r - 2, (p + 1) / 4 and the G1
+          map's (p - 3) / 4;
           mont_mul also on 100 rows, a ragged block, and with first
           operands of any 384 bits against R^2 and R^3, as
           Field.reduce_wide gives it; mont_reduce also at
@@ -113,6 +131,7 @@ nothing of JAX or drand_tpu.  Details go to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import collections
+import hashlib
 import json
 import math
 import os
@@ -147,8 +166,9 @@ G2_ADD = (5, 11, 0)
 MILLER_DBL_STEP = (6, 5, 4)
 MILLER_ADD_STEP = (4, 10, 4)
 LINE_IDX = (0, 2, 3, 6, 8, 9)
-# kernels no verify path launches: K2 (its only calls were the two Fermat
-# inversions' a^2, now inside K4's one launch an inversion), K3 (its
+# kernels no G2 verify path launches: K2 (its only calls there were the
+# two Fermat inversions' a^2, now inside K4's one launch an inversion; the
+# G1 path's squares launch it), K3 (its
 # callers were the composite products, now K5, K6, K13, K14), K8
 # (fp2_pow_const takes the addition chain of K7 steps on both of the
 # path's exponents, as drand_tpu does on its chip), K20 (K11 and K12 multiply f by their two lines one after the
@@ -170,6 +190,18 @@ MERGED = ("miller_dbl_iter", "miller_add_iter")
 # launch (the Fermat inversion of an Fp2 norm)
 PAIRING = TRIO + ("flat_mul", "flat_conj", "flat_frob", "cyclo_sqr",
                   "mont_mul", "sqr_chain_mul", "fp2_products")
+# the kernels of the short-signature (G1) verify path: no kernel serves G1
+# points (as in drand_tpu), so its decompression, subgroup check, SSWU map,
+# 11-isogeny and h_eff ladder are K1 products and K2 squares, its square
+# roots ((p + 1)/4, the map's (p - 3)/4) and inversion K4 chains; then the
+# Miller loop and the final exponentiation, whose Fp12 inversion takes K5
+G1_PATH = ("mont_mul", "mont_sqr", "sqr_chain_mul", "fp2_products",
+           "miller_dbl_iter", "miller_add_iter", "flat_mul", "cyclo_sqr",
+           "flat_conj", "flat_frob")
+G1_TRIO_PATH = tuple(n for n in G1_PATH if n not in MERGED) + TRIO
+# sha256(DST_G1)[:8] and sha256(compressed key)[:8] in the committed G1
+# fixture's name
+G1_FIXTURE_HASHES = ("5b84a3cd", "d7754ef6")
 
 
 def muladds_fp2(sqrs: int, muls: int, fp_muls: int) -> int:
@@ -215,6 +247,22 @@ def frob_products(n: int) -> int:
             not any(torch.equal(c[s], x) for x in special)
             for c in FL._FROB[n] for s in range(6))
     return _FROB_PRODUCTS[n]
+
+
+def off_subgroup_g1() -> bytes:
+    """A compressed G1 point on the curve but outside the r-subgroup, from
+    the port's golden model: the first x >= 1 with x^3 + 4 a square whose
+    point has [r]P != O."""
+    from drand_tpu_torch.crypto.bls12381 import curve as GC
+    from drand_tpu_torch.crypto.bls12381 import fp as GF
+    from drand_tpu_torch.crypto.bls12381.constants import P, R
+    x = 1
+    while True:
+        y = GF.fp_sqrt((pow(x, 3, P) + 4) % P)
+        if y is not None and not GC.point_is_inf(
+                GC.point_mul((x, y, 1), R, GC.FP_OPS), GC.FP_OPS):
+            return GC.g1_to_bytes((x, y, 1))
+        x += 1
 
 
 def emit(obj) -> None:
@@ -420,7 +468,9 @@ def main() -> int:
     from drand_tpu_torch.profiling import trio_batch_async
     from drand_tpu_torch.crypto.bls12381 import curve as GC
     from drand_tpu_torch.crypto.bls12381 import pairing as GP
-    from drand_tpu_torch.crypto.bls12381.constants import P
+    from drand_tpu_torch.crypto.bls12381.constants import DST_G1, P
+    from drand_tpu_torch.crypto.bls12381.constants import X as BLS_X
+    from drand_tpu_torch.ops import bls as BLS
     from drand_tpu_torch.ops import field as FLD
     from drand_tpu_torch.ops import flat12 as FL
     from drand_tpu_torch.ops import curve as DC
@@ -616,7 +666,8 @@ def main() -> int:
                                       - batch_complete),
         "off_path": {"mont_sqr": "0 launches: its only calls were the "
                                  "two inversions' a^2, now inside K4's "
-                                 "one launch an inversion",
+                                 "one launch an inversion (the G1 path "
+                                 "launches it: g1 phase)",
                      "mont_reduce": "0 launches: the composite products "
                                     "that reduced through it are K5, K6, "
                                     "K13, K14",
@@ -688,9 +739,130 @@ def main() -> int:
         "calls": {name: sorted(c.items()) for name, c in trio_calls.items()},
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
     emit(report["trio"])
+
+    # -- g1 ------------------------------------------------------------------
+    _sk2, pk2 = FX.fixture_keypair_g2()
+    g1_hashes = (hashlib.sha256(DST_G1).hexdigest()[:8],
+                 hashlib.sha256(GC.g2_to_bytes(pk2)).hexdigest()[:8])
+    if g1_hashes != G1_FIXTURE_HASHES or \
+            not FX.G1_FIXTURE.name.endswith("_%s_%s.npy" % g1_hashes):
+        fail(f"fixture_keypair_g2 and DST_G1 hash to {g1_hashes}, not the "
+             f"committed G1 fixture's {G1_FIXTURE_HASHES}")
+    sigs1 = np.load(FX.G1_FIXTURE)
+    if sigs1.shape != (BATCH, 48):
+        fail(f"unexpected G1 fixture shape {sigs1.shape}")
+    verifier1 = V.Verifier(pk2, V.SHAPE_UNCHAINED_G1)
+    g1_issue = [0.0]
+
+    def g1_batch(batch=sigs1):
+        t0 = time.perf_counter()
+        resolve = verifier1.verify_batch_async(rounds, batch)
+        g1_issue[0] = time.perf_counter() - t0
+        return resolve()
+
+    ok1, t_g1, g1_launches, g1_calls, n_conv = drive(g1_batch)
+    g1_first_issue = g1_issue[0]
+    if not ok1.all():
+        fail(f"valid 16384-round G1 segment: {int(ok1.sum())}/{BATCH} true")
+    check_path("g1 batch", g1_launches, n_conv, G1_PATH)
+    t1 = time.perf_counter()
+    ok1 = g1_batch()
+    t_g1_next, g1_next_issue = time.perf_counter() - t1, g1_issue[0]
+    if not ok1.all():
+        fail("valid 16384-round G1 segment, second batch: "
+             f"{int(ok1.sum())}/{BATCH} true")
+    bad1 = sigs1.copy()
+    bad1[flip_at, 20] ^= 0x01
+    t1 = time.perf_counter()
+    ok1_bad = g1_batch(bad1)
+    t_g1_bad = time.perf_counter() - t1
+    if ok1_bad[flip_at] or int((~ok1_bad).sum()) != 1:
+        fail(f"G1 flipped byte: {int((~ok1_bad).sum())} false, flipped "
+             f"row {bool(ok1_bad[flip_at])}")
+    # the negative controls, each in a row of its own
+    x_ge_p = bytearray(P.to_bytes(48, "big"))
+    x_ge_p[0] |= 0x80
+    controls = {"infinity_flag": (11, bytes([0xC0]) + bytes(47)),
+                "x_ge_p": (2222, bytes(x_ge_p)),
+                "off_subgroup": (15000, off_subgroup_g1())}
+    neg1 = sigs1.copy()
+    for at, row in controls.values():
+        neg1[at] = np.frombuffer(row, np.uint8)
+    ok1_neg = g1_batch(neg1)
+    false_rows = sorted(int(i) for i in np.flatnonzero(~ok1_neg))
+    if false_rows != sorted(at for at, _ in controls.values()):
+        fail(f"G1 negative controls {controls.keys()}: false rows "
+             f"{false_rows[:10]}")
+    ok1_t, t_g1_trio, g1_trio_launches, g1_trio_calls, n_conv = drive(
+        lambda: trio_batch_async(verifier1, rounds, neg1)())
+    if not np.array_equal(ok1_t, ok1_neg):
+        fail(f"G1 trio executor: {int((ok1_t != ok1_neg).sum())} verdicts "
+             f"differ from the default's")
+    check_path("g1 trio batch", g1_trio_launches, n_conv, G1_TRIO_PATH)
+    # every device kernel of one more default G1 batch
+    g1_kernels, g1_complete = profile_kernels(
+        lambda: verifier1.verify_batch(rounds, sigs1),
+        {name: g1_launches[name] for name in G1_PATH})
+    g1_busy = sum(d for _, d in g1_kernels)
+    # one G1 |x| ladder on the batch's signature points: the subgroup check
+    # runs two, hash_to_g1's h_eff = 1 - x one more, all in the FpOps
+    # formulas (no G1 point kernel)
+    (gx, gy), _, _ = BLS.g1_decompress(torch.from_numpy(sigs1).to(dev))
+    g1_pt = (gx, gy, TW.fp_broadcast(TW.FP_ONE, gx.shape[:-1], dev))
+
+    def x_ladder():
+        return DC.point_mul_const(g1_pt, -BLS_X, DC.FpOps)
+
+    _, t_ladder, ladder_launches, _, _ = drive(x_ladder)
+    ladder_kernels, _ = profile_kernels(
+        x_ladder, {n: ladder_launches[n] for n in ("mont_mul", "mont_sqr")})
+    g1_ms = collections.Counter()
+    for dev_name, d in g1_kernels:
+        name = kernel_of(dev_name)
+        if name is not None:
+            g1_ms[name] += d * 1e3
+    g1_kernel_rows = {}
+    for name in G1_PATH:
+        bound = sum(n * bound_ms(*work(name, call))[0]
+                    for call, n in g1_calls[name].items())
+        path = g1_ms[name] if name in g1_complete else None
+        g1_kernel_rows[name] = {
+            "launches": g1_launches[name], "path_ms": path,
+            "bound_ms_batch": bound,
+            "loss_ms": None if path is None else path - bound}
+    report["g1"] = {
+        "phase": "g1", "scheme": "bls-unchained-g1-rfc9380",
+        "rounds": BATCH, "fixture": os.path.relpath(FX.G1_FIXTURE, HERE),
+        "fixture_hashes": g1_hashes, "all_true": True,
+        "flipped_row_false_only": True,
+        "controls_false_only": {k: at for k, (at, _) in controls.items()},
+        "trio_verdicts_equal_default": True,
+        "first_batch_wall_s": t_g1, "first_batch_issue_s": g1_first_issue,
+        "next_batch_wall_s": t_g1_next, "next_batch_issue_s": g1_next_issue,
+        "flipped_batch_wall_s": t_g1_bad, "trio_batch_wall_s": t_g1_trio,
+        "launches": g1_launches, "trio_launches": g1_trio_launches,
+        "batch_device_kernels": len(g1_kernels), "batch_busy_s": g1_busy,
+        "idle_share": 1.0 - g1_busy / t_g1_next,
+        "ours_s": sum(g1_ms.values()) / 1e3,
+        "batch_profile_short": sorted(set(G1_PATH) - g1_complete),
+        "x_ladder": {"wall_s": t_ladder,
+                     "launches": {n: v for n, v in ladder_launches.items()
+                                  if v},
+                     "device_kernels": len(ladder_kernels),
+                     "busy_s": sum(d for _, d in ladder_kernels)},
+        "kernels": g1_kernel_rows,
+        "poly_mul_var_calls": n_conv,
+        "calls": {name: sorted(c.items()) for name, c in g1_calls.items()},
+        "trio_calls": {name: sorted(c.items())
+                       for name, c in g1_trio_calls.items()},
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+    emit({k: v for k, v in report["g1"].items()
+          if k not in ("calls", "trio_calls")})
+
     # every call the runs made, for the parity phase
     all_calls = {name: set(path_calls[name]) | set(chain_calls[name])
                  | set(trio_calls[name]) | set(pairing_calls[name])
+                 | set(g1_calls[name]) | set(g1_trio_calls[name])
                  for name in K.KERNELS}
 
     # -- parity --------------------------------------------------------------
@@ -1075,8 +1247,8 @@ def main() -> int:
                 cases["sqr_chain_mul"].add(((f, flat32, k, with_t), "random"))
     cases["sqr_chain_mul"].add((("fr", flat32, "pow", FR.modulus - 2),
                                 "random"))
-    cases["sqr_chain_mul"].add((("fp", flat32, "pow", (P + 1) // 4),
-                                "random"))
+    for e in ((P + 1) // 4, (P - 3) // 4):   # decompression, the G1 map
+        cases["sqr_chain_mul"].add((("fp", flat32, "pow", e), "random"))
     # the stacks the composite Fp2 and flat Fp12 products gave K3
     for stack in ((2, BATCH, 64), (16, 2, BATCH, 64)):
         cases["mont_reduce"].add((("fp", stack), "random"))

@@ -27,20 +27,45 @@ def _limbs(a) -> torch.Tensor:
     return torch.from_numpy(arr.astype(np.int32))
 
 
+def _coord(a) -> torch.Tensor:
+    """One affine key coordinate: exactly [32] limbs."""
+    t = _limbs(a)
+    if t.shape != (N_LIMBS,):
+        raise ValueError(f"expected a [{N_LIMBS}] key coordinate, got "
+                         f"{tuple(t.shape)}")
+    return t
+
+
+def _is_fp2(c) -> bool:
+    return isinstance(c, (tuple, list)) and len(c) == 2
+
+
 def from_drand_tpu(state):
     """Convert `drand_tpu` verifier state to CPU tensors of the port.
 
-    state: the `Verifier._pk` pair (x, y) of [32] int32 canonical
-    Montgomery affine limbs (`ops/bls.py` `_const_g1_affine`), or the
-    signer table (tx [n, 32], ty [n, 32], tinf [n] bool) of
-    `signer_table_arrays`.  Returns the same tuple as torch tensors."""
+    state, one of:
+      - a G1 key, the `Verifier._pk` of a G2-signature scheme: (x, y),
+        each an array of [32] int32 canonical Montgomery affine limbs
+        (`ops/bls.py` `_const_g1_affine`);
+      - a G2 key, the `Verifier._pk` of `SHAPE_UNCHAINED_G1`: a pair of
+        Fp2 pairs ((x0, x1), (y0, y1)), each element [32]
+        (`_const_g2_affine`), told apart by its nesting: a G1 coordinate
+        must be one [32] array, so a G2 coordinate never passes as one;
+      - the signer table (tx [n, 32], ty [n, 32], tinf [n] bool) of
+        `signer_table_arrays`.
+    Returns the same nesting as torch tensors."""
     state = tuple(state)
+    if len(state) == 2 and all(_is_fp2(c) for c in state):
+        return tuple(tuple(_coord(v) for v in c) for c in state)
     if len(state) == 2:
-        return tuple(_limbs(c) for c in state)
+        if any(_is_fp2(c) for c in state):
+            raise ValueError("a key is (x, y) or ((x0, x1), (y0, y1))")
+        return tuple(_coord(c) for c in state)
     if len(state) == 3:
         tx, ty, tinf = state
         tinf = np.asarray(tinf)
         if tinf.dtype != np.bool_ or tinf.shape != np.asarray(tx).shape[:-1]:
             raise ValueError("tinf must be bool [n] matching tx")
         return _limbs(tx), _limbs(ty), torch.from_numpy(tinf.copy())
-    raise ValueError("expected the (x, y) public key or (tx, ty, tinf) table")
+    raise ValueError("expected the (x, y) or ((x0, x1), (y0, y1)) public "
+                     "key or the (tx, ty, tinf) table")

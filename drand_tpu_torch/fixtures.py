@@ -1,4 +1,5 @@
-"""Deterministic fixture key and the committed chained test segment."""
+"""Deterministic fixture keys, the committed chained test segment and the
+path of the committed short-signature (G1) fixture."""
 
 from __future__ import annotations
 
@@ -12,6 +13,11 @@ from drand_tpu_torch.crypto.bls12381.constants import R
 
 TESTDATA = Path(__file__).resolve().parent / "testdata"
 CHAINED_FIXTURE = TESTDATA / "chained_65.npz"
+# 16384 bls-unchained-g1-rfc9380 signatures of rounds 1..16384, 48 bytes
+# each, by fixture_keypair_g2(); the name carries sha256(DST_G1)[:8] and
+# sha256(compressed pk)[:8]
+G1_FIXTURE = (Path(__file__).resolve().parents[1] / "aot" / "fixtures"
+              / "bench_sigs_unchained_g1_16384_5b84a3cd_d7754ef6.npy")
 
 
 def fixture_keypair(seed: bytes = b"drand-tpu-bench"):
@@ -21,6 +27,15 @@ def fixture_keypair(seed: bytes = b"drand-tpu-bench"):
                         "big") % R
     sk = sk or 1
     return sk, GC.g1_mul(GC.G1_GEN, sk)
+
+
+def fixture_keypair_g2(seed: bytes = b"drand-tpu-bench-g1sig"):
+    """The deterministic key of the short-signature fixtures: sk from
+    SHA-512 of the seed, pk = sk * G2 (Jacobian; signatures on G1)."""
+    sk = int.from_bytes(hashlib.sha512(b"drand-tpu-keygen-g2" + seed).digest(),
+                        "big") % R
+    sk = sk or 1
+    return sk, GC.g2_mul_raw(GC.G2_GEN, sk)
 
 
 def load_chained_fixture():

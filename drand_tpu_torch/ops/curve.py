@@ -1,6 +1,7 @@
 """Batched G1/G2 Jacobian point arithmetic in PyTorch (branchless).
 
-Counterpart of `drand_tpu/ops/curve.py` (its generic formulas).  Points
+Counterpart of `drand_tpu/ops/curve.py` (its generic formulas, the G2
+subgroup and cofactor maps, and the G1 on-curve and subgroup checks).  Points
 are Jacobian (X, Y, Z) tuples of Montgomery limb tensors; Z == 0 encodes
 infinity.  All control flow is masked selects over the batch.  A G2
 doubling or addition on a GPU tensor is one hand-written CUDA kernel (K9,
@@ -297,8 +298,60 @@ def g2_in_subgroup(pt):
 
 
 # ---------------------------------------------------------------------------
-# Device -> host point conversion (golden Jacobian tuples of ints)
+# G1 specializations (no kernel serves G1 points: every product is K1 and
+# every square K2 on a GPU tensor, as drand_tpu runs them on its chip)
 # ---------------------------------------------------------------------------
+
+_B_G1 = T.fp_const(4)
+# the cube root of unity beta with phi(x, y) = (beta x, y) acting as
+# multiplication by -x^2 on G1 (the other root, beta^2, acts as x^2 - 1;
+# pinned by tests/test_torch_g1.py against the golden model)
+_G1_BETA = T.fp_const(
+    0x5f19672fdf76ce51ba69c6076a0f77eaddb3a93be6f89688de17d813620a00022e01fffffffefffe)
+
+
+def g1_on_curve(pt):
+    """Jacobian on-curve: Y^2 == X^3 + 4 Z^6 (or infinity)."""
+    x, y, z = pt
+    z2 = T.fp_sqr(z)
+    z6 = T.fp_mul(T.fp_sqr(z2), z2)
+    lhs = T.fp_sqr(y)
+    rhs = T.fp_add(T.fp_mul(T.fp_sqr(x), x),
+                   T.fp_mul(z6, T.fp_broadcast(_B_G1, z.shape[:-1], z.device)))
+    return FP.eq(lhs, rhs) | FP.is_zero(z)
+
+
+def g1_phi(pt):
+    """The j = 0 automorphism (x, y) -> (beta x, y), in Jacobian form (x/z^2
+    scales by beta exactly when X does)."""
+    x, y, z = pt
+    return (T.fp_mul(x, T.fp_broadcast(_G1_BETA, x.shape[:-1], x.device)),
+            y, z)
+
+
+def g1_in_subgroup(pt):
+    """On-curve and phi(P) == [-x^2]P.  On G1 phi acts as the eigenvalue
+    -x^2 (mod r); and phi^2 + phi + 1 = 0 on the whole j = 0 curve, so
+    phi(P) = [-x^2]P forces [x^4 - x^2 + 1]P = [r]P = O.  Two sparse |x|
+    ladders instead of a 255-bit [r] ladder."""
+    x2p = point_mul_const(point_mul_const(pt, _X_ABS, FpOps), _X_ABS, FpOps)
+    ok = point_eq(g1_phi(pt), point_neg(x2p, FpOps), FpOps)
+    return g1_on_curve(pt) & (ok | point_is_inf(pt, FpOps))
+
+
+# ---------------------------------------------------------------------------
+# Host <-> device point conversion (golden Jacobian tuples of ints)
+# ---------------------------------------------------------------------------
+
+def g1_encode(pts):
+    """List of golden G1 Jacobian tuples -> a batched point (CPU tensors)."""
+    return tuple(torch.from_numpy(FP.encode([p[k] for p in pts]))
+                 for k in range(3))
+
+
+def g1_decode(pt, i=None):
+    return tuple(T.fp_decode(c, i) for c in pt)
+
 
 def g2_decode(pt, i=None):
     return tuple(T.fp2_decode(c, i) for c in pt)

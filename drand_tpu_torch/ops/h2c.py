@@ -1,10 +1,15 @@
-"""Batched hash-to-curve for BLS12-381 G2 in PyTorch (branchless SSWU).
+"""Batched hash-to-curve for BLS12-381 G1 and G2 in PyTorch (branchless
+SSWU).
 
-Counterpart of `drand_tpu/ops/h2c.py` for the suite
-BLS12381G2_XMD:SHA-256_SSWU_RO_ (drand's G2 signature suite): RFC 9380
-expand_message_xmd, hash_to_field, the inversion-free simplified SWU map
-with sqrt_ratio, the 3-isogeny evaluated into Jacobian coordinates, and
-Budroni-Pintore cofactor clearing, all masked selects over the batch.
+Counterpart of `drand_tpu/ops/h2c.py` for the suites
+BLS12381G2_XMD:SHA-256_SSWU_RO_ (drand's G2 signature suite) and
+BLS12381G1_XMD:SHA-256_SSWU_RO_ (the short-signature scheme
+bls-unchained-g1-rfc9380): RFC 9380 expand_message_xmd, hash_to_field, the
+inversion-free simplified SWU map with sqrt_ratio (one body over Fp or
+Fp2 through an adapter namespace), the 3-isogeny (G2) or 11-isogeny (G1)
+evaluated into Jacobian coordinates, and cofactor clearing
+(Budroni-Pintore on G2, h_eff = 1 - x on G1), all masked selects over the
+batch.
 """
 
 from __future__ import annotations
@@ -15,10 +20,14 @@ import numpy as np
 import torch
 
 from drand_tpu_torch.crypto.bls12381 import fp as GF
-from drand_tpu_torch.crypto.bls12381.constants import (DST_G2, ISO3_S, ISO3_V,
-                                                       ISO3_W, ISO3_X0,
+from drand_tpu_torch.crypto.bls12381.constants import (DST_G1, DST_G2,
+                                                       ISO1_X_DEN, ISO1_X_NUM,
+                                                       ISO1_Y_DEN, ISO1_Y_NUM,
+                                                       ISO3_S, ISO3_V, ISO3_W,
+                                                       ISO3_X0, SSWU_G1_A,
+                                                       SSWU_G1_B, SSWU_G1_Z,
                                                        SSWU_G2_A, SSWU_G2_B,
-                                                       SSWU_G2_Z)
+                                                       SSWU_G2_Z, X)
 from drand_tpu_torch.ops import curve as DC
 from drand_tpu_torch.ops import towers as T
 from drand_tpu_torch.ops.field import FP, N_LIMBS
@@ -88,48 +97,83 @@ def bytes_be_to_fp_mont(u8: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# SSWU map over Fp2
+# SSWU map, one body over Fp (G1) or Fp2 (G2) through an adapter namespace
 # ---------------------------------------------------------------------------
 
-_sqrt_ratio = T.make_fp2_sqrt_ratio(SSWU_G2_Z)
+class _FpAdapter:
+    """Fp as the field of the G1 suite's map (E1')."""
+    products = staticmethod(FP.products)
+    add = staticmethod(T.fp_add)
+    neg = staticmethod(T.fp_neg)
+    select = staticmethod(T.fp_select)
+    sgn0 = staticmethod(T.fp_sgn0)
+    is_zero = staticmethod(FP.is_zero)
+    sqrt_ratio = staticmethod(T.make_fp_sqrt_ratio(SSWU_G1_Z))
+    # A', B', Z, -B and Z*A' (the x1 denominator where tv2 == 0), and one
+    consts = tuple(T.fp_const(c) for c in (
+        SSWU_G1_A, SSWU_G1_B, SSWU_G1_Z, GF.fp_neg(SSWU_G1_B),
+        GF.fp_mul(SSWU_G1_Z, SSWU_G1_A))) + (T.FP_ONE,)
+
+    @staticmethod
+    def batch(u):
+        return u.shape[:-1], u.device
+
+    @staticmethod
+    def broadcast(c, shape, device):
+        return T.fp_broadcast(c, shape, device)
 
 
-def _map_to_curve_sswu(u):
-    """Branchless, inversion-free simplified SWU on
-    E2': y^2 = x^3 + A' x + B'.  Returns ((xn, xd), y): the E2' x
-    coordinate as a fraction plus the exact affine y (RFC 9380 F.2)."""
-    shape, d = u[0].shape[:-1], u[0].device
+class _Fp2Adapter:
+    """Fp2 as the field of the G2 suite's map (E2')."""
+    products = staticmethod(T.fp2_products)
+    add = staticmethod(T.fp2_add)
+    neg = staticmethod(T.fp2_neg)
+    select = staticmethod(T.fp2_select)
+    sgn0 = staticmethod(T.fp2_sgn0)
+    is_zero = staticmethod(T.fp2_is_zero)
+    sqrt_ratio = staticmethod(T.make_fp2_sqrt_ratio(SSWU_G2_Z))
+    consts = tuple(T.fp2_const(c) for c in (
+        SSWU_G2_A, SSWU_G2_B, SSWU_G2_Z, GF.fp2_neg(SSWU_G2_B),
+        GF.fp2_mul(SSWU_G2_Z, SSWU_G2_A))) + (T.FP2_ONE,)
 
-    def bc(c):
-        return T.fp2_broadcast(T.fp2_const(c), shape, d)
+    @staticmethod
+    def batch(u):
+        return u[0].shape[:-1], u[0].device
 
-    a, b, z = bc(SSWU_G2_A), bc(SSWU_G2_B), bc(SSWU_G2_Z)
-    nb = bc(GF.fp2_neg(SSWU_G2_B))                   # -B
-    za = bc(GF.fp2_mul(SSWU_G2_Z, SSWU_G2_A))       # Z*A (tv2 == 0 fallback)
+    @staticmethod
+    def broadcast(c, shape, device):
+        return T.fp2_broadcast(c, shape, device)
 
-    (uu,) = T.fp2_products([(u, u)])
-    (tv1,) = T.fp2_products([(z, uu)])              # Z u^2
-    (tv1sq,) = T.fp2_products([(tv1, tv1)])
-    tv2 = T.fp2_add(tv1sq, tv1)                     # Z^2 u^4 + Z u^2
-    one = T.fp2_broadcast(T.FP2_ONE, shape, d)
-    (xnt,) = T.fp2_products([(nb, T.fp2_add(tv2, one))])
-    (xdt,) = T.fp2_products([(a, tv2)])
-    exc = T.fp2_is_zero(tv2)
-    xn = T.fp2_select(exc, b, xnt)
-    xd = T.fp2_select(exc, za, xdt)
+
+def _map_to_curve_sswu(u, A):
+    """Branchless, inversion-free simplified SWU on E': y^2 = x^3 + A' x +
+    B' over A's field.  Returns ((xn, xd), y): the E' x coordinate as a
+    fraction plus the exact affine y (RFC 9380 F.2)."""
+    shape, d = A.batch(u)
+    a, b, z, nb, za, one = (A.broadcast(c, shape, d) for c in A.consts)
+
+    (uu,) = A.products([(u, u)])
+    (tv1,) = A.products([(z, uu)])                  # Z u^2
+    (tv1sq,) = A.products([(tv1, tv1)])
+    tv2 = A.add(tv1sq, tv1)                         # Z^2 u^4 + Z u^2
+    (xnt,) = A.products([(nb, A.add(tv2, one))])
+    (xdt,) = A.products([(a, tv2)])
+    exc = A.is_zero(tv2)
+    xn = A.select(exc, b, xnt)
+    xd = A.select(exc, za, xdt)
     # g(x1) = (xn^3 + A xn xd^2 + B xd^3) / xd^3
-    xd2, xn2 = T.fp2_products([(xd, xd), (xn, xn)])
-    xd3, xn3, axn = T.fp2_products([(xd2, xd), (xn2, xn), (a, xn)])
-    gxn_t, bxd3 = T.fp2_products([(axn, xd2), (b, xd3)])
-    gxn = T.fp2_add(T.fp2_add(xn3, gxn_t), bxd3)
-    y1, is_sq = _sqrt_ratio(gxn, xd3)
+    xd2, xn2 = A.products([(xd, xd), (xn, xn)])
+    xd3, xn3, axn = A.products([(xd2, xd), (xn2, xn), (a, xn)])
+    gxn_t, bxd3 = A.products([(axn, xd2), (b, xd3)])
+    gxn = A.add(A.add(xn3, gxn_t), bxd3)
+    y1, is_sq = A.sqrt_ratio(gxn, xd3)
     # non-square branch: x2 = tv1 * x1 and y2 = tv1 u y1
-    (tu,) = T.fp2_products([(tv1, u)])
-    xn2_, y2 = T.fp2_products([(tv1, xn), (tu, y1)])
-    xn = T.fp2_select(is_sq, xn, xn2_)
-    y = T.fp2_select(is_sq, y1, y2)
-    flip = T.fp2_sgn0(u) != T.fp2_sgn0(y)
-    y = T.fp2_select(flip, T.fp2_neg(y), y)
+    (tu,) = A.products([(tv1, u)])
+    xn2_, y2 = A.products([(tv1, xn), (tu, y1)])
+    xn = A.select(is_sq, xn, xn2_)
+    y = A.select(is_sq, y1, y2)
+    flip = A.sgn0(u) != A.sgn0(y)
+    y = A.select(flip, A.neg(y), y)
     return ((xn, xd), y)
 
 
@@ -160,6 +204,54 @@ def _iso3_jacobian(xfrac, y):
     return (xj, yj, zj)
 
 
+# the 11-isogeny's four polynomials: (index, Montgomery constant) of each
+# nonzero coefficient, ascending powers
+_ISO1 = tuple(tuple((i, T.fp_const(c)) for i, c in enumerate(coeffs) if c)
+              for coeffs in (ISO1_X_NUM, ISO1_X_DEN, ISO1_Y_NUM, ISO1_Y_DEN))
+
+
+def _iso1_jacobian(xfrac, y):
+    """11-isogeny E1' -> E1 evaluated homogeneously on the SSWU fraction x
+    = pn/pd: with the shared basis b_i = pn^i pd^(15-i) every map
+    polynomial evaluates as H(poly) = pd^15 poly(x), so the pd factors
+    cancel in X_aff = Hxn/Hxd, Y_aff = y Hyn/Hyd.  Jacobian Z := Hxd*Hyd
+    gives X_j = Hxn Hxd Hyd^2, Y_j = y Hyn Hxd^3 Hyd^2 with no inversion;
+    a kernel point (Hxd == 0 or Hyd == 0) lands on infinity."""
+    pn, pd = xfrac
+    shape, d = pn.shape[:-1], pn.device
+
+    def powers(x):
+        """[None, x, x^2, ..., x^15], in stacked doubling stages."""
+        p = [None, x]
+        for lvl in (1, 2, 4):
+            sq = FP.products([(p[k], p[k]) for k in range(lvl, 2 * lvl)])
+            od = FP.products([(s, x) for s in sq])
+            for i in range(lvl):
+                p.append(sq[i])
+                p.append(od[i])
+        return p
+
+    pnp, pdp = powers(pn), powers(pd)
+    basis = FP.products([(pnp[i], pdp[15 - i]) for i in range(1, 15)])
+    basis = [pdp[15]] + basis + [pnp[15]]          # b_0 .. b_15
+
+    def hpoly(terms):
+        prods = FP.products([(T.fp_broadcast(c, shape, d), basis[i])
+                             for i, c in terms])
+        acc = prods[0]
+        for t in prods[1:]:
+            acc = T.fp_add(acc, t)
+        return acc
+
+    hxn, hxd, hyn, hyd = (hpoly(terms) for terms in _ISO1)
+    z, yd2 = FP.products([(hxd, hyd), (hyd, hyd)])
+    xd2, yyn = FP.products([(hxd, hxd), (y, hyn)])
+    xnxd, xd3 = FP.products([(hxn, hxd), (xd2, hxd)])
+    xj, t = FP.products([(xnxd, yd2), (yyn, xd3)])
+    (yj,) = FP.products([(t, yd2)])
+    return (xj, yj, z)
+
+
 # ---------------------------------------------------------------------------
 # Public API
 # ---------------------------------------------------------------------------
@@ -174,6 +266,12 @@ def hash_to_field_fp2(msg: torch.Tensor, dst: bytes, count: int = 2):
     return out
 
 
+def hash_to_field_fp(msg: torch.Tensor, dst: bytes, count: int = 2):
+    data = expand_message_xmd(msg, dst, count * 64)
+    return [bytes_be_to_fp_mont(data[..., i * 64:(i + 1) * 64])
+            for i in range(count)]
+
+
 def hash_to_g2(msg: torch.Tensor, dst: bytes = DST_G2):
     """[..., L] uint8 messages -> batched Jacobian G2 subgroup points.
 
@@ -182,9 +280,23 @@ def hash_to_g2(msg: torch.Tensor, dst: bytes = DST_G2):
     cofactor-cleared."""
     u0, u1 = hash_to_field_fp2(msg, dst, 2)
     u = (torch.stack([u0[0], u1[0]], 0), torch.stack([u0[1], u1[1]], 0))
-    qx, qy = _map_to_curve_sswu(u)
+    qx, qy = _map_to_curve_sswu(u, _Fp2Adapter)
     xj, yj, zj = _iso3_jacobian(qx, qy)
     q0 = tuple((c[0][0], c[1][0]) for c in (xj, yj, zj))
     q1 = tuple((c[0][1], c[1][1]) for c in (xj, yj, zj))
     r = DC.point_add(q0, q1, DC.Fp2Ops)
     return DC.g2_clear_cofactor(r)
+
+
+def hash_to_g1(msg: torch.Tensor, dst: bytes = DST_G1):
+    """[..., L] uint8 messages -> batched Jacobian G1 subgroup points.
+
+    Both draws run the SSWU map and the 11-isogeny as one stacked pass;
+    the pair is added on E1 and multiplied by the RFC 9380 effective
+    cofactor h_eff = 1 - x (not the full h1: both land in G1, but only
+    1 - x gives the standard suite's point)."""
+    u0, u1 = hash_to_field_fp(msg, dst, 2)
+    qx, qy = _map_to_curve_sswu(torch.stack([u0, u1], 0), _FpAdapter)
+    xj, yj, zj = _iso1_jacobian(qx, qy)
+    r = DC.point_add((xj[0], yj[0], zj[0]), (xj[1], yj[1], zj[1]), DC.FpOps)
+    return DC.point_mul_const(r, 1 - X, DC.FpOps)

@@ -461,6 +461,34 @@ def make_fp2_sqrt_ratio(z_c: tuple):
     return sqrt_ratio
 
 
+def make_fp_sqrt_ratio(z_c: int):
+    """Fp twin for the G1 suite (p = 3 mod 4): c = u v (u v^3)^((p-3)/4)
+    squares to chi(u v^3) * u/v, so c is the root where u/v is square and
+    c * sqrt(-Z) the root of Z u/v otherwise (-Z is a square: -1 and Z
+    are non-squares).  The exponentiation is one K4 launch on a GPU
+    tensor."""
+    wz = G.fp_sqrt(G.fp_neg(z_c % P))
+    if wz is None:
+        raise ValueError("SSWU Z must make -Z a square")
+    wz_c, z_const = fp_const(wz), fp_const(z_c)
+    e = (P - 3) // 4
+
+    def sqrt_ratio(u, v):
+        v2 = fp_sqr(v)
+        uv, uv3 = FP.products([(u, v), (u, fp_mul(v, v2))])
+        c = fp_mul(uv, FP.pow_const(uv3, e))
+        shape, device = c.shape[:-1], c.device
+        c2 = fp_mul(c, fp_broadcast(wz_c, shape, device))
+        sq = fp_sqr(torch.stack([c, c2], 0))
+        ch1, ch2 = FP.products([(sq[0], v), (sq[1], v)])
+        zu = fp_mul(fp_broadcast(z_const, shape, device), u)
+        is_sq = FP.eq(ch1, u)
+        y = fp_select(is_sq, c, fp_select(FP.eq(ch2, zu), c2, c))
+        return y, is_sq
+
+    return sqrt_ratio
+
+
 # ---------------------------------------------------------------------------
 # Fp6 / Fp12 tower formulas (the flat Fp12 inverse evaluates through them)
 # ---------------------------------------------------------------------------

@@ -2,11 +2,13 @@
 
     python -m drand_tpu_torch.profiling [--rounds 8 16384]
         [--miller-merged 0|1]
+        [--scheme pedersen-bls-unchained|bls-unchained-g1-rfc9380]
 
-For each batch size, on the committed unchained fixture (rounds from 1),
-through Verifier.verify_batch_async (--miller-merged 1, the default) or
-with drand_tpu's trio Miller executor (--miller-merged 0,
-`trio_batch_async`):
+For each batch size, on the scheme's committed unchained fixture (rounds
+from 1; pedersen-bls-unchained, the default, or the short-signature
+scheme bls-unchained-g1-rfc9380), through Verifier.verify_batch_async
+(--miller-merged 1, the default) or with drand_tpu's trio Miller executor
+(--miller-merged 0, `trio_batch_async`):
 
   wall_s       one unprofiled batch, host clock, ending in a synchronize
   issue_s      the part of it the host spent issuing the batch
@@ -21,7 +23,8 @@ with drand_tpu's trio Miller executor (--miller-merged 0,
 The profiled batch runs several times slower than the unprofiled one, so
 only its kernel durations and counts are read, never its wall time.  One
 JSON line per batch size; the same goes to
-chiprun_out/profile_verify_m<merged>.json.
+chiprun_out/profile_verify_m<merged>.json (profile_verify_g1_m<merged>.json
+for the short-signature scheme).
 Needs a CUDA device.
 """
 
@@ -43,6 +46,8 @@ from drand_tpu_torch.verify import bucket
 
 ROOT = Path(__file__).resolve().parents[1]
 FIXTURE = ROOT / "aot" / "fixtures" / "bench_sigs_unchained_16384_d6a762f2_ff8a2cc7.npy"
+# the unchained schemes the CLI profiles, the default first
+SCHEMES = ("pedersen-bls-unchained", "bls-unchained-g1-rfc9380")
 OURS = ("k_mont_mul", "k_mont_sqr", "k_mont_reduce", "k_fp_pow_chain",
         "k_fp2_products", "k_fp2_sqrs", "k_fp2_sqr_chain_mul",
         "k_g2_point_dbl", "k_g2_point_add", "k_miller_iter", "k_flat_mul",
@@ -65,18 +70,14 @@ def device_kernels(prof):
 
 def trio_batch_async(verifier, rounds, sigs: np.ndarray, prev_sigs=None):
     """`verifier.verify_batch_async` with drand_tpu's trio Miller executor:
-    the same digests and checks through ops/bls.py verify_g2_sigs with
-    merged=False, for a batch whose size is a bucket (not padded)."""
-    from drand_tpu_torch.ops import bls as BLS
-    from drand_tpu_torch.ops.sha256 import sha256
+    the same digests and checks through `Verifier.verify_on_device` with
+    merged=False (ops/bls.py verify_g2_sigs or verify_g1_sigs, by the
+    verifier's scheme shape), for a batch whose size is a bucket (not
+    padded)."""
     msgs = verifier.messages(np.asarray(rounds, dtype=np.uint64), prev_sigs)
     if msgs.shape[0] != bucket(msgs.shape[0]):
         raise ValueError(f"{msgs.shape[0]} rounds: not a bucket size")
-    d = verifier.device
-    ok = BLS.verify_g2_sigs(
-        sha256(torch.from_numpy(np.ascontiguousarray(msgs)).to(d)),
-        torch.from_numpy(np.ascontiguousarray(sigs, dtype=np.uint8)).to(d),
-        verifier.pk_limbs, verifier.shape.dst, merged=False)
+    ok = verifier.verify_on_device(msgs, sigs, merged=False)
     return lambda: ok.cpu().numpy()
 
 
@@ -117,6 +118,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, nargs="+", default=[8, 16384])
     ap.add_argument("--miller-merged", type=int, choices=(0, 1), default=1)
+    ap.add_argument("--scheme", choices=SCHEMES, default=SCHEMES[0])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profiling: needs a CUDA device", file=sys.stderr)
@@ -126,9 +128,15 @@ def main(argv=None) -> int:
     from drand_tpu_torch.ops import kernels as K
 
     K.build()
-    _, pk = FX.fixture_keypair()
-    sigs = np.load(FIXTURE)
-    verifier = V.Verifier(pk, V.SHAPE_UNCHAINED)
+    g1 = args.scheme == SCHEMES[1]
+    if g1:
+        _, pk = FX.fixture_keypair_g2()
+        sigs = np.load(FX.G1_FIXTURE)
+        verifier = V.Verifier(pk, V.SHAPE_UNCHAINED_G1)
+    else:
+        _, pk = FX.fixture_keypair()
+        sigs = np.load(FIXTURE)
+        verifier = V.Verifier(pk, V.SHAPE_UNCHAINED)
     if args.miller_merged:
         issue = verifier.verify_batch_async
     else:
@@ -142,12 +150,13 @@ def main(argv=None) -> int:
     for n in args.rounds:
         row = profile_batch(issue, sigs[:n])
         row["card"] = card
+        row["scheme"] = args.scheme
         row["miller_merged"] = args.miller_merged
         rows.append(row)
         print(json.dumps(row), flush=True)
     out = ROOT / "chiprun_out"
     os.makedirs(out, exist_ok=True)
-    name = f"profile_verify_m{args.miller_merged}.json"
+    name = f"profile_verify{'_g1' if g1 else ''}_m{args.miller_merged}.json"
     (out / name).write_text(json.dumps(rows, indent=1))
     return 0
 

@@ -1,7 +1,9 @@
 """Chain verification on the GPU: the port's entry point.
 
 Counterpart of `drand_tpu/verify.py` for the two G2-signature schemes
-(`pedersen-bls-chained`, drand's default, and `pedersen-bls-unchained`):
+(`pedersen-bls-chained`, drand's default, and `pedersen-bls-unchained`)
+and the short-signature scheme `bls-unchained-g1-rfc9380` (signatures on
+G1, the key on G2: drand's quicknet):
 `Verifier.verify_batch(rounds, sigs, prev_sigs) -> bool[B]` digests,
 hashes to curve and pairing-checks B rounds in one pass over the batch,
 padded to a small set of batch sizes.
@@ -18,7 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from drand_tpu_torch.crypto.bls12381.constants import DST_G2
+from drand_tpu_torch.crypto.bls12381.constants import DST_G1, DST_G2
 from drand_tpu_torch.device import resolve
 from drand_tpu_torch.ops import bls as BLS
 from drand_tpu_torch.ops.sha256 import sha256
@@ -44,27 +46,39 @@ def rounds_be8(rounds: np.ndarray) -> np.ndarray:
 class SchemeShape:
     """Static wire shape of a scheme."""
     chained: bool          # prev_sig part of the digest
+    sig_on_g1: bool        # short signatures on G1, the key on G2
     dst: bytes
 
+    @property
+    def sig_len(self) -> int:
+        return 48 if self.sig_on_g1 else 96
 
-SHAPE_CHAINED = SchemeShape(chained=True, dst=DST_G2)
-SHAPE_UNCHAINED = SchemeShape(chained=False, dst=DST_G2)
+
+SHAPE_CHAINED = SchemeShape(chained=True, sig_on_g1=False, dst=DST_G2)
+SHAPE_UNCHAINED = SchemeShape(chained=False, sig_on_g1=False, dst=DST_G2)
+SHAPE_UNCHAINED_G1 = SchemeShape(chained=False, sig_on_g1=True, dst=DST_G1)
 
 
 class Verifier:
     """Batched beacon verifier for one chain (public key + scheme shape).
 
-    `public_key` is a golden-model G1 Jacobian point.  The verifier runs
-    on the current CUDA device unless `device` names another (the tests
-    pass device="cpu"); with no CUDA and no device named it raises."""
+    `public_key` is a golden-model Jacobian point: on G1 for the
+    G2-signature schemes, on G2 for the short-signature scheme
+    (`shape.sig_on_g1`).  The verifier runs on the current CUDA device
+    unless `device` names another (the tests pass device="cpu"); with no
+    CUDA and no device named it raises."""
 
     def __init__(self, public_key, shape: SchemeShape, device=None):
-        self._init(BLS.g1_affine_limbs(public_key), shape, device)
+        limbs = (BLS.g2_affine_limbs(public_key) if shape.sig_on_g1
+                 else BLS.g1_affine_limbs(public_key))
+        self._init(limbs, shape, device)
 
     @classmethod
     def from_pk_limbs(cls, pk_limbs, shape: SchemeShape, device=None):
-        """Build from the affine public key as (x, y) [32] int32 canonical
-        Montgomery limbs (the state `convert.from_drand_tpu` carries)."""
+        """Build from the affine public key in int32 canonical Montgomery
+        limbs (the state `convert.from_drand_tpu` carries): (x, y), each
+        [32], for a G1 key; ((x0, x1), (y0, y1)), each [32], for the G2
+        key of a `sig_on_g1` shape."""
         self = cls.__new__(cls)
         self._init(pk_limbs, shape, device)
         return self
@@ -72,8 +86,26 @@ class Verifier:
     def _init(self, pk_limbs, shape: SchemeShape, device):
         self.shape = shape
         self.device = resolve(device)
-        self._pk = tuple(torch.as_tensor(c, dtype=torch.int32).to(self.device)
-                         for c in pk_limbs)
+
+        def coord(c):
+            if isinstance(c, (tuple, list)) and len(c) == 2:
+                raise ValueError("an Fp2 pair where a [32] limb coordinate "
+                                 "belongs: a G2 key needs a sig_on_g1 shape")
+            t = torch.as_tensor(c, dtype=torch.int32)
+            if t.shape != (32,):
+                raise ValueError(f"expected a [32] limb coordinate, got "
+                                 f"{tuple(t.shape)}")
+            return t.to(self.device)
+
+        pk_limbs = tuple(pk_limbs)
+        if len(pk_limbs) != 2:
+            raise ValueError("expected the affine key (x, y)")
+        if shape.sig_on_g1:
+            self._pk = tuple(tuple(coord(c) for c in xy) for xy in pk_limbs)
+            if any(len(xy) != 2 for xy in self._pk):
+                raise ValueError("a G2 key is ((x0, x1), (y0, y1))")
+        else:
+            self._pk = tuple(coord(c) for c in pk_limbs)
 
     @property
     def pk_limbs(self):
@@ -102,23 +134,39 @@ class Verifier:
             return lambda: np.zeros(0, dtype=bool)
         msgs = self.messages(rounds, prev_sigs)
         sigs = np.asarray(sigs, dtype=np.uint8)
+        if sigs.shape != (n, self.shape.sig_len):
+            raise ValueError(f"expected [{n}, {self.shape.sig_len}] "
+                             f"signatures, got {sigs.shape}")
         m = bucket(n)
         if m != n:    # pad by repeating the last row
             msgs = np.concatenate([msgs, np.repeat(msgs[-1:], m - n, 0)])
             sigs = np.concatenate([sigs, np.repeat(sigs[-1:], m - n, 0)])
-        msgs_t = torch.from_numpy(np.ascontiguousarray(msgs)).to(self.device)
-        sigs_t = torch.from_numpy(np.ascontiguousarray(sigs)).to(self.device)
-        ok = BLS.verify_g2_sigs(sha256(msgs_t), sigs_t, self._pk,
-                                self.shape.dst)
+        ok = self.verify_on_device(msgs, sigs)
 
         def resolve_():
             return ok[:n].cpu().numpy()
         return resolve_
 
+    def verify_on_device(self, msgs: np.ndarray, sigs: np.ndarray,
+                         merged=None) -> torch.Tensor:
+        """Issue the check of a whole batch, messages [B, L] and signatures
+        [B, sig_len] uint8 as they stand (no padding), and return its bool
+        [B] tensor on the verifier's device without waiting: sha256 of each
+        message, then the scheme's BLS check (`ops/bls.py` verify_g2_sigs
+        or verify_g1_sigs), with the Miller executor `merged` chooses
+        there."""
+        msgs_t = torch.from_numpy(np.ascontiguousarray(msgs)).to(self.device)
+        sigs_t = torch.from_numpy(
+            np.ascontiguousarray(sigs, dtype=np.uint8)).to(self.device)
+        check = (BLS.verify_g1_sigs if self.shape.sig_on_g1
+                 else BLS.verify_g2_sigs)
+        return check(sha256(msgs_t), sigs_t, self._pk, self.shape.dst,
+                     merged=merged)
+
     def verify_batch(self, rounds, sigs: np.ndarray,
                      prev_sigs: np.ndarray | None = None) -> np.ndarray:
-        """rounds: int array [B]; sigs: [B, 96] uint8; prev_sigs: [B, 96]
-        uint8 for the chained scheme.  Returns bool[B]."""
+        """rounds: int array [B]; sigs: [B, sig_len] uint8; prev_sigs:
+        [B, sig_len] uint8 for a chained scheme.  Returns bool[B]."""
         return self.verify_batch_async(rounds, sigs, prev_sigs)()
 
     def verify_chain_segment_async(self, start_round: int, sigs: np.ndarray,

@@ -700,3 +700,45 @@ def test_trio_verifier_on_card(cuda):
     assert trio_batch_async(ver, rounds, sigs[1:9], sigs[:8])().all()
     assert trio_batch_async(ver, rounds, bad, sigs[:8])().tolist() == \
         [True] * 3 + [False] + [True] * 4
+
+
+def test_pow_chain_kernel_at_sqrt_ratio_exponent_on_card(cuda):
+    """K4 at the G1 map's (p - 3)/4, the exponent of
+    towers.make_fp_sqrt_ratio: FP.pow_const takes the addition chain, one
+    launch, bit-equal to the plan's plain steps on 16384 rows (0, 1, p-1
+    among them) and to pow on the first 40."""
+    from drand_tpu_torch.ops import kernels as K
+    from drand_tpu_torch.ops.field import FP, addchain_plan
+    p = FP.modulus
+    e = (p - 3) // 4
+    ops, build, _, _, used_odd = addchain_plan(e)
+    rng = np.random.default_rng(19)
+    vals = [0, 1, p - 1] + [int.from_bytes(rng.bytes(48), "little") % p
+                            for _ in range(16381)]
+    a = torch.from_numpy(FP.encode(vals)).to(cuda)
+    K.reset_launches()
+    got = FP.pow_const(a, e)
+    assert {k: v for k, v in K.launch_counts().items() if v} == {
+        "sqr_chain_mul": 1}
+    assert torch.equal(got, FP._pow_addchain_plain(a, ops, build, used_odd))
+    want = [pow(v, e, p) for v in vals[:40]]
+    assert [FP.from_limbs_host(r) for r in got.cpu().numpy()[:40]] == want
+
+
+def test_g1_verifier_on_card(cuda):
+    """The short-signature scheme on the card, both Miller executors: the
+    committed G1 fixture's rounds 1-64 true, and a flipped byte false in
+    exactly its row."""
+    from drand_tpu_torch import fixtures as FX
+    from drand_tpu_torch import verify as V
+    from drand_tpu_torch.profiling import trio_batch_async
+    _, pk = FX.fixture_keypair_g2()
+    sigs = np.load(FX.G1_FIXTURE)[:64]
+    ver = V.Verifier(pk, V.SHAPE_UNCHAINED_G1)
+    rounds = np.arange(1, 65, dtype=np.uint64)
+    bad = sigs.copy()
+    bad[37, 20] ^= 1
+    assert ver.verify_batch(rounds, sigs).all()
+    want = [True] * 37 + [False] + [True] * 26
+    assert ver.verify_batch(rounds, bad).tolist() == want
+    assert trio_batch_async(ver, rounds, bad)().tolist() == want

@@ -68,11 +68,23 @@ def test_verifier_without_device_raises_on_cuda_less_host():
     assert D.resolve("cpu") == torch.device("cpu")
 
 
+def test_g1_verifier_without_device_raises_on_cuda_less_host():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device is the GPU")
+    pk = JGC.g2_mul(JGC.G2_GEN, 0x1234567890ABCDEF)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        V.Verifier(pk, V.SHAPE_UNCHAINED_G1)
+    assert V.Verifier(pk, V.SHAPE_UNCHAINED_G1,
+                      device="cpu").device == torch.device("cpu")
+
+
 def test_profiling_refuses_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the profile would run")
     from drand_tpu_torch import profiling
     assert profiling.main(["--rounds", "8"]) == 2
+    assert profiling.main(["--rounds", "8", "--scheme",
+                           "bls-unchained-g1-rfc9380"]) == 2
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -148,3 +160,28 @@ def test_convert_carries_pk_and_signer_table():
     assert cinf.tolist() == [False, True, False]
     with pytest.raises(ValueError):
         convert.from_drand_tpu((np.full(32, 4096, np.int32), np.zeros(32, np.int32)))
+
+
+def test_convert_carries_g2_key_and_keeps_it_apart_from_g1():
+    """drand_tpu's short-signature key ((x0, x1), (y0, y1)) comes over as
+    such; the same limbs as two [2, 32] arrays no longer pass as a G1 (x,
+    y), and neither key passes for the other scheme's Verifier."""
+    from drand_tpu import verify as JV
+    pk = JGC.g2_mul(JGC.G2_GEN, 0x1234567890ABCDEF)
+    state = JV.Verifier(pk, JV.SHAPE_UNCHAINED_G1)._pk
+    got = convert.from_drand_tpu(state)
+    built = V.Verifier(pk, V.SHAPE_UNCHAINED_G1, device="cpu").pk_limbs
+    for g, b, s in zip(got, built, state):
+        for gc, bc, sc in zip(g, b, s):
+            assert torch.equal(gc, bc)
+            np.testing.assert_array_equal(gc.numpy(), np.asarray(sc))
+    with pytest.raises(ValueError, match="key coordinate"):
+        convert.from_drand_tpu(tuple(np.stack([np.asarray(c) for c in xy])
+                                     for xy in state))
+    with pytest.raises(ValueError):
+        convert.from_drand_tpu((state[0], np.asarray(state[1][0])))
+    with pytest.raises(ValueError):
+        V.Verifier.from_pk_limbs(got, V.SHAPE_UNCHAINED, device="cpu")
+    g1_key = convert.from_drand_tpu(convert_pk()[0])
+    with pytest.raises(ValueError):
+        V.Verifier.from_pk_limbs(g1_key, V.SHAPE_UNCHAINED_G1, device="cpu")
