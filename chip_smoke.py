@@ -47,9 +47,28 @@ Phases, each printing one JSON line:
           busy time and each path kernel's device ms, bound and loss; and
           the launches, device kernels and busy time of one G1 |x| ladder
           on the batch's points (the batch runs three: no G1 point kernel)
+  recovery  the port's ChainVerifier, chain store and integrity scan
+          (drand_tpu_torch.chain) over sqlite stores built under build/:
+          the genesis seed and rounds 1-65536 of pedersen-bls-unchained
+          (the committed 16384 rounds, then the sync fixture's 49152), all
+          by fixture_keypair(), through startup_recovery: clean, 65537
+          rows, verified_tip 65536, four dispatch records of n = bucket =
+          16384, each segment launching exactly what the slice phase's
+          batch launched; a copy with round 40000's signature flipped,
+          round 50000's blob torn and round 60000 deleted: `python -m
+          drand_tpu_torch.cli util fsck <copy> --json` exits 1 with the
+          structural lists, then startup_recovery gives bad_sigs [40000],
+          corrupt [50000], missing [[60000, 60000]], verified_tip 39999,
+          the repair leaves the tip at 39999 and a rescan is clean; the
+          chained fixture's store (round 1 on the genesis anchor, round
+          30's signature flipped, round 50's link broken): bad_sigs [30],
+          unlinked [31, 50], every other verdict the slice phase's; a
+          16384-round bls-unchained-g1-rfc9380 store, the key as G2 bytes:
+          clean, its segment launching what the g1 batch launched; walls,
+          rounds per second and the dispatch records
 
-Each run of the slice, trio and g1 phases must launch every kernel of its
-path and no other, and never call the plain limb convolution
+Each run of the slice, trio, g1 and recovery phases must launch every
+kernel of its path and no other, and never call the plain limb convolution
 `_poly_mul_var`: the default batch all but the trio kernels (flat_sqr,
 g2_dbl_line, g2_add_line) and those off the G2 paths (mont_sqr,
 mont_reduce, fp2_sqr5_mul, line_merge, add, sub); the trio batch all but
@@ -58,11 +77,12 @@ kernels, flat_mul, flat_conj, flat_frob, cyclo_sqr and the final
 exponentiation's inversion (mont_mul, sqr_chain_mul, fp2_products); a G1
 batch mont_mul, mont_sqr, sqr_chain_mul, fp2_products, the merged
 iterations, flat_mul, cyclo_sqr, flat_conj and flat_frob (the trio G1
-batch the trio kernels in place of the merged iterations).
+batch the trio kernels in place of the merged iterations); a recovery scan
+the default batch's kernels (the G1 store's, the G1 batch's).
 
   parity  every kernel against its plain PyTorch version on the card, bit
-          for bit, at every call the batches above made, the G1 ones
-          included (g2_point_dbl
+          for bit, at every call the batches above made, the G1 and
+          recovery ones included (g2_point_dbl
           and cyclo_sqr at each of their chain lengths) and at fixed
           cases: 16384 rows for Fp and Fr (sqr_chain_mul, whose path
           calls are whole addition chains held against the plan's plain
@@ -137,14 +157,20 @@ import math
 import os
 import random
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BATCH = 16384
 FIXTURE = os.path.join(HERE, "aot", "fixtures",
                        "bench_sigs_unchained_16384_d6a762f2_ff8a2cc7.npy")
+# rounds 16385-65536 of the same chain and key ([49152, 96])
+SYNC_FIXTURE = os.path.join(HERE, "aot", "fixtures",
+                            "bench_sync_sigs_65536_d6a762f2_ff8a2cc7.npy")
+STORE_ROUNDS = 4 * BATCH
 # H100 SXM peaks: HBM bytes/s (NVIDIA data sheet) and 32-bit integer
 # multiply-adds/s: 64 per clock per SM, half the float32 FMA rate, x 132
 # SMs x 1.98 GHz boost clock.  One multiply-add is two operations.
@@ -451,6 +477,229 @@ def profile_kernels(fn, want: dict, tries: int = 4):
         if len(complete) == len(want):
             break
     return best, complete
+
+
+def recovery_phase(work_dir, drive, check_path, sigs, sigs_c, pk_bytes,
+                   seed, launches, default_path, sigs1, pk2, g1_launches,
+                   ok_c, chained):
+    """The `recovery` phase: the port's ChainVerifier, chain store,
+    integrity scan and `util fsck` over stores built in `work_dir`.
+    Returns (its report line, the calls by kernel of each driven run)."""
+    import asyncio
+    import sqlite3
+
+    import numpy as np
+    import torch
+
+    from drand_tpu_torch import dispatch as DSP
+    from drand_tpu_torch.chain import codec as CODEC
+    from drand_tpu_torch.chain.beacon import Beacon
+    from drand_tpu_torch.chain.recovery import scan_store, startup_recovery
+    from drand_tpu_torch.chain.scheme import scheme_by_id
+    from drand_tpu_torch.chain.store import SqliteStore
+    from drand_tpu_torch.chain.verify import ChainVerifier
+    from drand_tpu_torch.crypto.bls12381 import curve as GC
+    from drand_tpu_torch.ops import kernels as K
+    from drand_tpu_torch.verify import bucket
+
+    out, all_calls = {"phase": "recovery"}, []
+
+    def check_segments(what, segs, want):
+        """Every segment padded to the largest bucket launched exactly
+        what one batch of that size launches."""
+        full = [s for s in segs if bucket(s[1]) == BATCH]
+        bad = [(s[0], s[1]) for s in full if s[2] != want]
+        if not full or bad:
+            fail(f"{what}: segments {bad} launched other counts than one "
+                 f"{BATCH}-round batch ({len(full)} full segments)")
+        return len(full)
+
+    def scan(what, store, cv, path, fn=scan_store):
+        """fn(store, cv) driven once: (report, summary, seconds, segments,
+        dispatch records), the launches checked against `path`; each
+        segment the scan hands `cv` is (start round, rounds, the launches
+        of its issue, where all of them happen)."""
+        DSP.DISPATCH.clear()
+        segs = []
+        inner = cv.verify_packed_segment_async
+
+        def counted(packed, anchor):
+            before = K.launch_counts()
+            pending = inner(packed, anchor)
+            after = K.launch_counts()
+            segs.append((packed.start_round, len(packed),
+                         {n: after[n] - before[n] for n in after}))
+            return pending
+        cv.verify_packed_segment_async = counted
+        res, secs, counts, calls, n_conv = drive(
+            lambda: asyncio.run(fn(store, cv)))
+        del cv.verify_packed_segment_async
+        check_path(what, counts, n_conv, path)
+        all_calls.append(calls)
+        report, summary = res if isinstance(res, tuple) else (res, None)
+        return report, summary, secs, segs, DSP.DISPATCH.records("verify")
+
+    def rows_of(recs):
+        return [[r.n, r.bucket] for r in recs]
+
+    # 1. the full-width store: the genesis seed, then rounds 1-65536 of
+    # pedersen-bls-unchained (the committed 16384 rounds and the sync
+    # fixture's 49152 after them), all by fixture_keypair()
+    sync = np.load(SYNC_FIXTURE)
+    if sync.shape != (STORE_ROUNDS - BATCH, 96):
+        fail(f"unexpected sync fixture shape {sync.shape}")
+    all_sigs = np.concatenate([sigs, sync])
+    t0 = time.perf_counter()
+    path = os.path.join(work_dir, "unchained.db")
+    store = SqliteStore(path)
+    store.put_many([Beacon(0, seed)] + [
+        Beacon(r, all_sigs[r - 1].tobytes())
+        for r in range(1, STORE_ROUNDS + 1)])
+    out["store_build_s"] = time.perf_counter() - t0
+    cv = ChainVerifier(scheme_by_id("pedersen-bls-unchained"), pk_bytes)
+
+    # 2. the clean scan through startup_recovery
+    rep, summary, secs, segs, recs = scan(
+        "recovery clean scan", store, cv, default_path, startup_recovery)
+    if not (rep.ok and rep.verify_checked and summary is None
+            and rep.scanned == STORE_ROUNDS + 1
+            and rep.verified_tip == STORE_ROUNDS and not rep.bad_sigs):
+        fail(f"clean store: {rep.to_dict()}, repair {summary}")
+    if rows_of(recs) != [[BATCH, BATCH]] * 4:
+        fail(f"clean store: dispatch records {rows_of(recs)}, not four "
+             f"of n = bucket = {BATCH}")
+    check_segments("clean scan", segs, launches)
+    out["clean"] = {"rounds": STORE_ROUNDS, "scanned": rep.scanned,
+                    "verified_tip": rep.verified_tip, "wall_s": secs,
+                    "report_elapsed_s": rep.elapsed_s,
+                    "rounds_per_s": STORE_ROUNDS / secs,
+                    "segments": len(segs),
+                    "segment_launches_equal_slice_batch": True,
+                    "dispatch": [r.to_dict() for r in recs]}
+
+    # 3. damage on a copy: round 40000's signature flipped (the row still
+    # decodes), round 50000's blob torn, round 60000 deleted
+    copy = os.path.join(work_dir, "damaged.db")
+    store.save_to(copy)
+    con = sqlite3.connect(copy)
+    with con:
+        blob = bytearray(con.execute(
+            "SELECT data FROM beacons WHERE round = 40000").fetchone()[0])
+        blob[13 + 40] ^= 0x01
+        if CODEC.decode_fields(bytes(blob))[0] != 40000:
+            fail("the flipped row of round 40000 no longer decodes")
+        con.execute("UPDATE beacons SET data = ? WHERE round = 40000",
+                    (bytes(blob),))
+        con.execute("UPDATE beacons SET data = substr(data, 1, 50) "
+                    "WHERE round = 50000")
+        con.execute("DELETE FROM beacons WHERE round = 60000")
+    con.close()
+    fsck = subprocess.run(
+        [sys.executable, "-m", "drand_tpu_torch.cli", "util", "fsck", copy,
+         "--json"], cwd=HERE, capture_output=True, text=True, timeout=300)
+    try:
+        fsck_report = json.loads(fsck.stdout)
+    except ValueError:
+        fsck_report = {}
+    want = {"corrupt": [50000], "missing": [[60000, 60000]],
+            "unlinked": [], "bad_sigs": [], "verify_checked": False,
+            "repair": None}
+    if fsck.returncode != 1 or \
+            {k: fsck_report.get(k) for k in want} != want:
+        fail(f"util fsck on the damaged copy: exit {fsck.returncode}, "
+             f"{fsck.stdout.strip()[:400]} {fsck.stderr.strip()[-400:]}")
+    damaged = SqliteStore(copy)
+    rep, summary, secs, segs, recs = scan(
+        "recovery damaged scan", damaged, cv, default_path,
+        startup_recovery)
+    got = (rep.bad_sigs, rep.corrupt, rep.missing, rep.unlinked,
+           rep.verified_tip)
+    if got != ([40000], [50000], [(60000, 60000)], [], 39999):
+        fail(f"damaged store: {rep.to_dict()}")
+    if (rep.corrupt, [list(m) for m in rep.missing], rep.unlinked) != \
+            (fsck_report["corrupt"], fsck_report["missing"],
+             fsck_report["unlinked"]):
+        fail("util fsck's structural lists differ from the BLS scan's")
+    n_full = check_segments("damaged scan", segs, launches)
+    tip = damaged.last().round
+    if summary is None or summary["verified_tip"] != 39999 or tip != 39999:
+        fail(f"repair: {summary}, tip {tip}")
+    out["damaged"] = {"report": {k: v for k, v in rep.to_dict().items()
+                                 if k != "path"},
+                      "wall_s": secs, "repair": summary, "tip_after": tip,
+                      "fsck_exit": fsck.returncode,
+                      "fsck_structural_equal": True,
+                      "full_segments_equal_slice_batch": n_full,
+                      "dispatch": rows_of(recs)}
+    rep, _, secs, segs, recs = scan("recovery rescan", damaged, cv,
+                                    default_path)
+    if not (rep.ok and rep.verify_checked and rep.verified_tip == 39999):
+        fail(f"rescan of the repaired copy: {rep.to_dict()}")
+    check_segments("rescan", segs, launches)
+    out["rescan"] = {"scanned": rep.scanned, "wall_s": secs,
+                     "dispatch": rows_of(recs)}
+    damaged.close()
+    store.close()
+
+    # 4. the chained store: the genesis seed, rounds 1-65 of the committed
+    # chained segment, round 30's signature flipped (round 31's stored prev
+    # then fails its link) and round 50's stored prev replaced
+    path = os.path.join(work_dir, "chained.db")
+    cstore = SqliteStore(path)
+    rows = [Beacon(0, seed)] + [
+        Beacon(r, sigs_c[r - 1].tobytes(),
+               seed if r == 1 else sigs_c[r - 2].tobytes())
+        for r in range(1, sigs_c.shape[0] + 1)]
+    flipped = bytearray(rows[30].signature)
+    flipped[40] ^= 0x01
+    rows[30].signature = bytes(flipped)
+    rows[50].previous_sig = hashlib.sha512(b"broken link").digest() + \
+        bytes(32)
+    cstore.put_many(rows)
+    cv_c = ChainVerifier(scheme_by_id("pedersen-bls-chained"), pk_bytes)
+    rep, _, secs, segs, recs = scan("recovery chained store", cstore, cv_c,
+                                    default_path)
+    # every round the scan verified other than round 30 is true in the
+    # slice phase's verdicts on this fixture; round 30's flipped signature
+    # is false through the slice phase's Verifier
+    checked = [r for r in range(1, 66) if r not in (31, 50)]
+    flip_ok = chained.verify_chain_segment(
+        30, np.frombuffer(bytes(flipped), np.uint8)[None], sigs_c[28])
+    if (rep.bad_sigs, rep.unlinked, rep.corrupt, rep.missing,
+            rep.verified_tip) != ([30], [31, 50], [], [], 29) or \
+            not all(ok_c[r - 1] for r in checked) or flip_ok.tolist() != \
+            [False] or segs[0][:2] != (1, 30) or \
+            rows_of(recs)[0] != [1, 8]:
+        fail(f"chained store: {rep.to_dict()}, segments "
+             f"{[s[:2] for s in segs]}, records {rows_of(recs)}")
+    out["chained"] = {"report": {k: v for k, v in rep.to_dict().items()
+                                 if k != "path"},
+                      "wall_s": secs, "genesis_anchor_record": [1, 8],
+                      "verdicts_equal_slice": True,
+                      "dispatch": rows_of(recs)}
+    cstore.close()
+
+    # 5. a bls-unchained-g1-rfc9380 store: the genesis seed and the G1
+    # fixture's 16384 rounds, the key as compressed G2 bytes
+    path = os.path.join(work_dir, "g1.db")
+    gstore = SqliteStore(path)
+    gstore.put_many([Beacon(0, seed)] + [
+        Beacon(r, sigs1[r - 1].tobytes()) for r in range(1, BATCH + 1)])
+    cv_g = ChainVerifier(scheme_by_id("bls-unchained-g1-rfc9380"),
+                         GC.g2_to_bytes(pk2))
+    rep, _, secs, segs, recs = scan("recovery g1 store", gstore, cv_g,
+                                    G1_PATH)
+    if not (rep.ok and rep.verified_tip == BATCH) or \
+            rows_of(recs) != [[BATCH, BATCH]]:
+        fail(f"G1 store: {rep.to_dict()}, records {rows_of(recs)}")
+    check_segments("g1 store", segs, g1_launches)
+    out["g1"] = {"rounds": BATCH, "wall_s": secs,
+                 "rounds_per_s": BATCH / secs,
+                 "segment_launches_equal_g1_batch": True,
+                 "dispatch": [r.to_dict() for r in recs]}
+    gstore.close()
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    return out, all_calls
 
 
 def main() -> int:
@@ -859,10 +1108,23 @@ def main() -> int:
     emit({k: v for k, v in report["g1"].items()
           if k not in ("calls", "trio_calls")})
 
+    # -- recovery ------------------------------------------------------------
+    rec_dir = tempfile.mkdtemp(prefix="recovery-",
+                               dir=os.path.join(HERE, "build"))
+    try:
+        report["recovery"], recovery_calls = recovery_phase(
+            rec_dir, drive, check_path, sigs, sigs_c, pk_bytes, seed,
+            launches, default_path, sigs1, pk2, g1_launches, ok_c,
+            chained)
+    finally:
+        shutil.rmtree(rec_dir, ignore_errors=True)
+    emit(report["recovery"])
+
     # every call the runs made, for the parity phase
     all_calls = {name: set(path_calls[name]) | set(chain_calls[name])
                  | set(trio_calls[name]) | set(pairing_calls[name])
                  | set(g1_calls[name]) | set(g1_trio_calls[name])
+                 | set().union(*(c[name] for c in recovery_calls))
                  for name in K.KERNELS}
 
     # -- parity --------------------------------------------------------------

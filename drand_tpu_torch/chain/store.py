@@ -1,0 +1,299 @@
+"""The chain store: sqlite, its read-and-repair side (counterpart of
+`drand_tpu/chain/store.py` `SqliteStore`).
+
+The same two tables as `drand_tpu`'s store,
+
+    beacons    (round INTEGER PRIMARY KEY, data BLOB NOT NULL)
+    quarantine (round INTEGER PRIMARY KEY, data BLOB, reason TEXT)
+
+with rows in `chain/codec.py`'s layout, so a database written by either
+package opens in the other.  WAL journaling at `synchronous=NORMAL`: one
+transaction a commit, atomic across a process kill.  Rows that fail to
+decode on the way out raise `CorruptRowError` with their round; the
+quarantine table keeps damaged and rolled-back rows, nothing is
+silently deleted.
+"""
+
+from __future__ import annotations
+
+import os
+import sqlite3
+import threading
+from typing import Iterator, Optional
+
+from drand_tpu_torch.chain import codec as row_codec
+from drand_tpu_torch.chain.beacon import Beacon
+
+# rows fetched per sqlite call on a deep scan (iter_range)
+_FETCH_BATCH = 1024
+
+
+class StoreError(Exception):
+    pass
+
+
+class BeaconNotFound(StoreError):
+    pass
+
+
+class CorruptRowError(StoreError):
+    """A stored row failed to decode (torn write, bit-rot) or decoded to a
+    beacon whose round disagrees with its key; carries the round."""
+
+    def __init__(self, round_: int, detail: str):
+        super().__init__(f"corrupt row at round {round_}: {detail}")
+        self.round = round_
+        self.detail = detail
+
+
+class Store:
+    """Abstract store interface (drand `chain/store.go`).  `put_many`
+    commits a verified segment; the default loops `put`."""
+
+    def put(self, beacon: Beacon) -> None:
+        raise NotImplementedError
+
+    def put_many(self, beacons) -> None:
+        for b in beacons:
+            self.put(b)
+
+    def last(self) -> Beacon:
+        raise NotImplementedError
+
+    def get(self, round_: int) -> Beacon:
+        raise NotImplementedError
+
+    def delete(self, round_: int) -> None:
+        raise NotImplementedError
+
+    def __len__(self) -> int:
+        raise NotImplementedError
+
+    def cursor(self) -> "Cursor":
+        raise NotImplementedError
+
+    def close(self) -> None:
+        pass
+
+    def save_to(self, path: str) -> None:
+        raise NotImplementedError
+
+
+class Cursor:
+    """Iteration over rounds (drand `chain/store.go`)."""
+
+    def __init__(self, store: "SqliteStore"):
+        self._store = store
+
+    def first(self) -> Optional[Beacon]:
+        return self._store._edge("ASC")
+
+    def last(self) -> Optional[Beacon]:
+        return self._store._edge("DESC")
+
+    def seek(self, round_: int) -> Optional[Beacon]:
+        try:
+            return self._store.get(round_)
+        except BeaconNotFound:
+            return None
+
+    def iter_from(self, round_: int) -> Iterator[Beacon]:
+        yield from self._store.iter_range(round_)
+
+
+class SqliteStore(Store):
+    """The physical store: one sqlite file, one connection a thread.
+    `codec` picks the row writer ('binary' or the legacy 'json'); reads
+    take both."""
+
+    def __init__(self, path: str, codec: str = "binary"):
+        self.path = path
+        if os.path.dirname(path):
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+        self._local = threading.local()
+        self._lock = threading.Lock()
+        self._encode = row_codec.make_encoder(codec)
+        conn = self._conn()
+        with conn:
+            conn.execute(
+                "CREATE TABLE IF NOT EXISTS beacons ("
+                "round INTEGER PRIMARY KEY, data BLOB NOT NULL)")
+            conn.execute(
+                "CREATE TABLE IF NOT EXISTS quarantine ("
+                "round INTEGER PRIMARY KEY, data BLOB, reason TEXT)")
+
+    def _conn(self) -> sqlite3.Connection:
+        conn = getattr(self._local, "conn", None)
+        if conn is None:
+            conn = sqlite3.connect(self.path, timeout=30)
+            conn.execute("PRAGMA journal_mode=WAL")
+            conn.execute("PRAGMA synchronous=NORMAL")
+            self._local.conn = conn
+        return conn
+
+    @staticmethod
+    def _decode_row(round_: int, data: bytes) -> Beacon:
+        """Decode one stored row, its decoded round checked against the
+        row's key."""
+        try:
+            b = row_codec.decode_beacon(data)
+        except row_codec.CodecError as exc:
+            raise CorruptRowError(round_, str(exc)) from exc
+        if b.round != round_:
+            raise CorruptRowError(
+                round_, f"row decodes to round {b.round}")
+        return b
+
+    def put(self, beacon: Beacon) -> None:
+        with self._conn() as conn:
+            conn.execute(
+                "INSERT OR REPLACE INTO beacons (round, data) VALUES (?, ?)",
+                (beacon.round, self._encode(beacon)))
+
+    def put_many(self, beacons) -> None:
+        """One transaction for a whole segment."""
+        enc = self._encode
+        with self._conn() as conn:
+            conn.executemany(
+                "INSERT OR REPLACE INTO beacons (round, data) VALUES (?, ?)",
+                [(b.round, enc(b)) for b in beacons])
+
+    def last(self) -> Beacon:
+        row = self._conn().execute(
+            "SELECT round, data FROM beacons "
+            "ORDER BY round DESC LIMIT 1").fetchone()
+        if row is None:
+            raise BeaconNotFound("empty store")
+        return self._decode_row(row[0], row[1])
+
+    def get(self, round_: int) -> Beacon:
+        row = self._conn().execute(
+            "SELECT data FROM beacons WHERE round = ?", (round_,)).fetchone()
+        if row is None:
+            raise BeaconNotFound(f"round {round_} not stored")
+        return self._decode_row(round_, row[0])
+
+    def delete(self, round_: int) -> None:
+        with self._conn() as conn:
+            conn.execute("DELETE FROM beacons WHERE round = ?", (round_,))
+
+    def __len__(self) -> int:
+        return self._conn().execute(
+            "SELECT COUNT(*) FROM beacons").fetchone()[0]
+
+    def _edge(self, order: str) -> Optional[Beacon]:
+        row = self._conn().execute(
+            f"SELECT round, data FROM beacons "
+            f"ORDER BY round {order} LIMIT 1").fetchone()
+        return self._decode_row(row[0], row[1]) if row else None
+
+    def iter_range(self, start_round: int,
+                   limit: int | None = None) -> Iterator[Beacon]:
+        q = "SELECT round, data FROM beacons WHERE round >= ? ORDER BY round ASC"
+        args: tuple = (start_round,)
+        if limit is not None:
+            q += " LIMIT ?"
+            args = (start_round, limit)
+        cur = self._conn().execute(q, args)
+        while True:
+            rows = cur.fetchmany(_FETCH_BATCH)
+            if not rows:
+                return
+            for (r, data) in rows:
+                yield self._decode_row(r, data)
+
+    def read_fields(self, start_round: int,
+                    limit: int) -> list[tuple[int, bytes, bytes]]:
+        """Up to `limit` (round, sig, prev) tuples from `start_round` in one
+        query, no Beacon made.  A damaged row raises CorruptRowError with
+        its round."""
+        rows = self._conn().execute(
+            "SELECT round, data FROM beacons WHERE round >= ? "
+            "ORDER BY round ASC LIMIT ?", (start_round, limit)).fetchall()
+        out = []
+        for (r, data) in rows:
+            try:
+                fields = row_codec.decode_fields(data)
+            except row_codec.CodecError as exc:
+                raise CorruptRowError(r, str(exc)) from exc
+            if fields[0] != r:
+                raise CorruptRowError(r, f"row decodes to round {fields[0]}")
+            out.append(fields)
+        return out
+
+    # -- recovery surface (chain/recovery.py) --------------------------------
+
+    def raw_rows(self, start_round: int,
+                 limit: int) -> list[tuple[int, bytes]]:
+        """Stored (round, blob) pairs, not decoded: the integrity scan's
+        feed, which must see damaged rows."""
+        return [(r, bytes(d)) for (r, d) in self._conn().execute(
+            "SELECT round, data FROM beacons WHERE round >= ? "
+            "ORDER BY round ASC LIMIT ?", (start_round, limit)).fetchall()]
+
+    def quarantine_rounds(self, rounds, reason: str) -> int:
+        """Move the given rounds from the live chain into the quarantine
+        table in one transaction; returns how many rows moved."""
+        rounds = sorted(set(rounds))
+        if not rounds:
+            return 0
+        moved = 0
+        with self._conn() as conn:
+            for r in rounds:
+                cur = conn.execute(
+                    "INSERT OR REPLACE INTO quarantine (round, data, reason) "
+                    "SELECT round, data, ? FROM beacons WHERE round = ?",
+                    (reason, r))
+                moved += cur.rowcount
+                conn.execute("DELETE FROM beacons WHERE round = ?", (r,))
+        return moved
+
+    def truncate_after(self, round_: int, reason: str) -> int:
+        """Roll the tip back to `round_`: every live row above it moves to
+        quarantine.  Returns how many rows moved."""
+        with self._conn() as conn:
+            cur = conn.execute(
+                "INSERT OR REPLACE INTO quarantine (round, data, reason) "
+                "SELECT round, data, ? FROM beacons WHERE round > ?",
+                (reason, round_))
+            moved = cur.rowcount
+            conn.execute("DELETE FROM beacons WHERE round > ?", (round_,))
+        return moved
+
+    def quarantined(self) -> list[tuple[int, str]]:
+        """(round, reason) of every quarantined row, ascending."""
+        return [(r, reason or "") for (r, reason) in self._conn().execute(
+            "SELECT round, reason FROM quarantine ORDER BY round ASC")]
+
+    def quarantined_rows(self) -> list[tuple[int, bytes, str]]:
+        """(round, data, reason) of every quarantined row, ascending."""
+        return [(r, bytes(d) if d is not None else b"", reason or "")
+                for (r, d, reason) in self._conn().execute(
+                    "SELECT round, data, reason FROM quarantine "
+                    "ORDER BY round ASC")]
+
+    def cursor(self) -> Cursor:
+        return Cursor(self)
+
+    def save_to(self, path: str) -> None:
+        """Hot backup: written to a temporary file beside `path`, then
+        os.replace()d into place, so a crash never leaves half a
+        database at `path`."""
+        tmp = f"{path}.tmp.{os.getpid()}"
+        dst = sqlite3.connect(tmp)
+        try:
+            with self._lock:
+                self._conn().backup(dst)
+            dst.close()
+            os.replace(tmp, path)
+        except BaseException:
+            dst.close()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            raise
+
+    def close(self) -> None:
+        conn = getattr(self._local, "conn", None)
+        if conn is not None:
+            conn.close()
+            self._local.conn = None

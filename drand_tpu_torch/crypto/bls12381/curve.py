@@ -206,11 +206,26 @@ def g1_eq(p1, p2):
     return point_eq(p1, p2, FP_OPS)
 
 
+def g1_on_curve(pt):
+    aff = point_to_affine(pt, FP_OPS)
+    if aff is None:
+        return True
+    x, y = aff
+    return F.fp_sqr(y) == F.fp_add(F.fp_mul(F.fp_sqr(x), x), B_G1)
+
+
+def g1_in_subgroup(pt):
+    if not g1_on_curve(pt):
+        return False
+    return point_is_inf(point_mul(pt, R, FP_OPS), FP_OPS)
+
+
 # ---------------------------------------------------------------------------
 # G2
 # ---------------------------------------------------------------------------
 
 G2_GEN = (G2_GEN_X, G2_GEN_Y, F.FP2_ONE)
+G2_INF = (F.FP2_ONE, F.FP2_ONE, F.FP2_ZERO)
 
 
 def g2_on_curve(pt):
@@ -382,3 +397,47 @@ def g2_to_bytes(pt):
     return bytes(out)
 
 
+# Decoding of compressed points (the public key a ChainVerifier takes as
+# bytes).  Like drand_tpu's, it checks length, flags, range and the curve
+# equation; subgroup membership is g1_in_subgroup / g2_in_subgroup.
+
+def g1_from_bytes(data):
+    if len(data) != 48:
+        raise ValueError("G1 compressed point must be 48 bytes")
+    flags = data[0]
+    if not flags & _COMP_FLAG:
+        raise ValueError("only compressed encoding supported")
+    if flags & _INF_FLAG:
+        return G1_INF
+    x = int.from_bytes(bytes([flags & 0x1F]) + data[1:], "big")
+    if x >= P:
+        raise ValueError("x out of range")
+    y2 = F.fp_add(F.fp_mul(F.fp_sqr(x), x), B_G1)
+    y = F.fp_sqrt(y2)
+    if y is None:
+        raise ValueError("point not on curve")
+    if bool(flags & _SIGN_FLAG) != (y > _HALF_P):
+        y = F.fp_neg(y)
+    return (x, y, 1)
+
+
+def g2_from_bytes(data):
+    if len(data) != 96:
+        raise ValueError("G2 compressed point must be 96 bytes")
+    flags = data[0]
+    if not flags & _COMP_FLAG:
+        raise ValueError("only compressed encoding supported")
+    if flags & _INF_FLAG:
+        return G2_INF
+    x1 = int.from_bytes(bytes([flags & 0x1F]) + data[1:48], "big")
+    x0 = int.from_bytes(data[48:96], "big")
+    if x0 >= P or x1 >= P:
+        raise ValueError("x out of range")
+    x = (x0, x1)
+    y2 = F.fp2_add(F.fp2_mul(F.fp2_sqr(x), x), B_G2)
+    y = F.fp2_sqrt(y2)
+    if y is None:
+        raise ValueError("point not on curve")
+    if _fp2_lex_gt_half(y) != bool(flags & _SIGN_FLAG):
+        y = F.fp2_neg(y)
+    return (x, y, F.FP2_ONE)

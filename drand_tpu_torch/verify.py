@@ -15,6 +15,7 @@ Digest rules (drand `chain/verify.go`):
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -22,6 +23,7 @@ import torch
 
 from drand_tpu_torch.crypto.bls12381.constants import DST_G1, DST_G2
 from drand_tpu_torch.device import resolve
+from drand_tpu_torch.dispatch import record_dispatch
 from drand_tpu_torch.ops import bls as BLS
 from drand_tpu_torch.ops.sha256 import sha256
 
@@ -127,7 +129,9 @@ class Verifier:
         Returns a zero-arg callable that waits and yields bool[B].  The
         call returns once the host has issued the whole batch; the device
         runs behind it, so a caller can prepare the next segment while
-        this one computes."""
+        this one computes.  The first call of the resolver records
+        ("verify", n, bucket, issue + resolve seconds) in the dispatch
+        feed (`dispatch.py`)."""
         rounds = np.asarray(rounds, dtype=np.uint64)
         n = rounds.shape[0]
         if n == 0:
@@ -141,10 +145,21 @@ class Verifier:
         if m != n:    # pad by repeating the last row
             msgs = np.concatenate([msgs, np.repeat(msgs[-1:], m - n, 0)])
             sigs = np.concatenate([sigs, np.repeat(sigs[-1:], m - n, 0)])
+        t0 = time.perf_counter()
         ok = self.verify_on_device(msgs, sigs)
+        dispatch_s = time.perf_counter() - t0
+        recorded = [False]    # a resolver may be called again: record once
 
         def resolve_():
-            return ok[:n].cpu().numpy()
+            t1 = time.perf_counter()
+            out = ok[:n].cpu().numpy()
+            if not recorded[0]:
+                recorded[0] = True
+                # issue plus the wait in .cpu(); the gap the caller leaves
+                # before resolving is overlap, not charged here
+                record_dispatch("verify", n, m,
+                                dispatch_s + (time.perf_counter() - t1))
+            return out
         return resolve_
 
     def verify_on_device(self, msgs: np.ndarray, sigs: np.ndarray,

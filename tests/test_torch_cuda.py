@@ -742,3 +742,96 @@ def test_g1_verifier_on_card(cuda):
     want = [True] * 37 + [False] + [True] * 26
     assert ver.verify_batch(rounds, bad).tolist() == want
     assert trio_batch_async(ver, rounds, bad)().tolist() == want
+
+
+def test_chain_verifier_on_card(cuda):
+    """The port's ChainVerifier with no device named runs on the card:
+    rounds 1-65 of the committed chained segment from the genesis seed
+    (round 1 alone in a bucket of its own) with round 30's signature
+    flipped and round 31's prev the flipped signature: rounds 30 and 31
+    false, as the port's Verifier gives them; the packed form agrees."""
+    from drand_tpu_torch import fixtures as FX
+    from drand_tpu_torch import verify as V
+    from drand_tpu_torch.chain.beacon import Beacon
+    from drand_tpu_torch.chain.scheme import scheme_by_id
+    from drand_tpu_torch.chain.segment import PackedBeacons
+    from drand_tpu_torch.chain.verify import ChainVerifier
+    _, pk = FX.fixture_keypair()
+    sigs, pk_bytes, seed = FX.load_chained_fixture()
+    bad = sigs.copy()
+    bad[29, 40] ^= 0x01
+    cv = ChainVerifier(scheme_by_id("pedersen-bls-chained"), pk_bytes)
+    assert cv.device.type == "cuda"
+    beacons = [Beacon(r, bytes(bad[r - 1]),
+                      seed if r == 1 else bytes(bad[r - 2]))
+               for r in range(1, 66)]
+    got = cv.verify_chain_segment(beacons, seed)
+    want = V.Verifier(pk, V.SHAPE_CHAINED).verify_chain_segment(
+        1, bad, np.frombuffer(seed, np.uint8))
+    assert got.tolist() == want.tolist() == \
+        [True] * 29 + [False, False] + [True] * 34
+    packed = cv.verify_packed_segment_async(PackedBeacons(1, bad), seed)()
+    assert packed.tolist() == got.tolist()
+
+
+def test_startup_recovery_on_card(cuda, tmp_path):
+    """startup_recovery over a store of the genesis seed and the 65
+    chained rounds with round 20's signature flipped and round 40's blob
+    torn, the BLS stage on the card: bad_sigs [20] (round 21's stored prev
+    then fails its link), corrupt [40], the tip rolled back to 19, one
+    dispatch record a batch, and a clean rescan."""
+    import asyncio
+    import sqlite3
+
+    from drand_tpu_torch import dispatch as D
+    from drand_tpu_torch import fixtures as FX
+    from drand_tpu_torch.chain.beacon import Beacon
+    from drand_tpu_torch.chain.recovery import scan_store, startup_recovery
+    from drand_tpu_torch.chain.scheme import scheme_by_id
+    from drand_tpu_torch.chain.store import SqliteStore
+    from drand_tpu_torch.chain.verify import ChainVerifier
+    sigs, pk_bytes, seed = FX.load_chained_fixture()
+    path = str(tmp_path / "chain.db")
+    store = SqliteStore(path)
+    rows = [Beacon(0, seed)] + [
+        Beacon(r, bytes(sigs[r - 1]), seed if r == 1 else bytes(sigs[r - 2]))
+        for r in range(1, 66)]
+    rows[20].signature = bytes([rows[20].signature[0] ^ 0x01]) + \
+        rows[20].signature[1:]
+    store.put_many(rows)
+    con = sqlite3.connect(path)
+    with con:
+        con.execute("UPDATE beacons SET data = substr(data, 1, 50) "
+                    "WHERE round = 40")
+    con.close()
+    cv = ChainVerifier(scheme_by_id("pedersen-bls-chained"), pk_bytes)
+    D.DISPATCH.clear()
+    report, summary = asyncio.run(startup_recovery(store, cv))
+    assert (report.corrupt, report.unlinked, report.bad_sigs,
+            report.missing, report.verified_tip) == ([40], [21], [20], [], 19)
+    assert summary == {"quarantined": 3, "truncated": 43, "verified_tip": 19}
+    # rounds 1-20 (round 1 alone against the seed), 22-39 and 41-65
+    assert [(r.n, r.bucket) for r in D.DISPATCH.records("verify")] == \
+        [(1, 8), (19, 64), (18, 64), (25, 64)]
+    again = asyncio.run(scan_store(store, cv))
+    assert again.ok and again.verify_checked and again.verified_tip == 19
+    store.close()
+
+
+def test_g1_chain_verifier_on_card(cuda):
+    """bls-unchained-g1-rfc9380 through the port's ChainVerifier, the key
+    as compressed G2 bytes: rounds 1-64 of the G1 fixture true, one
+    flipped byte false in exactly its row."""
+    from drand_tpu_torch import fixtures as FX
+    from drand_tpu_torch.chain.scheme import scheme_by_id
+    from drand_tpu_torch.chain.segment import PackedBeacons
+    from drand_tpu_torch.chain.verify import ChainVerifier
+    from drand_tpu_torch.crypto.bls12381 import curve as GC
+    _, pk = FX.fixture_keypair_g2()
+    sigs = np.load(FX.G1_FIXTURE)[:64].copy()
+    sigs[17, 20] ^= 1
+    cv = ChainVerifier(scheme_by_id("bls-unchained-g1-rfc9380"),
+                       GC.g2_to_bytes(pk))
+    got = cv.verify_packed_segment_async(
+        PackedBeacons(1, sigs, chained=False), b"")()
+    assert got.tolist() == [True] * 17 + [False] + [True] * 46
