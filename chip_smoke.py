@@ -66,10 +66,33 @@ Phases, each printing one JSON line:
           16384-round bls-unchained-g1-rfc9380 store, the key as G2 bytes:
           clean, its segment launching what the g1 batch launched; walls,
           rounds per second and the dispatch records
+  partials  t-of-n partial verification and Lagrange recovery through the
+          port's DeviceBackend (drand_tpu_torch.beacon.crypto_backend) on
+          a group of n = 16, t = 9 (secret 424242, the other coefficients
+          from a SHA-512 stream over a fixed seed), rounds 1-1024 of
+          pedersen-bls-unchained: each share's signatures and the
+          secret's made on the card (fixtures.sign_batch_g2), the
+          secret's all true through Verifier(commits[0]); the 1024 x 16
+          partials in one "rounds" dispatch at bucket 1024, all true, then
+          with a flipped byte (round 512, signer 5), a valid signature
+          under another signer's index, the infinity flag and a 95-byte
+          partial exactly those four false, every partial a table hit;
+          index 16 (outside the table) in one row sends the call through
+          the flat verify_partials at bucket 16384, keys evaluated in the
+          batch, only that row differing; 16 concurrent
+          AsyncPartialVerifier.verify calls of one round in one
+          "partials" dispatch of n = bucket = 16, one distinct message;
+          recover_rounds over the 1024 rounds, t partials a round from
+          rotating signers, byte-equal to the secret's signatures and
+          true through the Verifier, recover of one round equal, a round
+          of t - 1 partials raising ValueError; each call's launches,
+          walls and issue times, partials and recoveries per second, the
+          device kernels and busy time of one more rounds verify and
+          recover_rounds, and the dispatch records
 
-Each run of the slice, trio, g1 and recovery phases must launch every
-kernel of its path and no other, and never call the plain limb convolution
-`_poly_mul_var`: the default batch all but the trio kernels (flat_sqr,
+Each run of the slice, trio, g1, recovery and partials phases must launch
+every kernel of its path and no other, and never call the plain limb
+convolution `_poly_mul_var`: the default batch all but the trio kernels (flat_sqr,
 g2_dbl_line, g2_add_line) and those off the G2 paths (mont_sqr,
 mont_reduce, fp2_sqr5_mul, line_merge, add, sub); the trio batch all but
 the merged iterations and those off the G2 paths; a pairing check the trio
@@ -78,11 +101,14 @@ exponentiation's inversion (mont_mul, sqr_chain_mul, fp2_products); a G1
 batch mont_mul, mont_sqr, sqr_chain_mul, fp2_products, the merged
 iterations, flat_mul, cyclo_sqr, flat_conj and flat_frob (the trio G1
 batch the trio kernels in place of the merged iterations); a recovery scan
-the default batch's kernels (the G1 store's, the G1 batch's).
+the default batch's kernels (the G1 store's, the G1 batch's); a partials
+verify the default batch's (with mont_sqr where the keys are evaluated in
+the batch), and signing and recovery mont_mul, sqr_chain_mul,
+fp2_products, fp2_sqrs, fp2_sqr_chain_mul, g2_point_dbl and g2_point_add.
 
   parity  every kernel against its plain PyTorch version on the card, bit
-          for bit, at every call the batches above made, the G1 and
-          recovery ones included (g2_point_dbl
+          for bit, at every call the batches above made, the G1,
+          recovery and partials ones included (g2_point_dbl
           and cyclo_sqr at each of their chain lengths) and at fixed
           cases: 16384 rows for Fp and Fr (sqr_chain_mul, whose path
           calls are whole addition chains held against the plan's plain
@@ -228,6 +254,16 @@ G1_TRIO_PATH = tuple(n for n in G1_PATH if n not in MERGED) + TRIO
 # sha256(DST_G1)[:8] and sha256(compressed key)[:8] in the committed G1
 # fixture's name
 G1_FIXTURE_HASHES = ("5b84a3cd", "d7754ef6")
+# the partials phase's group (bench.py's n = 16, t = 9, secret 424242) and
+# rounds; the other t - 1 coefficients from a SHA-512 stream over the seed
+PARTIALS_N, PARTIALS_T, PARTIALS_ROUNDS = 16, 9, 1024
+GROUP_SECRET = 424242
+GROUP_SEED = b"drand_tpu_torch partials group"
+# the kernels of G2 work without a pairing: signing (hash-to-curve, the
+# scalar ladder, the affine conversion) and recovery (decompression, the
+# per-row ladder, the tree sum, the affine conversion)
+G2_CURVE = ("mont_mul", "sqr_chain_mul", "fp2_products", "fp2_sqrs",
+            "fp2_sqr_chain_mul", "g2_point_dbl", "g2_point_add")
 
 
 def muladds_fp2(sqrs: int, muls: int, fp_muls: int) -> int:
@@ -702,6 +738,321 @@ def recovery_phase(work_dir, drive, check_path, sigs, sigs_c, pk_bytes,
     return out, all_calls
 
 
+def sha512_stream(seed: bytes):
+    """n -> n bytes of SHA-512(seed || BE8(block)) blocks: the group's
+    deterministic coefficient source."""
+    def rand(n: int) -> bytes:
+        out = b"".join(hashlib.sha512(seed + i.to_bytes(8, "big")).digest()
+                       for i in range(-(-n // 64)))
+        return out[:n]
+    return rand
+
+
+def partials_phase(default_path):
+    """The `partials` phase: t-of-n partial verification and Lagrange
+    recovery through the port's DeviceBackend, on a group of n = 16, t =
+    9 (secret 424242, the other coefficients from a SHA-512 stream) over
+    rounds 1-1024 of pedersen-bls-unchained, every signature made on the
+    card.  Returns (its report line, the calls by kernel of each driven
+    run)."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from drand_tpu_torch import dispatch as DSP
+    from drand_tpu_torch import fixtures as FX
+    from drand_tpu_torch import verify as V
+    from drand_tpu_torch.beacon.crypto_backend import (AsyncPartialVerifier,
+                                                       DeviceBackend)
+    from drand_tpu_torch.crypto import tbls
+    from drand_tpu_torch.crypto.bls12381.constants import DST_G2
+    from drand_tpu_torch.crypto.poly import PriPoly
+    from drand_tpu_torch.ops import bls as BLS
+
+    t, n, R = PARTIALS_T, PARTIALS_N, PARTIALS_ROUNDS
+    out, all_calls = {"phase": "partials", "n": n, "t": t, "rounds": R}, []
+    launches, calls_of = {}, {}
+
+    def run(what, fn, path):
+        res, secs, counts, calls, n_conv = drive(fn)
+        check_path(f"partials {what}", counts, n_conv, path)
+        all_calls.append(calls)
+        launches.setdefault(what, {k: v for k, v in counts.items() if v})
+        calls_of.setdefault(what, calls)
+        return res, secs, counts
+
+    def kernel_rows(what, fn):
+        """(device kernels, busy seconds, each port kernel's launches,
+        device ms, bound summed over its calls and loss) of one more
+        profiled run of `what`; ms and loss null where no session saw
+        every launch of the kernel."""
+        kern, complete = profile_kernels(fn, launches[what])
+        ms = collections.Counter()
+        for dev_name, d in kern:
+            name = kernel_of(dev_name)
+            if name is not None:
+                ms[name] += d * 1e3
+        rows = {}
+        for name, count in launches[what].items():
+            bound = sum(k * bound_ms(*work(name, call))[0]
+                        for call, k in calls_of[what][name].items())
+            path = ms[name] if name in complete else None
+            rows[name] = {"launches": count, "path_ms": path,
+                          "bound_ms_batch": bound,
+                          "loss_ms": None if path is None else path - bound}
+        return len(kern), sum(d for _, d in kern), rows
+
+    def records():
+        return [[r.seam, r.n, r.bucket, r.device_s]
+                for r in DSP.DISPATCH.records()]
+
+    def issue_wall(fn):
+        """(seconds until fn() returns without waiting for the device,
+        seconds until the device is done)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return t1 - t0, time.perf_counter() - t0
+
+    poly = PriPoly.random(t, secret=GROUP_SECRET,
+                          rand=sha512_stream(GROUP_SEED))
+    shares = poly.shares(n)
+    pub = poly.commit()
+    rounds = np.arange(1, R + 1, dtype=np.uint64)
+    be8 = V.rounds_be8(rounds)
+    verifier = V.Verifier(pub.commits[0], V.SHAPE_UNCHAINED)
+    msgs = [hashlib.sha256(m.tobytes()).digest()
+            for m in verifier.messages(rounds, None)]
+
+    # 1. signing on the card: each share's signatures of the 1024 rounds,
+    # then the group secret's (the expected group signatures)
+    sigs, sign_s = [], []
+    for share in shares:
+        res, secs, _ = run("sign", lambda: FX.sign_batch_g2(share.value, be8),
+                           G2_CURVE)
+        sigs.append(res)
+        sign_s.append(secs)
+    gsig, gsign_s, _ = run("sign", lambda: FX.sign_batch_g2(poly.secret(),
+                                                           be8), G2_CURVE)
+    ok_g, group_verify_s, _ = run("group verify",
+                                  lambda: verifier.verify_batch(rounds, gsig),
+                                  default_path)
+    if not ok_g.all():
+        fail(f"group signatures: {int(ok_g.sum())}/{R} verify true")
+    by_round = [[s.index.to_bytes(2, "big") + sigs[j][r].tobytes()
+                 for j, s in enumerate(shares)] for r in range(R)]
+
+    # 2. rounds-major verification: 1024 rounds x 16 signers in one
+    # "rounds" dispatch
+    be = DeviceBackend(pub, t, n)
+    DSP.DISPATCH.clear()
+    ok, rounds_s, _ = run("rounds verify",
+                          lambda: be.verify_partials_rounds(msgs, by_round),
+                          default_path)
+    if not all(all(row) for row in ok):
+        fail(f"rounds verify: {sum(map(sum, ok))}/{R * n} true")
+    rec_rounds = records()
+    if [r[:3] for r in rec_rounds] != [["rounds", R, R]]:
+        fail(f"rounds verify: dispatch records {rec_rounds}")
+    t0 = time.perf_counter()
+    be.verify_partials_rounds(msgs, by_round)
+    rounds_next_s = time.perf_counter() - t0
+    # the same check issued through ops/bls.py, the backend's packing left
+    # out: how long the host takes to issue it
+    packed = [torch.from_numpy(a).cuda() for a in (
+        np.stack([np.frombuffer(m, np.uint8) for m in msgs]),
+        np.stack(sigs, 1), np.tile(np.arange(n, dtype=np.int32), (R, 1)))]
+    rounds_issue = issue_wall(lambda: BLS.verify_partial_g2_sigs_shared(
+        *packed, be.table.arrays(), DST_G2))
+    del packed
+
+    # four negative rows: a flipped byte (round 512, signer 5), a valid
+    # signature under another signer's index, the infinity flag, 95 bytes
+    bad = [list(row) for row in by_round]
+    g = bad[512][5]
+    bad[512][5] = g[:10] + bytes([g[10] ^ 1]) + g[11:]
+    bad[100][3] = (3).to_bytes(2, "big") + tbls.sig_of(by_round[100][4])
+    bad[200][7] = (7).to_bytes(2, "big") + bytes([0xC0]) + bytes(95)
+    bad[300][9] = by_round[300][9][:95]
+    negatives = {"flipped_byte": [512, 5], "other_signer": [100, 3],
+                 "infinity_flag": [200, 7], "partial_95_bytes": [300, 9]}
+    t0 = time.perf_counter()
+    ok_bad = be.verify_partials_rounds(msgs, bad)
+    bad_s = time.perf_counter() - t0
+    false_at = sorted([r, j] for r in range(R) for j in range(n)
+                      if not ok_bad[r][j])
+    if false_at != sorted(negatives.values()):
+        fail(f"rounds verify negatives: false at {false_at[:10]}")
+    stats_tabled = dict(be.stats)
+    if stats_tabled["table_fallbacks"] or \
+            stats_tabled["table_hits"] != 3 * R * n:
+        fail(f"rounds verify: stats {stats_tabled}")
+
+    # 3. an index outside the table sends the whole call through the flat
+    # verify_partials at bucket 16384, keys from the in-batch Horner
+    out_idx = [700, 2]
+    unt = [list(row) for row in by_round]
+    unt[700][2] = (16).to_bytes(2, "big") + tbls.sig_of(by_round[700][2])
+    DSP.DISPATCH.clear()
+    ok_u, untabled_s, _ = run(
+        "untabled verify", lambda: be.verify_partials_rounds(msgs, unt),
+        default_path + ["mont_sqr"])
+    rec_untabled = records()
+    diff = sorted([r, j] for r in range(R) for j in range(n)
+                  if ok_u[r][j] != ok[r][j])
+    if diff != [out_idx] or ok_u[700][2] or \
+            [r[:3] for r in rec_untabled] != [["partials", R * n, R * n]]:
+        fail(f"untabled verify: verdicts differ at {diff[:10]}, records "
+             f"{rec_untabled}")
+    if be.stats["table_fallbacks"] != 2 * R * n:
+        fail(f"untabled verify: stats {be.stats}")
+
+    # 4. a live burst: 16 concurrent partials of one round coalesce into
+    # one "partials" dispatch of one distinct message
+    async def burst():
+        verifier_ = AsyncPartialVerifier(be, max_delay=0.05)
+        oks = await asyncio.gather(*[verifier_.verify(msgs[0], p)
+                                     for p in by_round[0]])
+        verifier_.stop()
+        return oks
+
+    DSP.DISPATCH.clear()
+    distinct = be.stats["distinct_messages"]
+    oks, burst_s, _ = run("burst", lambda: asyncio.run(burst()),
+                          default_path)
+    rec_burst = records()
+    if oks != [True] * n or [r[:3] for r in rec_burst] != \
+            [["partials", n, n]] or \
+            be.stats["distinct_messages"] - distinct != 1:
+        fail(f"burst: verdicts {oks}, records {rec_burst}, stats {be.stats}")
+
+    # 5. recovery: t partials a round, the signers rotating with the
+    # round, so the Lagrange bases differ from round to round
+    parts_t = [[by_round[r][(r + j) % n] for j in range(t)]
+               for r in range(R)]
+    full, recover_s, _ = run("recover_rounds",
+                             lambda: be.recover_rounds(msgs, parts_t),
+                             G2_CURVE)
+    want = [gsig[r].tobytes() for r in range(R)]
+    if full != want:
+        fail(f"recover_rounds: {sum(a != b for a, b in zip(full, want))} "
+             f"of {R} differ from the secret's signatures")
+    ok_full = verifier.verify_batch(
+        rounds, np.stack([np.frombuffer(f, np.uint8) for f in full]))
+    if not ok_full.all():
+        fail(f"recovered signatures: {int(ok_full.sum())}/{R} verify true")
+    t0 = time.perf_counter()
+    be.recover_rounds(msgs, parts_t)
+    recover_next_s = time.perf_counter() - t0
+    points = [be._round_points(p, "") for p in parts_t]
+    recover_issue = issue_wall(lambda: be._recover_msm(
+        np.stack([np.stack(s) for s, _ in points]), [b for _, b in points]))
+    one, recover_one_s, _ = run("recover", lambda: be.recover(
+        msgs[5], by_round[5][7:] + by_round[5][:7]), G2_CURVE)
+    if one != want[5]:
+        fail("recover: round 6 differs from the secret's signature")
+    try:
+        be.recover_rounds(msgs[:2], [parts_t[0], by_round[1][:t - 1]])
+        fail("recover_rounds took a round of t - 1 partials")
+    except ValueError:
+        pass
+
+    # the device kernels of one more rounds verify and recover_rounds
+    rounds_dev, rounds_busy, rounds_rows = kernel_rows(
+        "rounds verify", lambda: be.verify_partials_rounds(msgs, by_round))
+    recover_dev, recover_busy, recover_rows = kernel_rows(
+        "recover_rounds", lambda: be.recover_rounds(msgs, parts_t))
+    out.update({
+        "group_secret": GROUP_SECRET, "group_seed": GROUP_SEED.decode(),
+        "group_verify_all_true": True, "rounds_all_true": True,
+        "negatives_false_only": negatives,
+        "untabled_differs_only_at": out_idx,
+        "burst_all_true": True, "recovered_equal_secret_sigs": True,
+        "recovered_verify_true": True, "recover_one_equal": True,
+        "recover_short_round_raises": True,
+        "sign_s": sign_s, "group_sign_s": gsign_s,
+        "group_verify_s": group_verify_s,
+        "rounds_verify_wall_s": rounds_s,
+        "rounds_verify_next_wall_s": rounds_next_s,
+        "rounds_negatives_wall_s": bad_s,
+        "rounds_check_issue_s": rounds_issue[0],
+        "rounds_check_wall_s": rounds_issue[1],
+        "recover_msm_issue_s": recover_issue[0],
+        "recover_msm_wall_s": recover_issue[1],
+        "untabled_wall_s": untabled_s, "burst_wall_s": burst_s,
+        "recover_rounds_wall_s": recover_s,
+        "recover_rounds_next_wall_s": recover_next_s,
+        "recover_wall_s": recover_one_s,
+        "partials_per_s": R * n / rounds_next_s,
+        "recoveries_per_s": R / recover_next_s,
+        "rounds_verify_device_kernels": rounds_dev,
+        "rounds_verify_busy_s": rounds_busy,
+        "rounds_verify_idle_share": 1.0 - rounds_busy / rounds_next_s,
+        "rounds_verify_kernels": rounds_rows,
+        "recover_rounds_device_kernels": recover_dev,
+        "recover_rounds_busy_s": recover_busy,
+        "recover_rounds_idle_share": 1.0 - recover_busy / recover_next_s,
+        "recover_rounds_kernels": recover_rows,
+        "launches": launches,
+        "dispatch": {"rounds": rec_rounds, "untabled": rec_untabled,
+                     "burst": rec_burst},
+        "stats": dict(be.stats),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
+    return out, all_calls
+
+
+# the plain limb convolution, counted wherever the port calls it while
+# `drive` runs
+_CONV = {"calls": 0, "plain": None}
+
+
+def _counted_poly_mul_var(a, b):
+    _CONV["calls"] += 1
+    return _CONV["plain"](a, b)
+
+
+def drive(fn):
+    """fn() with every launch count at 0 just before it; returns (its
+    result, seconds, launches, calls by kernel, _poly_mul_var calls),
+    the counts read just after it."""
+    import torch
+
+    from drand_tpu_torch.ops import field as FLD
+    from drand_tpu_torch.ops import flat12 as FL
+    from drand_tpu_torch.ops import kernels as K
+    from drand_tpu_torch.ops import towers as TW
+    torch.cuda.synchronize()
+    _CONV["calls"], _CONV["plain"] = 0, FLD._poly_mul_var
+    for mod in (FLD, TW, FL):
+        mod._poly_mul_var = _counted_poly_mul_var
+    K.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        out = fn()
+        seconds = time.perf_counter() - t0
+    finally:
+        for mod in (FLD, TW, FL):
+            mod._poly_mul_var = _CONV["plain"]
+    counts = K.launch_counts()
+    calls = {name: collections.Counter(k.calls)
+             for name, k in K.KERNELS.items()}
+    return out, seconds, counts, calls, _CONV["calls"]
+
+
+def check_path(what, counts, n_conv, path):
+    """Fail unless the run launched every kernel of `path` and no other,
+    and never ran the plain limb convolution."""
+    missed = [name for name in path if not counts[name]]
+    extra = [name for name, n in counts.items() if n and name not in path]
+    if missed or extra or n_conv:
+        fail(f"{what}: kernels of the path not launched {missed}, "
+             f"launched off the path {extra}, _poly_mul_var {n_conv} "
+             f"calls; launches {counts}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -819,43 +1170,6 @@ def main() -> int:
     if sigs.shape != (BATCH, 96):
         fail(f"unexpected fixture shape {sigs.shape}")
     rounds = np.arange(1, BATCH + 1, dtype=np.uint64)
-
-    # the plain limb convolution, counted wherever the port calls it
-    conv_calls = [0]
-    poly_mul_var = FLD._poly_mul_var
-
-    def counted_poly_mul_var(a, b):
-        conv_calls[0] += 1
-        return poly_mul_var(a, b)
-
-    def drive(fn):
-        """fn() with every launch count at 0 just before it; returns (its
-        result, seconds, launches, calls by kernel, _poly_mul_var calls),
-        the counts read just after it."""
-        torch.cuda.synchronize()
-        conv_calls[0] = 0
-        for mod in (FLD, TW, FL):
-            mod._poly_mul_var = counted_poly_mul_var
-        K.reset_launches()
-        t0 = time.perf_counter()
-        out = fn()
-        seconds = time.perf_counter() - t0
-        counts = K.launch_counts()
-        calls = {name: collections.Counter(k.calls)
-                 for name, k in K.KERNELS.items()}
-        for mod in (FLD, TW, FL):
-            mod._poly_mul_var = poly_mul_var
-        return out, seconds, counts, calls, conv_calls[0]
-
-    def check_path(what, counts, n_conv, path):
-        """Fail unless the run launched every kernel of `path` and no
-        other, and never ran the plain limb convolution."""
-        missed = [name for name in path if not counts[name]]
-        extra = [name for name, n in counts.items() if n and name not in path]
-        if missed or extra or n_conv:
-            fail(f"{what}: kernels of the path not launched {missed}, "
-                 f"launched off the path {extra}, _poly_mul_var {n_conv} "
-                 f"calls; launches {counts}")
 
     t_dispatch = [0.0]
 
@@ -1120,11 +1434,16 @@ def main() -> int:
         shutil.rmtree(rec_dir, ignore_errors=True)
     emit(report["recovery"])
 
+    # -- partials ------------------------------------------------------------
+    report["partials"], partials_calls = partials_phase(default_path)
+    emit(report["partials"])
+
     # every call the runs made, for the parity phase
     all_calls = {name: set(path_calls[name]) | set(chain_calls[name])
                  | set(trio_calls[name]) | set(pairing_calls[name])
                  | set(g1_calls[name]) | set(g1_trio_calls[name])
                  | set().union(*(c[name] for c in recovery_calls))
+                 | set().union(*(c[name] for c in partials_calls))
                  for name in K.KERNELS}
 
     # -- parity --------------------------------------------------------------
@@ -1199,7 +1518,8 @@ def main() -> int:
         p1, p2 = field_rows(FP, shape), field_rows(FP, shape)
         at = [r for e in range(32, rows, 32) for r in range(e - 3, e + 3)
               if r < rows] or list(range(min(rows, 6)))
-        by = [torch.tensor(at[c::6], device=dev) for c in range(6)]
+        by = [torch.tensor(at[c::6], device=dev, dtype=torch.long)
+              for c in range(6)]
         p2[:, by[0]] = p1[:, by[0]]
         p2[:, by[1]] = p1[:, by[1]]
         p2[2:4, by[1]] = FP.neg(p1[2:4, by[1]])
@@ -1223,7 +1543,8 @@ def main() -> int:
         rows = a.shape[0]
         at = [r for e in range(32, rows, 32) for r in range(e - 3, e + 3)
               if r < rows] or list(range(min(rows, 6)))
-        by = [torch.tensor(at[c::6], device=dev) for c in range(6)]
+        by = [torch.tensor(at[c::6], device=dev, dtype=torch.long)
+              for c in range(6)]
         a[by[0]], b[by[0]] = max_flat(a[by[0]].shape), max_flat(b[by[0]].shape)
         a[by[1]] = max_flat(a[by[1]].shape)
         b[by[2]] = max_flat(b[by[2]].shape)

@@ -8,6 +8,9 @@ bounded ring.
 
 Seams:
   verify     Verifier.verify_batch_async (catch-up and scan batches)
+  partials   DeviceBackend.verify_partials (partial signatures in arrival
+             order, beacon/crypto_backend.py)
+  rounds     DeviceBackend.verify_partials_rounds (rounds-major partials)
 
 Recording is O(1), lock-guarded and never raises into the caller.
 """
@@ -24,7 +27,7 @@ from dataclasses import dataclass
 class DispatchRecord:
     """One batched dispatch through a padded seam."""
     seam: str
-    n: int                      # rounds actually requested
+    n: int                      # rounds (partials) actually requested
     bucket: int                 # padded size the kernels saw
     device_s: float             # seconds from dispatch through resolve
     wall: float = 0.0           # wall-clock stamp (for correlation only)

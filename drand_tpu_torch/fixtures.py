@@ -1,5 +1,6 @@
-"""Deterministic fixture keys, the committed chained test segment and the
-path of the committed short-signature (G1) fixture."""
+"""Deterministic fixture keys, the committed chained test segment, the
+path of the committed short-signature (G1) fixture, and batch signing on
+the device (`sign_batch_g2`)."""
 
 from __future__ import annotations
 
@@ -7,9 +8,15 @@ import hashlib
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from drand_tpu_torch.crypto.bls12381 import curve as GC
-from drand_tpu_torch.crypto.bls12381.constants import R
+from drand_tpu_torch.crypto.bls12381.constants import DST_G2, R
+from drand_tpu_torch.device import resolve
+from drand_tpu_torch.ops import curve as DC
+from drand_tpu_torch.ops import h2c as DH
+from drand_tpu_torch.ops import towers as T
+from drand_tpu_torch.ops.sha256 import sha256
 
 TESTDATA = Path(__file__).resolve().parent / "testdata"
 CHAINED_FIXTURE = TESTDATA / "chained_65.npz"
@@ -43,3 +50,22 @@ def load_chained_fixture():
     (sigs [65, 96] uint8, pk 48-byte compressed G1, genesis seed)."""
     with np.load(CHAINED_FIXTURE) as z:
         return z["sigs"], bytes(z["pk"]), bytes(z["genesis_seed"])
+
+
+def sign_batch_g2(sk: int, msgs: np.ndarray, device=None) -> np.ndarray:
+    """[B, L] uint8 messages -> [B, 96] compressed G2 signatures
+    sk * H(sha256(msg)) under DST_G2 (the pedersen-bls-unchained signature
+    of a round when msgs are its BE8 round numbers), for 1 <= sk < r:
+    hash-to-curve, the scalar ladder and the affine conversion as one
+    batch on `device.resolve(device)`, the compression on the host."""
+    d = resolve(device)
+    m = torch.from_numpy(np.ascontiguousarray(msgs, dtype=np.uint8)).to(d)
+    h = DH.hash_to_g2(sha256(m), DST_G2)
+    (x, y), _ = DC.point_to_affine(DC.point_mul_const(h, sk, DC.Fp2Ops),
+                                   DC.Fp2Ops)
+    x, y = tuple(c.cpu() for c in x), tuple(c.cpu() for c in y)
+    out = np.empty((m.shape[0], 96), dtype=np.uint8)
+    for i in range(m.shape[0]):
+        out[i] = np.frombuffer(GC.g2_to_bytes(
+            (T.fp2_decode(x, i), T.fp2_decode(y, i), (1, 0))), np.uint8)
+    return out

@@ -212,6 +212,31 @@ def point_to_affine(pt, ops):
     return (ops.select(inf, zero, ax), ops.select(inf, zero, ay)), inf
 
 
+def point_mul_bits(pt, bits, ops):
+    """MSB-first double-and-add over a per-row bit array bits[..., L]
+    (0/1 integers on the points' device): each step a doubling, an
+    addition without the doubling case and a select on the bit, from an
+    accumulator at infinity.  Scalars must be canonical (< the group
+    order), so the addition never meets acc == pt (acc = k*pt with k
+    even).  On a GPU tensor a G2 step is one K9 (n = 1) and one K10 on
+    the packed state."""
+    shape, device = bits.shape[:-1], bits.device
+    acc = point_inf(ops, shape, device)
+    if ops is Fp2Ops and _on_card(pt):
+        base, acc = g2_pack(pt), g2_pack(acc)
+        for j in range(bits.shape[-1]):
+            acc = K.g2_point_dbl(acc, FP)
+            added = K.g2_point_add(acc, base, False, FP)
+            acc = torch.where((bits[..., j] > 0)[None, ..., None], added, acc)
+        return g2_unpack(acc)
+    for j in range(bits.shape[-1]):
+        acc = point_double(acc, ops)
+        added = point_add(acc, pt, ops, with_double=False)
+        on = bits[..., j] > 0
+        acc = tuple(ops.select(on, a, o) for a, o in zip(added, acc))
+    return acc
+
+
 def point_mul_const(pt, k: int, ops):
     """Scalar mul by a static sparse scalar: statically segmented
     double-and-add (zero runs double only, set bits add), no doubling

@@ -835,3 +835,105 @@ def test_g1_chain_verifier_on_card(cuda):
     got = cv.verify_packed_segment_async(
         PackedBeacons(1, sigs, chained=False), b"")()
     assert got.tolist() == [True] * 17 + [False] + [True] * 46
+
+
+def _partials_group(t=9, n=16, secret=424242):
+    import hashlib
+
+    from drand_tpu_torch.crypto.poly import PriPoly
+
+    def rand(k):
+        return b"".join(hashlib.sha512(b"card" + i.to_bytes(8, "big")).digest()
+                        for i in range(-(-k // 64)))[:k]
+    poly = PriPoly.random(t, secret=secret, rand=rand)
+    return poly, poly.shares(n), poly.commit()
+
+
+def test_g2_point_mul_bits_from_infinity_matches_plain_on_card(cuda):
+    """Every row's ladder starts at infinity, K9 and K10 take it from the
+    first step, and the result is bit-equal to the formulas under
+    Fp2PlainOps (rows at scalar 0 stay at infinity)."""
+    from drand_tpu_torch.crypto.bls12381 import curve as GC
+    from drand_tpu_torch.crypto.bls12381.constants import R
+    from drand_tpu_torch.ops import curve as DC
+    from drand_tpu_torch.ops import kernels as K
+    from drand_tpu_torch.ops import towers as T
+    from drand_tpu_torch.ops.field import FP
+    rng = np.random.default_rng(15)
+    rows = 300
+    base = [GC.g2_affine(GC.g2_mul_raw(GC.G2_GEN, 3 + i)) for i in range(10)]
+    aff = [base[i % 10] for i in range(rows)]
+    scal = [0, 1, R - 1] + [int.from_bytes(rng.bytes(32), "big") % R
+                            for _ in range(rows - 3)]
+
+    def enc(vals):
+        return torch.from_numpy(FP.encode(vals)).to(cuda)
+
+    pt = ((enc([a[0][0] for a in aff]), enc([a[0][1] for a in aff])),
+          (enc([a[1][0] for a in aff]), enc([a[1][1] for a in aff])),
+          T.fp2_broadcast(T.FP2_ONE, (rows,), cuda))
+    bits = torch.from_numpy(np.unpackbits(np.frombuffer(b"".join(
+        s.to_bytes(32, "big") for s in scal), np.uint8).reshape(rows, 32),
+        axis=-1).astype(np.int32)).to(cuda)
+    K.reset_launches()
+    got = DC.point_mul_bits(pt, bits, DC.Fp2Ops)
+    assert K.KERNELS["g2_point_dbl"].launches == 256
+    assert K.KERNELS["g2_point_add"].launches == 256
+    want = DC.point_mul_bits(pt, bits, DC.Fp2PlainOps)
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert torch.equal(a, b)
+    assert bool(DC.point_is_inf(got, DC.Fp2Ops)[0])
+    for row in (1, 2, 7):
+        want_pt = GC.g2_mul_raw((aff[row][0], aff[row][1], (1, 0)), scal[row])
+        assert GC.g2_affine(DC.g2_decode(got, row)) == GC.g2_affine(want_pt)
+
+
+def test_rounds_verify_64x16_one_flipped_on_card(cuda):
+    import hashlib
+
+    from drand_tpu_torch import dispatch as DSP
+    from drand_tpu_torch import fixtures as FX
+    from drand_tpu_torch import verify as V
+    from drand_tpu_torch.beacon.crypto_backend import DeviceBackend
+    _, shares, pub = _partials_group()
+    rounds = np.arange(1, 65, dtype=np.uint64)
+    be8 = V.rounds_be8(rounds)
+    msgs = [hashlib.sha256(m.tobytes()).digest() for m in be8]
+    sigs = [FX.sign_batch_g2(s.value, be8) for s in shares]
+    by_round = [[s.index.to_bytes(2, "big") + sigs[j][r].tobytes()
+                 for j, s in enumerate(shares)] for r in range(64)]
+    be = DeviceBackend(pub, 9, 16)
+    assert be.device.type == "cuda"
+    DSP.DISPATCH.clear()
+    assert all(all(row) for row in be.verify_partials_rounds(msgs, by_round))
+    g = by_round[32][5]
+    by_round[32][5] = g[:10] + bytes([g[10] ^ 1]) + g[11:]
+    ok = be.verify_partials_rounds(msgs, by_round)
+    assert [(r, j) for r in range(64) for j in range(16)
+            if not ok[r][j]] == [(32, 5)]
+    assert [(r.seam, r.n, r.bucket) for r in DSP.DISPATCH.records()] == \
+        [("rounds", 64, 64)] * 2
+
+
+def test_recover_rounds_equals_secret_signatures_on_card(cuda):
+    import hashlib
+
+    from drand_tpu_torch import fixtures as FX
+    from drand_tpu_torch import verify as V
+    from drand_tpu_torch.beacon.crypto_backend import DeviceBackend
+    poly, shares, pub = _partials_group()
+    rounds = np.arange(1, 41, dtype=np.uint64)
+    be8 = V.rounds_be8(rounds)
+    msgs = [hashlib.sha256(m.tobytes()).digest() for m in be8]
+    sigs = [FX.sign_batch_g2(s.value, be8) for s in shares]
+    parts = [[shares[(r + j) % 16].index.to_bytes(2, "big")
+              + sigs[(r + j) % 16][r].tobytes() for j in range(9)]
+             for r in range(40)]
+    want = [bytes(s) for s in FX.sign_batch_g2(poly.secret(), be8)]
+    be = DeviceBackend(pub, 9, 16)
+    assert be.recover_rounds(msgs, parts) == want      # bucket 64: padded
+    assert be.recover(msgs[3], parts[3]) == want[3]
+    ok = V.Verifier(pub.commits[0], V.SHAPE_UNCHAINED).verify_batch(
+        rounds, np.stack([np.frombuffer(s, np.uint8) for s in want]))
+    assert ok.all()
