@@ -57,12 +57,16 @@ Phases, each printing one JSON line:
           batch launched; a copy with round 40000's signature flipped,
           round 50000's blob torn and round 60000 deleted: `python -m
           drand_tpu_torch.cli util fsck <copy> --json` exits 1 with the
-          structural lists, then startup_recovery gives bad_sigs [40000],
-          corrupt [50000], missing [[60000, 60000]], verified_tip 39999,
+          structural lists (its wall recorded), then startup_recovery
+          gives bad_sigs [40000], corrupt [50000], missing [[60000,
+          60000]], verified_tip 39999,
           the repair leaves the tip at 39999 and a rescan is clean; the
           chained fixture's store (round 1 on the genesis anchor, round
           30's signature flipped, round 50's link broken): bad_sigs [30],
-          unlinked [31, 50], every other verdict the slice phase's; a
+          unlinked [31, 50], every other verdict the slice phase's, every
+          segment (at most 32 rounds) on the native host tier: one
+          "native" dispatch record a round and no port kernel launched
+          during that scan; a
           16384-round bls-unchained-g1-rfc9380 store, the key as G2 bytes:
           clean, its segment launching what the g1 batch launched; walls,
           rounds per second and the dispatch records
@@ -84,15 +88,58 @@ Phases, each printing one JSON line:
           "partials" dispatch of n = bucket = 16, one distinct message;
           recover_rounds over the 1024 rounds, t partials a round from
           rotating signers, byte-equal to the secret's signatures and
-          true through the Verifier, recover of one round equal, a round
+          true through the Verifier, recover of one round equal (the
+          native combination: no port kernel launched), its device step
+          on the round's t rows unpadded
+          (DeviceBackend._recover_device: K9/K10 on the tree sum's 1-4
+          rows) and recover_rounds of that one round equal, a round
           of t - 1 partials raising ValueError; each call's launches,
           walls and issue times, partials and recoveries per second, the
           device kernels and busy time of one more rounds verify and
           recover_rounds, and the dispatch records
+  native  the port's native C++ host tier (drand_tpu_torch/native, built
+          with g++ into build/native/ beside the kernels' nvcc): its
+          flags, hash, whether it was cached and its seconds;
+          ChainVerifier.verify_beacon over the chained fixture's rounds
+          1-65 (round 30's signature flipped, round 31 linking to it) and
+          the G1 fixture's first 32 rounds (round 21 flipped), each
+          verdict equal to the card's on the same beacons and no port
+          kernel launched; the card's chained verdicts through
+          ChainVerifier.verify_packed_segment_async anchored on the
+          genesis seed (two "verify" records: round 1 in a bucket of 8,
+          rounds 2-65 in one of 64); a 32-row
+          verify_beacons on the host (32 "native" records, no card
+          batch) against a 33-row one on the card (one "verify" record);
+          HostBackend.verify_partials on the partials phase's 16-partial
+          burst and on the four rounds holding its negative rows, equal
+          to DeviceBackend's verdicts; the median and p99 of one
+          verify_beacon, G2 and G1, over 256 calls each, and the
+          16-partial burst's wall through AsyncPartialVerifier on
+          HostBackend; the host CPU as lscpu names it (model name,
+          vendor, architecture, CPUs)
+  catchup verify-then-commit catch-up through the port's objectsync tier
+          (drand_tpu_torch.objectsync): the recovery phase's 65,536-round
+          unchained store published by ObjectPublisher into a directory
+          under build/ (four sealed segments of 16384), synced in-process
+          into an empty store anchored on the genesis seed through
+          SchemeStore(AppendStore(SqliteStore)): ok, synced_to 65536, four
+          "verify" records of n = bucket = 16384, each segment launching
+          exactly what the slice phase's batch launched, the rows equal
+          to the source's byte for byte; `python -m drand_tpu_torch.cli
+          objectsync sync` on the same directory into a second store:
+          exit 0, the same result and rows; up_to 40000 stopping at
+          40000; the third segment re-written with round 40000's
+          signature flipped, re-hashed and re-named in the manifest: ok
+          false, synced_to 32768, the error naming that segment, the
+          store holding exactly rounds 0-32768; the second segment's
+          bytes altered without re-hashing: a CorruptObjectError, the
+          store holding rounds 0-16384; walls, rounds per second and the
+          client's fetch, verify and commit seconds
 
-Each run of the slice, trio, g1, recovery and partials phases must launch
-every kernel of its path and no other, and never call the plain limb
-convolution `_poly_mul_var`: the default batch all but the trio kernels (flat_sqr,
+Each run of the slice, trio, g1, recovery, partials, native and catchup
+phases must launch every kernel of its path and no other, and never call
+the plain limb convolution `_poly_mul_var`: the default batch all but the
+trio kernels (flat_sqr,
 g2_dbl_line, g2_add_line) and those off the G2 paths (mont_sqr,
 mont_reduce, fp2_sqr5_mul, line_merge, add, sub); the trio batch all but
 the merged iterations and those off the G2 paths; a pairing check the trio
@@ -104,11 +151,15 @@ batch the trio kernels in place of the merged iterations); a recovery scan
 the default batch's kernels (the G1 store's, the G1 batch's); a partials
 verify the default batch's (with mont_sqr where the keys are evaluated in
 the batch), and signing and recovery mont_mul, sqr_chain_mul,
-fp2_products, fp2_sqrs, fp2_sqr_chain_mul, g2_point_dbl and g2_point_add.
+fp2_products, fp2_sqrs, fp2_sqr_chain_mul, g2_point_dbl and g2_point_add;
+a catch-up sync the default batch's kernels; and whatever the host tier
+answers (the chained store's scan, recover of one round, every
+verify_beacon and HostBackend call of the native phase) no kernel.
 
   parity  every kernel against its plain PyTorch version on the card, bit
           for bit, at every call the batches above made, the G1,
-          recovery and partials ones included (g2_point_dbl
+          recovery, partials, native and catchup ones included
+          (g2_point_dbl
           and cyclo_sqr at each of their chain lengths) and at fixed
           cases: 16384 rows for Fp and Fr (sqr_chain_mul, whose path
           calls are whole addition chains held against the plan's plain
@@ -184,9 +235,11 @@ import os
 import random
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -197,6 +250,9 @@ FIXTURE = os.path.join(HERE, "aot", "fixtures",
 SYNC_FIXTURE = os.path.join(HERE, "aot", "fixtures",
                             "bench_sync_sigs_65536_d6a762f2_ff8a2cc7.npy")
 STORE_ROUNDS = 4 * BATCH
+# the catchup phase's --up-to, inside the third segment; its poisoned
+# third segment flips this round's signature
+CATCHUP_UP_TO = 40000
 # H100 SXM peaks: HBM bytes/s (NVIDIA data sheet) and 32-bit integer
 # multiply-adds/s: 64 per clock per SM, half the float32 FMA rate, x 132
 # SMs x 1.98 GHz boost clock.  One multiply-add is two operations.
@@ -573,10 +629,11 @@ def recovery_phase(work_dir, drive, check_path, sigs, sigs_c, pk_bytes,
         check_path(what, counts, n_conv, path)
         all_calls.append(calls)
         report, summary = res if isinstance(res, tuple) else (res, None)
-        return report, summary, secs, segs, DSP.DISPATCH.records("verify")
+        return report, summary, secs, segs, DSP.DISPATCH.records()
 
     def rows_of(recs):
-        return [[r.n, r.bucket] for r in recs]
+        """[n, bucket] of each card batch among the records."""
+        return [[r.n, r.bucket] for r in recs if r.seam == "verify"]
 
     # 1. the full-width store: the genesis seed, then rounds 1-65536 of
     # pedersen-bls-unchained (the committed 16384 rounds and the sync
@@ -611,7 +668,8 @@ def recovery_phase(work_dir, drive, check_path, sigs, sigs_c, pk_bytes,
                     "rounds_per_s": STORE_ROUNDS / secs,
                     "segments": len(segs),
                     "segment_launches_equal_slice_batch": True,
-                    "dispatch": [r.to_dict() for r in recs]}
+                    "dispatch": [r.to_dict() for r in recs
+                                 if r.seam == "verify"]}
 
     # 3. damage on a copy: round 40000's signature flipped (the row still
     # decodes), round 50000's blob torn, round 60000 deleted
@@ -630,9 +688,11 @@ def recovery_phase(work_dir, drive, check_path, sigs, sigs_c, pk_bytes,
                     "WHERE round = 50000")
         con.execute("DELETE FROM beacons WHERE round = 60000")
     con.close()
+    t0 = time.perf_counter()
     fsck = subprocess.run(
         [sys.executable, "-m", "drand_tpu_torch.cli", "util", "fsck", copy,
          "--json"], cwd=HERE, capture_output=True, text=True, timeout=300)
+    fsck_s = time.perf_counter() - t0
     try:
         fsck_report = json.loads(fsck.stdout)
     except ValueError:
@@ -663,7 +723,7 @@ def recovery_phase(work_dir, drive, check_path, sigs, sigs_c, pk_bytes,
     out["damaged"] = {"report": {k: v for k, v in rep.to_dict().items()
                                  if k != "path"},
                       "wall_s": secs, "repair": summary, "tip_after": tip,
-                      "fsck_exit": fsck.returncode,
+                      "fsck_exit": fsck.returncode, "fsck_wall_s": fsck_s,
                       "fsck_structural_equal": True,
                       "full_segments_equal_slice_batch": n_full,
                       "dispatch": rows_of(recs)}
@@ -693,26 +753,32 @@ def recovery_phase(work_dir, drive, check_path, sigs, sigs_c, pk_bytes,
         bytes(32)
     cstore.put_many(rows)
     cv_c = ChainVerifier(scheme_by_id("pedersen-bls-chained"), pk_bytes)
+    # every segment of this scan has at most 32 rounds: the host tier
+    # verifies it (one native record a round) and no port kernel launches
     rep, _, secs, segs, recs = scan("recovery chained store", cstore, cv_c,
-                                    default_path)
+                                    [])
     # every round the scan verified other than round 30 is true in the
     # slice phase's verdicts on this fixture; round 30's flipped signature
     # is false through the slice phase's Verifier
     checked = [r for r in range(1, 66) if r not in (31, 50)]
     flip_ok = chained.verify_chain_segment(
         30, np.frombuffer(bytes(flipped), np.uint8)[None], sigs_c[28])
+    native = [r for r in recs if r.seam == "native"]
     if (rep.bad_sigs, rep.unlinked, rep.corrupt, rep.missing,
             rep.verified_tip) != ([30], [31, 50], [], [], 29) or \
             not all(ok_c[r - 1] for r in checked) or flip_ok.tolist() != \
-            [False] or segs[0][:2] != (1, 30) or \
-            rows_of(recs)[0] != [1, 8]:
+            [False] or segs[0][:2] != (1, 30) or rows_of(recs) or \
+            len(native) != sum(s[1] for s in segs) or len(native) != 63:
         fail(f"chained store: {rep.to_dict()}, segments "
-             f"{[s[:2] for s in segs]}, records {rows_of(recs)}")
+             f"{[s[:2] for s in segs]}, card records {rows_of(recs)}, "
+             f"{len(native)} native records")
     out["chained"] = {"report": {k: v for k, v in rep.to_dict().items()
                                  if k != "path"},
-                      "wall_s": secs, "genesis_anchor_record": [1, 8],
-                      "verdicts_equal_slice": True,
-                      "dispatch": rows_of(recs)}
+                      "wall_s": secs, "segments": [s[:2] for s in segs],
+                      "native_records": len(native),
+                      "native_s": sum(r.device_s for r in native),
+                      "verdicts_equal_slice": True, "card_records": [],
+                      "kernels_launched": 0}
     cstore.close()
 
     # 5. a bls-unchained-g1-rfc9380 store: the genesis seed and the G1
@@ -732,7 +798,8 @@ def recovery_phase(work_dir, drive, check_path, sigs, sigs_c, pk_bytes,
     out["g1"] = {"rounds": BATCH, "wall_s": secs,
                  "rounds_per_s": BATCH / secs,
                  "segment_launches_equal_g1_batch": True,
-                 "dispatch": [r.to_dict() for r in recs]}
+                 "dispatch": [r.to_dict() for r in recs
+                              if r.seam == "verify"]}
     gstore.close()
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
     return out, all_calls
@@ -950,10 +1017,22 @@ def partials_phase(default_path):
     points = [be._round_points(p, "") for p in parts_t]
     recover_issue = issue_wall(lambda: be._recover_msm(
         np.stack([np.stack(s) for s, _ in points]), [b for _, b in points]))
-    one, recover_one_s, _ = run("recover", lambda: be.recover(
-        msgs[5], by_round[5][7:] + by_round[5][:7]), G2_CURVE)
-    if one != want[5]:
-        fail("recover: round 6 differs from the secret's signature")
+    # one round: recover takes the native combination (no port kernel);
+    # its device step on the round's t rows, unpadded (K9/K10 on the tree
+    # sum's 1-4 rows), and recover_rounds of that one round (padded to 8
+    # rounds) stay on the card
+    parts5 = by_round[5][7:] + by_round[5][:7]
+    one, recover_one_s, _ = run("recover", lambda: be.recover(msgs[5], parts5),
+                                [])
+    one_dev, recover_dev_s, _ = run(
+        "recover device", lambda: be._recover_device(parts5), G2_CURVE)
+    one_rounds, recover_r1_s, _ = run(
+        "recover_rounds one", lambda: be.recover_rounds([msgs[5]], [parts5]),
+        G2_CURVE)
+    if not one == one_dev == want[5] or one_rounds != [want[5]]:
+        fail("recover: round 6 differs from the secret's signature (native "
+             f"{one == want[5]}, device {one_dev == want[5]}, recover_rounds "
+             f"{one_rounds == [want[5]]})")
     try:
         be.recover_rounds(msgs[:2], [parts_t[0], by_round[1][:t - 1]])
         fail("recover_rounds took a round of t - 1 partials")
@@ -986,6 +1065,9 @@ def partials_phase(default_path):
         "recover_rounds_wall_s": recover_s,
         "recover_rounds_next_wall_s": recover_next_s,
         "recover_wall_s": recover_one_s,
+        "recover_native": True,
+        "recover_device_wall_s": recover_dev_s,
+        "recover_rounds_one_wall_s": recover_r1_s,
         "partials_per_s": R * n / rounds_next_s,
         "recoveries_per_s": R / recover_next_s,
         "rounds_verify_device_kernels": rounds_dev,
@@ -1001,6 +1083,384 @@ def partials_phase(default_path):
                      "burst": rec_burst},
         "stats": dict(be.stats),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
+    # what the native phase holds HostBackend against
+    ctx = {"pub": pub, "msgs": msgs, "by_round": by_round, "bad": bad,
+           "negatives": negatives, "burst": oks, "burst_s": burst_s,
+           "bad_verdicts": ok_bad}
+    return out, all_calls, ctx
+
+
+def cpu_model() -> dict:
+    """The host CPU as lscpu names it: its model name, vendor,
+    architecture and logical CPUs ({} where lscpu cannot run)."""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=60).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        return {}
+    fields = dict(line.split(":", 1) for line in out.splitlines()
+                  if ":" in line)
+    return {k: fields[k].strip() for k in ("Model name", "Vendor ID",
+                                           "Architecture", "CPU(s)")
+            if k in fields}
+
+
+def host_run(what, fn):
+    """fn() driven once on the host tier: (its result, seconds, the count
+    of each dispatch seam); fails if any port kernel launched."""
+    from drand_tpu_torch import dispatch as DSP
+    DSP.DISPATCH.clear()
+    res, secs, counts, _, n_conv = drive(fn)
+    check_path(what, counts, n_conv, [])
+    return res, secs, collections.Counter(r.seam
+                                          for r in DSP.DISPATCH.records())
+
+
+def percentiles(times):
+    t = sorted(times)
+    return {"calls": len(t), "median_ms": statistics.median(t) * 1e3,
+            "p99_ms": t[min(len(t) - 1, math.ceil(0.99 * len(t)) - 1)] * 1e3,
+            "min_ms": t[0] * 1e3, "max_ms": t[-1] * 1e3}
+
+
+def native_phase(build, default_path, sigs, sigs_c, pk_bytes, seed, sigs1,
+                 pk2, verifier1, pctx):
+    """The `native` phase: the port's native C++ host tier
+    (drand_tpu_torch/native) under ChainVerifier and HostBackend, held
+    against the card's verdicts on the same inputs.  Returns (its report
+    line, the calls by kernel of each driven card run)."""
+    import asyncio
+
+    import numpy as np
+
+    from drand_tpu_torch import dispatch as DSP
+    from drand_tpu_torch import verify as V
+    from drand_tpu_torch.beacon.crypto_backend import (AsyncPartialVerifier,
+                                                       HostBackend)
+    from drand_tpu_torch.chain.beacon import Beacon
+    from drand_tpu_torch.chain.scheme import scheme_by_id
+    from drand_tpu_torch.chain.segment import PackedBeacons
+    from drand_tpu_torch.chain.verify import ChainVerifier
+    from drand_tpu_torch.crypto.bls12381 import curve as GC
+
+    out = {"phase": "native", "build": build, "cpu": cpu_model()}
+    all_calls = []
+
+    def card_run(what, fn, path):
+        res, secs, counts, calls, n_conv = drive(fn)
+        check_path(what, counts, n_conv, path)
+        all_calls.append(calls)
+        return res, secs
+
+    # 1. verify_beacon over the chained fixture's rounds 1-65 (round 30's
+    # signature flipped, each prev the preceding stored signature, so
+    # round 31 links to the flipped one) and the G1 fixture's first 32
+    # rounds (round 21 flipped), against the card's verdicts of the same
+    # beacons; the chained ones through ChainVerifier's packed segment,
+    # anchored on the genesis seed (round 1 alone in a bucket of its own)
+    cv_c = ChainVerifier(scheme_by_id("pedersen-bls-chained"), pk_bytes)
+    bad_c = sigs_c.copy()
+    bad_c[29, 40] ^= 0x01
+    beacons_c = [Beacon(r, bytes(bad_c[r - 1]),
+                        seed if r == 1 else bytes(bad_c[r - 2]))
+                 for r in range(1, 66)]
+    host_c, host_c_s, seams_c = host_run(
+        "native chained verify_beacon",
+        lambda: [cv_c.verify_beacon(b) for b in beacons_c])
+    DSP.DISPATCH.clear()
+    card_c, _ = card_run(
+        "native chained card segment",
+        lambda: cv_c.verify_packed_segment_async(PackedBeacons(1, bad_c),
+                                                 seed)(), default_path)
+    recs_c = [[r.seam, r.n, r.bucket] for r in DSP.DISPATCH.records()]
+    card_c = card_c.tolist()
+    if host_c != card_c or host_c.count(False) != 2 or host_c[29] or \
+            host_c[30] or seams_c != {"native": 65} or recs_c != \
+            [["verify", 1, V.bucket(1)], ["verify", 64, V.bucket(64)]]:
+        fail(f"native chained verify_beacon: host {host_c}, card {card_c}, "
+             f"records {dict(seams_c)}, card records {recs_c}")
+    cv_g = ChainVerifier(scheme_by_id("bls-unchained-g1-rfc9380"),
+                         GC.g2_to_bytes(pk2))
+    bad1 = sigs1[:32].copy()
+    bad1[20, 20] ^= 0x01
+    beacons_g = [Beacon(r, bytes(bad1[r - 1])) for r in range(1, 33)]
+    host_g, host_g_s, seams_g = host_run(
+        "native g1 verify_beacon",
+        lambda: [cv_g.verify_beacon(b) for b in beacons_g])
+    card_g, _ = card_run("native g1 card batch", lambda: verifier1.
+                         verify_batch(np.arange(1, 33, dtype=np.uint64),
+                                      bad1), G1_PATH)
+    if host_g != card_g.tolist() or host_g.count(False) != 1 or \
+            host_g[20] or seams_g != {"native": 32}:
+        fail(f"native g1 verify_beacon: host {host_g}, card "
+             f"{card_g.tolist()}, records {dict(seams_g)}")
+
+    # 2. 32 rows on the host against 33 on the card
+    cv_u = ChainVerifier(scheme_by_id("pedersen-bls-unchained"), pk_bytes)
+    rows = [Beacon(r, bytes(sigs[r - 1])) for r in range(1, 34)]
+    ok32, host32_s, seams32 = host_run(
+        "native 32-row batch", lambda: cv_u.verify_beacons(rows[:32]))
+    DSP.DISPATCH.clear()
+    ok33, card33_s = card_run("native 33-row batch",
+                              lambda: cv_u.verify_beacons(rows),
+                              default_path)
+    recs33 = [[r.seam, r.n, r.bucket] for r in DSP.DISPATCH.records()]
+    if not (ok32.all() and ok33.all()) or seams32 != {"native": 32} or \
+            recs33 != [["verify", 33, V.bucket(33)]]:
+        fail(f"native 32/33 rows: {int(ok32.sum())}, {int(ok33.sum())} true, "
+             f"records {dict(seams32)}, {recs33}")
+
+    # 3. HostBackend on the partials phase's group: a 16-partial burst of
+    # round 1 and the four rounds with a negative row, against
+    # DeviceBackend's verdicts on the same partials
+    hb = HostBackend(pctx["pub"], PARTIALS_T, PARTIALS_N)
+    msgs, by_round, bad = pctx["msgs"], pctx["by_round"], pctx["bad"]
+    burst_host, _, seams_b = host_run(
+        "native HostBackend burst",
+        lambda: hb.verify_partials([msgs[0]] * PARTIALS_N, by_round[0]))
+    neg_rounds = sorted({r for r, _ in pctx["negatives"].values()})
+    neg_host, _, seams_n = host_run(
+        "native HostBackend negatives",
+        lambda: [hb.verify_partials([msgs[r]] * PARTIALS_N, bad[r])
+                 for r in neg_rounds])
+    neg_card = [list(pctx["bad_verdicts"][r]) for r in neg_rounds]
+    n_partials = PARTIALS_N * (1 + len(neg_rounds))
+    if burst_host != list(pctx["burst"]) or neg_host != neg_card or \
+            sum(row.count(False) for row in neg_host) != 4 or \
+            seams_b["native"] + seams_n["native"] != n_partials - 1:
+        fail(f"HostBackend: burst {burst_host}, negatives {neg_host} vs "
+             f"card {neg_card}, records {dict(seams_b)} {dict(seams_n)}")
+
+    # 4. latency: one verify_beacon, G2 and G1, over 256 calls each, and
+    # the 16-partial burst through AsyncPartialVerifier on HostBackend
+    def timed(calls):
+        times = []
+        for fn in calls:
+            t0 = time.perf_counter()
+            ok = fn()
+            times.append(time.perf_counter() - t0)
+            if not ok:
+                fail("native latency: a valid beacon verified false")
+        return percentiles(times)
+
+    g1_all = sigs1[:256]
+    lat_g2 = timed([lambda b=Beacon(r, bytes(sigs[r - 1])):
+                    cv_u.verify_beacon(b) for r in range(1, 257)])
+    lat_g1 = timed([lambda b=Beacon(r, bytes(g1_all[r - 1])):
+                    cv_g.verify_beacon(b) for r in range(1, 257)])
+
+    async def burst():
+        ver = AsyncPartialVerifier(hb, max_delay=0.05)
+        oks = await asyncio.gather(*[ver.verify(msgs[0], p)
+                                     for p in by_round[0]])
+        ver.stop()
+        return oks
+
+    oks, burst_s, _ = host_run("native HostBackend async burst",
+                               lambda: asyncio.run(burst()))
+    if oks != [True] * PARTIALS_N:
+        fail(f"HostBackend async burst: {oks}")
+    out.update({
+        "chained_verify_beacon_equal_card": True,
+        "chained_flipped_round": 30, "chained_false_rounds": [30, 31],
+        "chained_card_records": recs_c, "chained_host_s": host_c_s,
+        "g1_verify_beacon_equal_card": True, "g1_flipped_round": 21,
+        "g1_host_s": host_g_s, "kernels_launched_on_host": 0,
+        "rows32_host_wall_s": host32_s, "rows32_records": dict(seams32),
+        "rows33_card_wall_s": card33_s, "rows33_records": recs33,
+        "host_backend_equal_device": True,
+        "host_backend_negative_rounds": neg_rounds,
+        "verify_beacon_g2": lat_g2, "verify_beacon_g1": lat_g1,
+        "host_burst_wall_s": burst_s,
+        "device_burst_wall_s": pctx["burst_s"]})
+    return out, all_calls
+
+
+def catchup_phase(work_dir, default_path, launches, pk_bytes, seed):
+    """The `catchup` phase: verify-then-commit catch-up from published
+    segment objects through the port's objectsync tier and CLI, over the
+    65,536-round unchained store the recovery phase built in `work_dir`.
+    Returns (its report line, the calls by kernel of each driven run)."""
+    import asyncio
+    import sqlite3
+
+    import torch
+
+    from drand_tpu_torch import dispatch as DSP
+    from drand_tpu_torch import objectsync as OS
+    from drand_tpu_torch.chain.beacon import Beacon
+    from drand_tpu_torch.chain.scheme import scheme_by_id
+    from drand_tpu_torch.chain.store import (AppendStore, SchemeStore,
+                                             SqliteStore)
+    from drand_tpu_torch.chain.verify import ChainVerifier
+    from drand_tpu_torch.ops import kernels as K
+
+    out, all_calls = {"phase": "catchup"}, []
+    scheme = scheme_by_id("pedersen-bls-unchained")
+    chain_hash = hashlib.sha256(b"drand_tpu_torch catchup").digest()
+    source = os.path.join(work_dir, "unchained.db")
+    objects = os.path.join(work_dir, "objects")
+
+    def table(path):
+        con = sqlite3.connect(path)
+        try:
+            return con.execute("SELECT round, data FROM beacons "
+                               "ORDER BY round").fetchall()
+        finally:
+            con.close()
+
+    # 1. publish the store's sealed segments
+    store = SqliteStore(source)
+    pub = OS.ObjectPublisher(store, OS.FilesystemBackend(objects),
+                             chain_hash=chain_hash, scheme_id=scheme.id,
+                             segment_rounds=BATCH)
+    t0 = time.perf_counter()
+    published = asyncio.run(pub.publish_sealed())
+    publish_s = time.perf_counter() - t0
+    store.close()
+    m = pub.manifest
+    if published != 4 or [(e.start, e.count) for e in m.segments] != \
+            [(1 + k * BATCH, BATCH) for k in range(4)]:
+        fail(f"catchup publish: {published} segments, manifest "
+             f"{[(e.start, e.count) for e in m.segments]}")
+    want_rows = table(source)
+
+    def fresh(name):
+        base = SqliteStore(os.path.join(work_dir, name))
+        store = SchemeStore(AppendStore(base), scheme.decouple_prev_sig)
+        store.put(Beacon(0, seed))
+        return base, store
+
+    def sync(name, root=objects, up_to=0, path=default_path):
+        """One in-process sync of a fresh store from `root`, driven once:
+        (result, client stats, seconds, each segment's (start, rounds,
+        launches), the card records, the table)."""
+        base, store = fresh(name)
+        cv = ChainVerifier(scheme, pk_bytes)
+        segs = []
+        inner = cv.verify_packed_segment_async
+
+        def counted(packed, anchor):
+            before = K.launch_counts()
+            pending = inner(packed, anchor)
+            after = K.launch_counts()
+            segs.append((packed.start_round, len(packed),
+                         {n: after[n] - before[n] for n in after}))
+            return pending
+        cv.verify_packed_segment_async = counted
+        client = OS.ObjectSyncClient(OS.FilesystemBackend(root), store, cv,
+                                     chain_hash=chain_hash)
+        DSP.DISPATCH.clear()
+        res, secs, counts, calls, n_conv = drive(
+            lambda: asyncio.run(client.sync(up_to=up_to)))
+        check_path(f"catchup {name}", counts, n_conv, path)
+        all_calls.append(calls)
+        recs = [[r.n, r.bucket] for r in DSP.DISPATCH.records("verify")]
+        base.close()
+        return (res.to_dict(), dict(client.stats), secs, segs, recs,
+                table(os.path.join(work_dir, name)))
+
+    # 2. the whole chain in-process: four card batches, each what the
+    # slice phase's batch launched, the rows equal to the source's
+    res, stats, secs, segs, recs, rows = sync("synced.db")
+    if res != {"ok": True, "synced_to": STORE_ROUNDS, "segments": 4,
+               "rounds": STORE_ROUNDS, "error": ""} or \
+            recs != [[BATCH, BATCH]] * 4 or \
+            [s[2] for s in segs] != [launches] * 4 or rows != want_rows:
+        fail(f"catchup sync: {res}, records {recs}, segments "
+             f"{[s[:2] for s in segs]}, rows equal {rows == want_rows}")
+    out["sync"] = {"result": res, "wall_s": secs,
+                   "rounds_per_s": STORE_ROUNDS / secs, "stats": stats,
+                   "dispatch": recs, "rows_equal_source": True,
+                   "segment_launches_equal_slice_batch": True}
+
+    # 3. the port's CLI on the same directory, into a second store
+    cli_db = os.path.join(work_dir, "cli.db")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "drand_tpu_torch.cli", "objectsync", "sync",
+         "--dir", objects, "--db", cli_db, "--chain-hash", chain_hash.hex(),
+         "--scheme", scheme.id, "--public-key", pk_bytes.hex(),
+         "--genesis-seed", seed.hex()],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    try:
+        cli_out = json.loads(proc.stdout)
+    except ValueError:
+        cli_out = {}
+    if proc.returncode or {k: cli_out.get(k) for k in res} != res or \
+            table(cli_db) != want_rows:
+        fail(f"catchup CLI: exit {proc.returncode}, "
+             f"{proc.stdout.strip()[-600:]} {proc.stderr.strip()[-600:]}")
+    out["cli"] = {"exit": proc.returncode, "wall_s": cli_s,
+                  "result_equal_in_process": True, "stats": cli_out["stats"],
+                  "rows_equal_source": True}
+
+    # 4. up_to stops inside the third segment
+    res, _, secs, segs, recs, rows = sync("upto.db", up_to=CATCHUP_UP_TO)
+    if res != {"ok": True, "synced_to": CATCHUP_UP_TO, "segments": 3,
+               "rounds": CATCHUP_UP_TO, "error": ""} or \
+            rows != want_rows[:CATCHUP_UP_TO + 1]:
+        fail(f"catchup up_to {CATCHUP_UP_TO}: {res}, records {recs}")
+    out["up_to"] = {"result": res, "wall_s": secs, "dispatch": recs}
+
+    # 5. the third segment re-written with round CATCHUP_UP_TO's
+    # signature flipped, re-hashed and re-named in the manifest
+    poisoned = os.path.join(work_dir, "poisoned")
+    shutil.copytree(objects, poisoned)
+    pm = OS.Manifest.from_json(open(os.path.join(
+        poisoned, OS.MANIFEST_NAME), "rb").read())
+    entry = pm.segments[2]
+    seg = OS.decode_segment(open(os.path.join(poisoned, entry.name),
+                                 "rb").read())
+    seg_rows = [(r, sig[:40] + bytes([sig[40] ^ 1]) + sig[41:]
+                 if r == CATCHUP_UP_TO else sig, prev)
+                for r, sig, prev in seg.rows]
+    blob = OS.encode_segment(seg.chain_hash, seg.scheme_id, seg_rows)
+    os.unlink(os.path.join(poisoned, entry.name))
+    entry.hash = OS.content_hash(blob)
+    entry.name = OS.object_name(entry.start, entry.hash)
+    with open(os.path.join(poisoned, entry.name), "wb") as f:
+        f.write(blob)
+    with open(os.path.join(poisoned, OS.MANIFEST_NAME), "wb") as f:
+        f.write(pm.to_json())
+    res, _, secs, segs, recs, rows = sync("poisoned.db", root=poisoned)
+    if res["ok"] or res["synced_to"] != 2 * BATCH or \
+            entry.name not in res["error"] or \
+            str(CATCHUP_UP_TO) not in res["error"] \
+            or rows != want_rows[:2 * BATCH + 1]:
+        fail(f"catchup poisoned segment: {res}, {len(rows)} rows stored")
+    out["poisoned"] = {"result": res, "wall_s": secs, "dispatch": recs,
+                       "store_holds_verified_prefix": True}
+
+    # 6. the second segment's bytes altered without re-hashing
+    corrupt = os.path.join(work_dir, "corrupt")
+    shutil.copytree(objects, corrupt)
+    entry = m.segments[1]
+    path = os.path.join(corrupt, entry.name)
+    at = os.path.getsize(path) // 2          # a byte inside a row
+    with open(path, "r+b") as f:
+        f.seek(at)
+        byte = f.read(1)
+        f.seek(at)
+        f.write(bytes([byte[0] ^ 1]))
+    res, _, secs, segs, recs, rows = sync("corrupt.db", root=corrupt)
+    try:
+        asyncio.run(OS.ObjectSyncClient(OS.FilesystemBackend(corrupt), None,
+                                        None)._fetch_segment(entry))
+        raised = False
+    except OS.CorruptObjectError:
+        raised = True
+    if res["ok"] or res["synced_to"] != BATCH or not raised or \
+            "content hash mismatch" not in res["error"] or \
+            rows != want_rows[:BATCH + 1]:
+        fail(f"catchup corrupt object: {res}, raised {raised}, "
+             f"{len(rows)} rows stored")
+    out["corrupt"] = {"result": res, "wall_s": secs, "dispatch": recs,
+                      "corrupt_object_error": True,
+                      "store_holds_verified_prefix": True}
+    out["publish_s"] = publish_s
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
     return out, all_calls
 
 
@@ -1092,7 +1552,21 @@ def main() -> int:
     emit(report["device"])
 
     # -- build ---------------------------------------------------------------
+    # the native host tier's g++ build runs beside the kernels' nvcc
+    from drand_tpu_torch import native as NT
+    native_build = {}
+
+    def build_native():
+        try:
+            native_build["info"] = NT.build_info()
+        except Exception as exc:
+            native_build["error"] = f"{type(exc).__name__}: {exc}"
+    native_thread = threading.Thread(target=build_native)
+    native_thread.start()
     info = K.build()
+    native_thread.join()
+    if "error" in native_build:
+        fail(f"native tier build: {native_build['error']}")
     regs = [ln.strip() for ln in info["log"].splitlines()
             if "registers" in ln or "spill" in ln or ln.startswith("== ")]
     report["build"] = {"phase": "build", "seconds": info["seconds"],
@@ -1430,13 +1904,25 @@ def main() -> int:
             rec_dir, drive, check_path, sigs, sigs_c, pk_bytes, seed,
             launches, default_path, sigs1, pk2, g1_launches, ok_c,
             chained)
+        emit(report["recovery"])
+
+        # -- partials --------------------------------------------------------
+        report["partials"], partials_calls, pctx = partials_phase(
+            default_path)
+        emit(report["partials"])
+
+        # -- native ----------------------------------------------------------
+        report["native"], native_calls = native_phase(
+            native_build["info"], default_path, sigs, sigs_c, pk_bytes, seed,
+            sigs1, pk2, verifier1, pctx)
+        emit(report["native"])
+
+        # -- catchup ---------------------------------------------------------
+        report["catchup"], catchup_calls = catchup_phase(
+            rec_dir, default_path, launches, pk_bytes, seed)
+        emit(report["catchup"])
     finally:
         shutil.rmtree(rec_dir, ignore_errors=True)
-    emit(report["recovery"])
-
-    # -- partials ------------------------------------------------------------
-    report["partials"], partials_calls = partials_phase(default_path)
-    emit(report["partials"])
 
     # every call the runs made, for the parity phase
     all_calls = {name: set(path_calls[name]) | set(chain_calls[name])
@@ -1444,6 +1930,8 @@ def main() -> int:
                  | set(g1_calls[name]) | set(g1_trio_calls[name])
                  | set().union(*(c[name] for c in recovery_calls))
                  | set().union(*(c[name] for c in partials_calls))
+                 | set().union(*(c[name] for c in native_calls))
+                 | set().union(*(c[name] for c in catchup_calls))
                  for name in K.KERNELS}
 
     # -- parity --------------------------------------------------------------

@@ -1,30 +1,36 @@
-"""Threshold crypto of the live beacon path on the GPU: batched partial
-signature verification and Lagrange recovery.
+"""Threshold crypto of the live beacon path: partial signature
+verification and Lagrange recovery, on the host or batched on the GPU.
 
-Counterpart of `drand_tpu/beacon/crypto_backend.py`'s `DeviceBackend`,
-`AsyncPartialVerifier` and `run_in_crypto_thread`.  A drand node checks
-each incoming partial signature (two pairings) and, at threshold,
-recovers the round's group signature; here both run batched on the
-backend's device:
+Counterpart of `drand_tpu/beacon/crypto_backend.py`'s `HostBackend`,
+`DeviceBackend`, `AsyncPartialVerifier` and `run_in_crypto_thread`.  A
+drand node checks each incoming partial signature (two pairings) and, at
+threshold, recovers the round's group signature:
 
+  - `HostBackend`: one partial at a time through the native C++ tier
+    (`drand_tpu_torch/native`, `verify_partial`), recovery through
+    `_native_recover` (the t-point G2 combination in C);
   - `DeviceBackend.verify_partials`: one batch of partials in arrival
-    order; each distinct message hashes to G2 once (`dedup_messages`)
-    and each signer's key is gathered from the signer-key table
-    (`beacon/signer_table.py`), or, when an index lies outside the
-    table, evaluated in the batch (`ops/bls.py` `pubpoly_eval_g1`);
+    order on the backend's device; each distinct message hashes to G2
+    once (`dedup_messages`) and each signer's key is gathered from the
+    signer-key table (`beacon/signer_table.py`), or, when an index lies
+    outside the table, evaluated in the batch (`ops/bls.py`
+    `pubpoly_eval_g1`);
   - `DeviceBackend.verify_partials_rounds`: rounds-major, one digest
     and S partials a round, hash-to-curve once a round;
-  - `DeviceBackend.recover_rounds` / `recover`: the [rounds, t]
-    multi-scalar multiplication of the Lagrange recovery, a 256-bit
-    per-row ladder (`ops/curve.py` `point_mul_bits`) and a tree sum;
+  - `DeviceBackend.recover_rounds`: the [rounds, t] multi-scalar
+    multiplication of the Lagrange recovery, a 256-bit per-row ladder
+    (`ops/curve.py` `point_mul_bits`) and a tree sum; `recover` of one
+    round tries `_native_recover` first, as the reference does, and runs
+    the same multiplication on t rows when that gives nothing;
   - `AsyncPartialVerifier`: coalesces the partials that arrive within one
     window into one `verify_partials` call, run in a worker thread.
 
-Unlike drand_tpu's module there is no host backend and no switch between
-backends, no native-tier first step in `recover`, no compiled-program
-cache or mesh sharding, and no metrics.  Each batched call records one
-dispatch (`dispatch.py`): "partials" for `verify_partials`, "rounds"
-for `verify_partials_rounds`.
+Unlike drand_tpu's module there is no switch between backends
+(`make_backend`) and no environment, no golden-model verify (a native
+library that cannot be built raises), no compiled-program cache or mesh
+sharding, and no metrics.  Each batched device call records one dispatch
+(`dispatch.py`): "partials" for `verify_partials`, "rounds" for
+`verify_partials_rounds`; each native check records a "native" one.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from drand_tpu_torch import native
 from drand_tpu_torch.beacon.signer_table import SignerKeyTable
 from drand_tpu_torch.crypto import tbls
 from drand_tpu_torch.crypto.bls12381 import curve as GC
@@ -63,6 +70,97 @@ def dedup_messages(msgs: Sequence[bytes]):
     for m in msgs:
         mmap.append(seen.setdefault(m, len(seen)))
     return list(seen), mmap
+
+
+def _threshold_points(partials: Sequence[bytes], threshold: int, n: int,
+                      decode, skip=(), overwrite: bool = False,
+                      what: str = ""):
+    """The first t distinct in-group signers of `partials` in arrival
+    order: (their indices sorted, {index: decode(signature)}, {index: its
+    Lagrange basis at 0}); ValueError (led by `what`) when fewer than t.
+    A partial whose parse or decode raises one of `skip` is passed over
+    (any other error propagates); `overwrite` keeps an index's latest
+    value rather than its first, as drand_tpu's `tbls.recover` does."""
+    pts: dict = {}
+    for p in partials:
+        try:
+            idx, val = tbls.index_of(p), decode(tbls.sig_of(p))
+        except skip:
+            continue
+        if idx < n and (overwrite or idx not in pts):
+            pts[idx] = val
+        if len(pts) >= threshold:
+            break
+    if len(pts) < threshold:
+        raise ValueError(f"{what}not enough partials: "
+                         f"{len(pts)}/{threshold}")
+    indices = sorted(pts)[:threshold]
+    return indices, pts, _lagrange_basis_at_zero(indices)
+
+
+def _native_recover(partials: Sequence[bytes], threshold: int,
+                    n: int) -> bytes | None:
+    """Threshold recovery through the native tier: the Lagrange basis on
+    the host (Python ints), the t-point G2 linear combination in C, over
+    the first t distinct in-group indices.  None when too few partials
+    parse or the combination rejects one (a malformed point, an infinity
+    result); a library that cannot be built raises."""
+    try:
+        indices, pts, basis = _threshold_points(partials, threshold, n,
+                                                bytes, skip=Exception)
+    except ValueError:
+        return None     # too few partials parse
+    return native.g2_lincomb([pts[i] for i in indices],
+                             [basis[i].to_bytes(32, "big") for i in indices])
+
+
+def _golden_recover(partials: Sequence[bytes], threshold: int,
+                    n: int) -> bytes:
+    """drand_tpu's `tbls.recover(..., verified=True)` on the port's golden
+    model: the first t in-group partials whose signature decodes,
+    combined at 0.  Raises ValueError when fewer than t decode."""
+    indices, points, basis = _threshold_points(
+        partials, threshold, n, GC.g2_from_bytes, skip=ValueError,
+        overwrite=True)
+    acc = GC.G2_INF
+    for i in indices:
+        acc = GC.point_add(acc, GC.point_mul(points[i], basis[i],
+                                             GC.FP2_OPS), GC.FP2_OPS)
+    return GC.g2_to_bytes(acc)
+
+
+class HostBackend:
+    """Threshold crypto for one group on the host, through the native
+    tier: each partial one native check against the commitments (the
+    library evaluates the public polynomial at the partial's index), and
+    recovery through `_native_recover`, then, where that gives nothing,
+    the golden-model combination drand_tpu's host backend falls back to.
+    A partial that is not bytes-like raises TypeError, as in drand_tpu's
+    host backend."""
+
+    name = "host"
+
+    def __init__(self, pub_poly, threshold: int, n: int):
+        self.update_group(pub_poly, threshold, n)
+
+    def update_group(self, pub_poly, threshold: int, n: int) -> None:
+        """A reshare or group transition: new key material."""
+        self.pub_poly = pub_poly
+        self.threshold = threshold
+        self.n = n
+        self._commits48 = [GC.g1_to_bytes(c) for c in pub_poly.commits]
+
+    def verify_partials(self, msgs: Sequence[bytes],
+                        partials: Sequence[bytes]) -> list[bool]:
+        """Verdicts of partials[i] on msgs[i], one native check each."""
+        return [native.verify_partial(self._commits48, m, p, DST_G2)
+                for m, p in zip(msgs, partials)]
+
+    def recover(self, msg: bytes, partials: Sequence[bytes]) -> bytes:
+        out = _native_recover(partials, self.threshold, self.n)
+        if out is not None:
+            return out
+        return _golden_recover(partials, self.threshold, self.n)
 
 
 def _pad(k: int, buckets) -> int:
@@ -128,13 +226,14 @@ class DeviceBackend:
         idxs, sigs, ok_wire = [], [], []
         for p in partials:
             try:
-                idxs.append(tbls.index_of(p))
-                sigs.append(tbls.sig_of(p))
-                ok_wire.append(len(sigs[-1]) == 96)
-            except ValueError:
-                idxs.append(0)
-                sigs.append(bytes(96))
-                ok_wire.append(False)
+                idx, sig = tbls.index_of(p), tbls.sig_of(p)
+                ok = len(sig) == 96
+            except Exception:
+                # too short, or not bytes at all: false, as in drand_tpu
+                idx, sig, ok = 0, bytes(96), False
+            idxs.append(idx)
+            sigs.append(sig)
+            ok_wire.append(ok)
         self.stats["batches"] += 1
         self.stats["partials"] += k
         b = _pad(k, self.BUCKETS)
@@ -194,12 +293,12 @@ class DeviceBackend:
             for j, p in enumerate(parts):
                 try:
                     idxs[r, j] = tbls.index_of(p)
-                except ValueError:
-                    continue
-                s = tbls.sig_of(p)
-                if len(s) == 96:
-                    sigs_a[r, j] = np.frombuffer(s, dtype=np.uint8)
-                    ok_wire[r, j] = True
+                    s = tbls.sig_of(p)
+                    if len(s) == 96:
+                        sigs_a[r, j] = np.frombuffer(s, dtype=np.uint8)
+                        ok_wire[r, j] = True
+                except Exception:
+                    continue    # too short, or not bytes: false
         k = int(sum(len(p) for p in partials_by_round))
         self.stats["batches"] += 1
         self.stats["partials"] += k
@@ -238,18 +337,8 @@ class DeviceBackend:
     def _round_points(self, parts, what: str):
         """The first t distinct in-group signers' signatures of a round, by
         index, and their Lagrange bases at 0."""
-        t = self.threshold
-        pts: dict[int, bytes] = {}
-        for p in parts:
-            idx = tbls.index_of(p)
-            if idx < self.n and idx not in pts:
-                pts[idx] = tbls.sig_of(p)
-            if len(pts) >= t:
-                break
-        if len(pts) < t:
-            raise ValueError(f"{what}not enough partials: {len(pts)}/{t}")
-        indices = sorted(pts)[:t]
-        basis = _lagrange_basis_at_zero(indices)
+        indices, pts, basis = _threshold_points(
+            parts, self.threshold, self.n, bytes, what=what)
         return ([np.frombuffer(pts[i], dtype=np.uint8) for i in indices],
                 [basis[i] for i in indices])
 
@@ -328,8 +417,18 @@ class DeviceBackend:
                                 "round {}: ")
 
     def recover(self, msg: bytes, partials: Sequence[bytes]) -> bytes:
-        """The group signature of one round from its partials: the same
-        multi-scalar multiplication on t rows."""
+        """The group signature of one round from its partials: the native
+        combination first (the latency path of a live round, as in
+        drand_tpu), else the same multi-scalar multiplication as
+        `recover_rounds` on t rows of the device."""
+        out = _native_recover(partials, self.threshold, self.n)
+        if out is not None:
+            return out
+        return self._recover_device(partials)
+
+    def _recover_device(self, partials: Sequence[bytes]) -> bytes:
+        """`recover`'s device step: the multi-scalar multiplication on the
+        t rows of one round, unpadded."""
         sig_rows, basis = self._round_points(partials, "")
         return self._compressed(*self._recover_msm(np.stack(sig_rows)[None],
                                                    [basis]), "")[0]

@@ -1,5 +1,6 @@
-"""The chain store: sqlite, its read-and-repair side (counterpart of
-`drand_tpu/chain/store.py` `SqliteStore`).
+"""The chain store: sqlite, its read-and-repair side, and the decorators a
+sync commits through (counterpart of `drand_tpu/chain/store.py`
+`SqliteStore`, `StoreDecorator`, `AppendStore`, `SchemeStore`).
 
 The same two tables as `drand_tpu`'s store,
 
@@ -297,3 +298,130 @@ class SqliteStore(Store):
         if conn is not None:
             conn.close()
             self._local.conn = None
+
+
+class StoreDecorator(Store):
+    """A store that forwards every call to `inner`; the decorators below
+    override what they check (drand `chain/store.go`)."""
+
+    def __init__(self, inner: Store):
+        self.inner = inner
+
+    def _last_or_none(self) -> Optional[Beacon]:
+        try:
+            return self.inner.last()
+        except BeaconNotFound:
+            return None
+
+    def put(self, beacon: Beacon) -> None:
+        self.inner.put(beacon)
+
+    def last(self) -> Beacon:
+        return self.inner.last()
+
+    def get(self, round_: int) -> Beacon:
+        return self.inner.get(round_)
+
+    def delete(self, round_: int) -> None:
+        self.inner.delete(round_)
+
+    def __len__(self) -> int:
+        return len(self.inner)
+
+    def cursor(self) -> Cursor:
+        return self.inner.cursor()
+
+    def close(self) -> None:
+        self.inner.close()
+
+    def save_to(self, path: str) -> None:
+        self.inner.save_to(path)
+
+    def iter_range(self, start_round: int, limit=None):
+        return self.inner.iter_range(start_round, limit)
+
+    def read_fields(self, start_round: int, limit: int):
+        return self.inner.read_fields(start_round, limit)
+
+    def put_many(self, beacons) -> None:
+        self.inner.put_many(beacons)
+
+
+class AppendStore(StoreDecorator):
+    """Only round = last + 1 may be appended (drand `chain/store.go`
+    appendStore); a re-put of the stored head is a no-op."""
+
+    def __init__(self, inner: Store):
+        super().__init__(inner)
+        self._lock = threading.Lock()
+
+    def put(self, beacon: Beacon) -> None:
+        with self._lock:
+            last = self._last_or_none()
+            if last is not None:
+                if beacon.round == last.round and beacon.equal(last):
+                    return  # idempotent re-put
+                if beacon.round != last.round + 1:
+                    raise StoreError(f"non-appendable round {beacon.round} "
+                                     f"after {last.round}")
+            self.inner.put(beacon)
+
+    def put_many(self, beacons) -> None:
+        """The same rule with one last() query: the segment must be
+        contiguous and follow the stored head.  Re-puts of the head, or of
+        the beacon just before inside the segment, are skipped as `put`
+        skips them."""
+        beacons = list(beacons)
+        if not beacons:
+            return
+        with self._lock:
+            prev = self._last_or_none()
+            keep = []
+            for b in beacons:
+                if prev is not None and b.round == prev.round \
+                        and b.equal(prev):
+                    continue       # idempotent re-put
+                if prev is not None and b.round != prev.round + 1:
+                    raise StoreError(
+                        f"non-appendable round {b.round} after {prev.round}")
+                keep.append(b)
+                prev = b
+            self.inner.put_many(keep)
+
+
+class SchemeStore(StoreDecorator):
+    """The scheme's rules (drand `chain/store.go` schemeStore): unchained
+    schemes store no previous signature; a chained beacon that follows the
+    stored head must carry the head's signature as its previous one."""
+
+    def __init__(self, inner: Store, decouple_prev_sig: bool):
+        super().__init__(inner)
+        self.decouple = decouple_prev_sig
+
+    def put(self, beacon: Beacon) -> None:
+        if self.decouple:
+            beacon = Beacon(round=beacon.round, signature=beacon.signature)
+        else:
+            last = self._last_or_none()
+            if last is not None and beacon.round == last.round + 1 \
+                    and beacon.previous_sig != last.signature:
+                raise StoreError(f"round {beacon.round} previous-sig does "
+                                 "not link to chain")
+        self.inner.put(beacon)
+
+    def put_many(self, beacons) -> None:
+        beacons = list(beacons)
+        if not beacons:
+            return
+        if self.decouple:
+            self.inner.put_many([Beacon(round=b.round, signature=b.signature)
+                                 for b in beacons])
+            return
+        prev = self._last_or_none()
+        for b in beacons:
+            if prev is not None and b.round == prev.round + 1 \
+                    and b.previous_sig != prev.signature:
+                raise StoreError(
+                    f"round {b.round} previous-sig does not link to chain")
+            prev = b
+        self.inner.put_many(beacons)

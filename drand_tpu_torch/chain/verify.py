@@ -1,11 +1,18 @@
-"""Scheme-aware beacon verification on the card: `ChainVerifier`
-(counterpart of `drand_tpu/chain/verify.py`).
+"""Scheme-aware beacon verification: `ChainVerifier` (counterpart of
+`drand_tpu/chain/verify.py`).
 
-One (scheme, public key) bound to one device.  Every check, the single
-beacon included, is a batch of the port's `Verifier` on that device,
-padded to `verify.BUCKETS`: the port has no host verify tier, so there is
-no small-batch host path.  Linkage of a chained segment (each
-previous_sig equals the preceding signature) is checked on the host.
+One (scheme, public key) bound to one device, with two tiers as in the
+reference: small work on the host through the native C++ tier
+(`drand_tpu_torch/native`), throughput on the card through the port's
+`Verifier`.  `verify_beacon`, every batch of at most `_HOST_VERIFY_MAX`
+rows and a larger batch's irregular rows (round 1's 32-byte genesis prev,
+a signature of the wrong length) verify on the host; every larger batch
+is one `Verifier` batch on the device, padded to `verify.BUCKETS`.
+Unlike the reference, a small batch takes the host whether or not a card
+batch ran before: the port compiles nothing to amortise, and a card batch
+of any size costs a full batch's host issue.  Linkage of a chained
+segment (each previous_sig equals the preceding signature) is checked on
+the host.
 """
 
 from __future__ import annotations
@@ -15,10 +22,14 @@ import struct
 
 import numpy as np
 
+from drand_tpu_torch import native
 from drand_tpu_torch.chain.beacon import Beacon
 from drand_tpu_torch.chain.scheme import Scheme
 from drand_tpu_torch.crypto.bls12381 import curve as GC
 from drand_tpu_torch.verify import Verifier
+
+# batches of at most this many rows verify on the host (latency path)
+_HOST_VERIFY_MAX = 32
 
 
 class ChainVerifier:
@@ -60,66 +71,60 @@ class ChainVerifier:
 
     # -- verification -------------------------------------------------------
 
-    def _verify_beacon_async(self, beacon: Beacon):
-        """One beacon as a one-row batch on the verifier's device; a
-        signature of the wrong length is False with nothing issued."""
-        sig = np.frombuffer(beacon.signature, dtype=np.uint8)
-        if sig.shape[0] != self.scheme.sig_len:
-            return lambda: False
-        prev = None
-        if not self.scheme.decouple_prev_sig:
-            prev = np.frombuffer(beacon.previous_sig, dtype=np.uint8)[None]
-        pending = self._verifier.verify_batch_async(
-            np.array([beacon.round], dtype=np.uint64), sig[None], prev)
-        return lambda: bool(pending()[0])
-
     def verify_beacon(self, beacon: Beacon) -> bool:
-        """Single-beacon check: a one-row batch on the verifier's device
-        (padded to the smallest bucket), as the genesis anchor's round."""
-        return self._verify_beacon_async(beacon)()
+        """Single-beacon check on the host through the native tier: the
+        latency path (a live round, a genesis-anchored round 1).  A
+        signature or key of the wrong length is false; a library that
+        cannot be built raises `native.NativeBuildError`."""
+        msg = self.digest_message(beacon.round, beacon.previous_sig)
+        shape = self.scheme.shape
+        check = native.verify_g1 if shape.sig_on_g1 else native.verify_g2
+        return check(self.public_key_bytes, msg, beacon.signature, shape.dst)
 
     def verify_beacons_async(self, beacons: list[Beacon]):
         """Issue a batch verify without waiting; returns a zero-arg callable
         that waits and yields bool[B].
 
-        Beacons of irregular shape (a chained beacon whose previous
-        signature has another length, as round 1's 32-byte genesis seed;
-        a signature of the wrong length) go one by one through the scalar
-        path; the regular rest is one batch, issued first.  Every batch is
-        issued before any is resolved."""
+        A batch of at most _HOST_VERIFY_MAX rows verifies on the host now.
+        In a larger one, beacons of irregular shape (a chained beacon whose
+        previous signature has another length, as round 1's 32-byte
+        genesis seed; a signature of the wrong length) verify on the host,
+        after the regular rest is issued as one verify of its own (on the
+        device unless it too is small)."""
         if not beacons:
             return lambda: np.zeros(0, dtype=bool)
+        if len(beacons) <= _HOST_VERIFY_MAX:
+            out = np.array([self.verify_beacon(b) for b in beacons],
+                           dtype=bool)
+            return lambda: out
         sig_len = self.scheme.sig_len
         chained = not self.scheme.decouple_prev_sig
         regular = [i for i, b in enumerate(beacons)
                    if len(b.signature) == sig_len
                    and (not chained or len(b.previous_sig) == sig_len)]
-        pending = None
-        if regular:
-            rounds = np.array([beacons[i].round for i in regular],
-                              dtype=np.uint64)
-            sigs = np.stack([np.frombuffer(beacons[i].signature, np.uint8)
-                             for i in regular])
-            prev = None
-            if chained:
-                prev = np.stack([np.frombuffer(beacons[i].previous_sig,
-                                               np.uint8) for i in regular])
-            pending = self._verifier.verify_batch_async(rounds, sigs, prev)
-        if len(regular) == len(beacons):
-            return pending
-        taken = set(regular)
-        singles = [(i, self._verify_beacon_async(b))
-                   for i, b in enumerate(beacons) if i not in taken]
-
-        def resolve():
+        if len(regular) < len(beacons):
+            pending = self.verify_beacons_async(
+                [beacons[i] for i in regular]) if regular else None
             out = np.zeros(len(beacons), dtype=bool)
-            if pending is not None:
-                out[np.asarray(regular)] = pending()
-            for i, one in singles:
-                out[i] = one()
-            return out
+            taken = set(regular)
+            for i, b in enumerate(beacons):
+                if i not in taken:
+                    out[i] = self.verify_beacon(b)
 
-        return resolve
+            def resolve():
+                if pending is not None:
+                    out[np.asarray(regular)] = pending()
+                return out
+
+            return resolve
+        rounds = np.array([b.round for b in beacons], dtype=np.uint64)
+        sigs = np.stack([np.frombuffer(b.signature, np.uint8)
+                         for b in beacons])
+        prev = None
+        if chained:
+            prev = np.stack([np.frombuffer(b.previous_sig, np.uint8)
+                             for b in beacons])
+        return self._verifier.verify_batch_async(rounds, sigs, prev)
 
     def verify_beacons(self, beacons: list[Beacon]) -> np.ndarray:
         """Batch of arbitrary (round, prev_sig, sig) triples -> bool[B]."""
@@ -144,8 +149,9 @@ class ChainVerifier:
 
     def verify_chain_segment(self, beacons: list[Beacon],
                              anchor_prev_sig: bytes) -> np.ndarray:
-        """Contiguous rounds: linkage on the host and signatures on the
-        device in one call.  Returns each beacon's validity."""
+        """Contiguous rounds: linkage on the host and signatures by
+        `verify_beacons_async` in one call.  Returns each beacon's
+        validity."""
         return self.verify_chain_segment_async(beacons, anchor_prev_sig)()
 
     def verify_packed_segment_async(self, packed, anchor_prev_sig: bytes):
@@ -155,12 +161,17 @@ class ChainVerifier:
         row i's prev is row i-1's sig and row 0's the caller's anchor (a
         server's advisory first_prev is never used), so the batch checks
         the chain the caller holds; an anchor of another length (round 1's
-        genesis seed) puts row 0 alone in a bucket of its own.  Returns a
-        zero-arg callable yielding bool[B]."""
+        genesis seed) puts row 0 alone in a bucket of its own.  A run of
+        at most _HOST_VERIFY_MAX rows verifies on the host, as beacons
+        rebuilt on the anchor.  Returns a zero-arg callable yielding
+        bool[B]."""
         if not len(packed):
             return lambda: np.zeros(0, dtype=bool)
         if packed.sig_len != self.scheme.sig_len:
             return lambda: np.zeros(len(packed), dtype=bool)
+        if len(packed) <= _HOST_VERIFY_MAX:
+            return self.verify_chain_segment_async(
+                packed.beacons(anchor_sig=anchor_prev_sig), anchor_prev_sig)
         # the scheme, not the packed run's flag, decides the digest
         if self.scheme.decouple_prev_sig:
             return self._verifier.verify_batch_async(

@@ -1,8 +1,12 @@
 """Command line of the port (counterpart of `drand_tpu/cli/main.py`'s
-`util fsck`).
+`util fsck` and `objectsync`).
 
     python -m drand_tpu_torch.cli util fsck <store.db> [--repair] [--json]
         [--id BEACON_ID]
+    python -m drand_tpu_torch.cli objectsync publish|sync|status --dir DIR
+        [--db DB] [--chain-hash HEX] [--scheme ID] [--public-key HEX]
+        [--segment-rounds N] [--up-to ROUND] [--genesis-seed HEX]
+        [--device cpu]
 
 `util fsck` is the offline integrity check of a chain database: the
 structural scan of `chain/recovery.py` (each row decoded, round
@@ -11,6 +15,16 @@ with no verifier, as drand_tpu's.  `--repair` quarantines the damaged
 rows and rolls the tip back to the verified prefix.  Exit 0 on a clean
 chain, 1 when damage was found, repaired or not.  The full BLS scan is
 `chain.recovery.startup_recovery(store, ChainVerifier(...))`.
+
+`objectsync` works on a directory of segment objects (`objectsync/`):
+`publish` writes the sealed segments of the chain database `--db` and
+the manifest; `sync` fetches, verifies and commits segments into `--db`
+through `SchemeStore(AppendStore(SqliteStore))`, anchored on
+`--genesis-seed` when the database is empty, verifying with the port's
+`ChainVerifier` on the card (segments of more than 32 rounds) unless
+`--device cpu` is given; `status` prints the manifest's summary.  Each
+prints one JSON object; exit 1 when a publish or a sync stopped on an
+error.  drand_tpu's `--url` (an HTTP object store) is not ported.
 """
 
 from __future__ import annotations
@@ -36,6 +50,34 @@ def build_parser() -> argparse.ArgumentParser:
                     "the tip back to the verified prefix (nothing deleted)")
     sp.add_argument("--json", action="store_true", dest="json_out",
                     help="util fsck: machine-readable report on stdout")
+
+    sp = sub.add_parser("objectsync",
+                        help="content-addressed segment objects in a "
+                        "directory (drand_tpu_torch/objectsync/)")
+    sp.add_argument("action", choices=["publish", "sync", "status"])
+    sp.add_argument("--dir", required=True,
+                    help="filesystem object-store root")
+    sp.add_argument("--db", default="",
+                    help="chain store sqlite path (publish: source; "
+                    "sync: destination)")
+    sp.add_argument("--chain-hash", default="",
+                    help="hex chain hash pinned into objects / checked "
+                    "against the manifest")
+    sp.add_argument("--scheme", default="",
+                    help="scheme id (default: pedersen-bls-chained)")
+    sp.add_argument("--public-key", default="",
+                    help="hex group public key (sync: BLS verification)")
+    sp.add_argument("--segment-rounds", type=int, default=0,
+                    help="rounds per segment object (default 16384; an "
+                    "existing manifest's value always wins)")
+    sp.add_argument("--up-to", type=int, default=0,
+                    help="sync: stop after this round (0 = whole chain)")
+    sp.add_argument("--genesis-seed", default="",
+                    help="sync: hex genesis seed to anchor an empty store "
+                    "(round-0 row); an existing store ignores it")
+    sp.add_argument("--device", default=None,
+                    help="sync: the verifier's device (default: the "
+                    "current CUDA device; 'cpu' for the plain path)")
     return p
 
 
@@ -82,8 +124,83 @@ async def cmd_fsck(args) -> int:
     return 0 if report.ok else 1
 
 
+async def cmd_objectsync(args) -> int:
+    """One-shot publish of the sealed segments of a chain database,
+    verify-then-commit sync of a database from published objects, or the
+    manifest's status."""
+    from drand_tpu_torch import objectsync as osync
+    backend = osync.FilesystemBackend(args.dir)
+    if args.action == "status":
+        try:
+            m = osync.Manifest.from_json(
+                await backend.get(osync.MANIFEST_NAME))
+        except osync.ObjectNotFound:
+            print(json.dumps({"backend": backend.describe(),
+                              "manifest": None}))
+            return 0
+        print(json.dumps({"backend": backend.describe(),
+                          "chain_hash": m.chain_hash, "scheme": m.scheme_id,
+                          "segment_rounds": m.segment_rounds,
+                          "segments": len(m.segments), "tip": m.tip},
+                         indent=1))
+        return 0
+    if not args.db or not args.chain_hash:
+        raise SystemExit(
+            f"objectsync {args.action} needs --db and --chain-hash")
+    from drand_tpu_torch.chain.beacon import Beacon
+    from drand_tpu_torch.chain.scheme import scheme_by_id
+    from drand_tpu_torch.chain.store import (AppendStore, BeaconNotFound,
+                                             SchemeStore, SqliteStore)
+    scheme = scheme_by_id(args.scheme or None)
+    chain_hash = bytes.fromhex(args.chain_hash)
+    if args.action == "publish":
+        store = SqliteStore(args.db)
+        try:
+            pub = osync.ObjectPublisher(
+                store, backend, chain_hash=chain_hash, scheme_id=scheme.id,
+                segment_rounds=(args.segment_rounds
+                                or osync.DEFAULT_SEGMENT_ROUNDS))
+            await pub.load_manifest()
+            published = await pub.publish_sealed()
+            snap = pub.snapshot()
+            snap["published_now"] = published
+            print(json.dumps(snap, indent=1))
+        finally:
+            store.close()
+        return 1 if pub.last_error else 0
+    # sync: every fetched segment verified against the local anchor
+    # before it is committed; the object store is untrusted
+    if not args.public_key:
+        raise SystemExit("objectsync sync needs --public-key")
+    base = SqliteStore(args.db)
+    store = SchemeStore(AppendStore(base), scheme.decouple_prev_sig)
+    try:
+        try:
+            store.last()
+        except BeaconNotFound:
+            if not args.genesis_seed:
+                raise SystemExit("empty store: pass --genesis-seed to "
+                                 "anchor round 0")
+            store.put(Beacon(round=0,
+                             signature=bytes.fromhex(args.genesis_seed)))
+        from drand_tpu_torch.chain.verify import ChainVerifier
+        verifier = ChainVerifier(scheme, bytes.fromhex(args.public_key),
+                                 device=args.device)
+        client = osync.ObjectSyncClient(backend, store, verifier,
+                                        chain_hash=chain_hash)
+        result = await client.sync(up_to=args.up_to)
+        out = result.to_dict()
+        out["stats"] = dict(client.stats)
+        print(json.dumps(out, indent=1))
+    finally:
+        base.close()
+    return 0 if result.ok else 1
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.command == "objectsync":
+        return asyncio.run(cmd_objectsync(args))
     return asyncio.run(cmd_fsck(args))
 
 

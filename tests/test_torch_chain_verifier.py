@@ -1,9 +1,10 @@
 """The port's ChainVerifier, scheme registry, key decoding and dispatch
 feed on the CPU, held against drand_tpu's on the same inputs.
 
-Every batch of 32 beacons or fewer takes drand_tpu's host path (the
-native tier), so no XLA program is compiled; every CPU verify of the port
-stays in bucket 8.  The tolerance is exact equality of verdicts.
+Every batch of 32 beacons or fewer takes the host path in both packages
+(their native tiers), so no XLA program is compiled; the port's one CPU
+verify here (the dispatch feed's) stays in bucket 8.  The tolerance is
+exact equality of verdicts.
 """
 
 import hashlib
@@ -362,15 +363,17 @@ def test_packed_segment_from_genesis(chained):
 # -- dispatch feed -----------------------------------------------------------
 
 def test_dispatch_feed_records_each_batch_once():
-    """One record for one verify_batch_async, n = 3 in bucket 8, written
-    at the first resolve and not again at the second."""
+    """One record for one verify_batch_async of the ChainVerifier's device
+    Verifier, n = 3 in bucket 8, written at the first resolve and not
+    again at the second.  (Through verify_beacons_async three beacons take
+    the host tier: one "native" record each, tests/test_torch_host_tier.py.)"""
     sigs = np.load(UNCHAINED_16)
     pk_bytes = GC.g1_to_bytes(TFX.fixture_keypair()[1])
     cv = ChainVerifier(S.scheme_by_id("pedersen-bls-unchained"), pk_bytes,
                        device="cpu")
     D.DISPATCH.clear()
-    pending = cv.verify_beacons_async(
-        [Beacon(r, bytes(sigs[r - 1])) for r in (4, 5, 6)])
+    pending = cv._verifier.verify_batch_async(
+        np.array([4, 5, 6], dtype=np.uint64), sigs[3:6])
     assert len(D.DISPATCH) == 0          # recorded at resolve, not issue
     first = pending()
     second = pending()

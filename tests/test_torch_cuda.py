@@ -776,10 +776,12 @@ def test_chain_verifier_on_card(cuda):
 
 def test_startup_recovery_on_card(cuda, tmp_path):
     """startup_recovery over a store of the genesis seed and the 65
-    chained rounds with round 20's signature flipped and round 40's blob
-    torn, the BLS stage on the card: bad_sigs [20] (round 21's stored prev
-    then fails its link), corrupt [40], the tip rolled back to 19, one
-    dispatch record a batch, and a clean rescan."""
+    chained rounds with round 50's signature flipped and round 60's blob
+    torn: bad_sigs [50] (round 51's stored prev then fails its link),
+    corrupt [60], the tip rolled back to 49, and a clean rescan.  Rounds
+    1-50 are one segment on the card (round 1 alone against the seed in a
+    bucket of its own); the segments 52-59 and 61-65, of at most 32
+    rounds, verify on the host, one "native" record a round."""
     import asyncio
     import sqlite3
 
@@ -796,26 +798,122 @@ def test_startup_recovery_on_card(cuda, tmp_path):
     rows = [Beacon(0, seed)] + [
         Beacon(r, bytes(sigs[r - 1]), seed if r == 1 else bytes(sigs[r - 2]))
         for r in range(1, 66)]
-    rows[20].signature = bytes([rows[20].signature[0] ^ 0x01]) + \
-        rows[20].signature[1:]
+    rows[50].signature = bytes([rows[50].signature[0] ^ 0x01]) + \
+        rows[50].signature[1:]
     store.put_many(rows)
     con = sqlite3.connect(path)
     with con:
         con.execute("UPDATE beacons SET data = substr(data, 1, 50) "
-                    "WHERE round = 40")
+                    "WHERE round = 60")
     con.close()
     cv = ChainVerifier(scheme_by_id("pedersen-bls-chained"), pk_bytes)
     D.DISPATCH.clear()
     report, summary = asyncio.run(startup_recovery(store, cv))
     assert (report.corrupt, report.unlinked, report.bad_sigs,
-            report.missing, report.verified_tip) == ([40], [21], [20], [], 19)
-    assert summary == {"quarantined": 3, "truncated": 43, "verified_tip": 19}
-    # rounds 1-20 (round 1 alone against the seed), 22-39 and 41-65
+            report.missing, report.verified_tip) == ([60], [51], [50], [], 49)
+    assert summary == {"quarantined": 3, "truncated": 13, "verified_tip": 49}
+    # rounds 1-50 on the card, 52-59 and 61-65 on the host
     assert [(r.n, r.bucket) for r in D.DISPATCH.records("verify")] == \
-        [(1, 8), (19, 64), (18, 64), (25, 64)]
+        [(1, 8), (49, 64)]
+    assert len(D.DISPATCH.records("native")) == 8 + 5
     again = asyncio.run(scan_store(store, cv))
-    assert again.ok and again.verify_checked and again.verified_tip == 19
+    assert again.ok and again.verify_checked and again.verified_tip == 49
     store.close()
+
+
+def test_host_tier_routing_on_card(cuda):
+    """On the card the port's ChainVerifier answers a 32-row batch and a
+    single beacon on the host (native records, no kernel launched) and a
+    33-row batch with one card batch (one "verify" record in bucket 64)."""
+    from drand_tpu_torch import dispatch as D
+    from drand_tpu_torch import fixtures as FX
+    from drand_tpu_torch.chain.beacon import Beacon
+    from drand_tpu_torch.chain.scheme import scheme_by_id
+    from drand_tpu_torch.chain.verify import ChainVerifier
+    from drand_tpu_torch.crypto.bls12381 import curve as GC
+    from drand_tpu_torch.ops import kernels as K
+    sigs = np.load(FX.G1_FIXTURE.parent
+                   / "bench_sigs_unchained_512_d6a762f2_ff8a2cc7.npy")
+    cv = ChainVerifier(scheme_by_id("pedersen-bls-unchained"),
+                       GC.g1_to_bytes(FX.fixture_keypair()[1]))
+    beacons = [Beacon(r, bytes(sigs[r - 1])) for r in range(1, 34)]
+    beacons[7].signature = bytes([beacons[7].signature[0] ^ 1]) + \
+        beacons[7].signature[1:]
+    want = [True] * 7 + [False] + [True] * 25
+    D.DISPATCH.clear()
+    K.reset_launches()
+    assert cv.verify_beacons(beacons[:32]).tolist() == want[:32]
+    assert cv.verify_beacon(beacons[7]) is False
+    assert sum(K.launch_counts().values()) == 0
+    assert [r.seam for r in D.DISPATCH.records()] == ["native"] * 33
+    D.DISPATCH.clear()
+    assert cv.verify_beacons(beacons).tolist() == want
+    assert [(r.seam, r.n, r.bucket) for r in D.DISPATCH.records()] == \
+        [("verify", 33, 64)]
+    assert K.launch_counts()["miller_dbl_iter"] == 63
+
+
+def test_objectsync_segment_synced_on_card(cuda, tmp_path):
+    """The committed 16384-round unchained fixture published as one
+    segment object and synced through ObjectSyncClient into a store
+    anchored on a seed: one card batch of 16384, every row equal to the
+    source's; the same object with one byte of round 9000's signature
+    flipped (re-hashed) commits nothing."""
+    import asyncio
+
+    from drand_tpu_torch import dispatch as D
+    from drand_tpu_torch import fixtures as FX
+    from drand_tpu_torch import objectsync as OS
+    from drand_tpu_torch.chain.beacon import Beacon
+    from drand_tpu_torch.chain.scheme import scheme_by_id
+    from drand_tpu_torch.chain.store import (AppendStore, SchemeStore,
+                                             SqliteStore)
+    from drand_tpu_torch.chain.verify import ChainVerifier
+    from drand_tpu_torch.crypto.bls12381 import curve as GC
+    sigs = np.load(FX.G1_FIXTURE.parent
+                   / "bench_sigs_unchained_16384_d6a762f2_ff8a2cc7.npy")
+    scheme = scheme_by_id("pedersen-bls-unchained")
+    seed, chain_hash = b"\x09" * 32, b"\x01" * 32
+    src = SqliteStore(str(tmp_path / "src.db"))
+    src.put_many([Beacon(0, seed)] + [Beacon(r, bytes(sigs[r - 1]))
+                                      for r in range(1, 16385)])
+
+    def run(rows, name):
+        root = tmp_path / name
+        pub = OS.ObjectPublisher(src, OS.FilesystemBackend(str(root)),
+                                 chain_hash, scheme.id)
+        if rows is not None:
+            pub.store = type("Rows", (), {
+                "read_fields": staticmethod(lambda s, n: rows[s - 1:][:n])})()
+        assert asyncio.run(pub.publish_sealed()) == 1
+        base = SqliteStore(str(tmp_path / f"{name}.db"))
+        store = SchemeStore(AppendStore(base), True)
+        store.put(Beacon(0, seed))
+        cv = ChainVerifier(scheme, GC.g1_to_bytes(FX.fixture_keypair()[1]))
+        D.DISPATCH.clear()
+        res = asyncio.run(OS.ObjectSyncClient(
+            OS.FilesystemBackend(str(root)), store, cv,
+            chain_hash=chain_hash).sync())
+        out = (res.to_dict(), [(r.n, r.bucket)
+                               for r in D.DISPATCH.records("verify")],
+               list(base.iter_range(0)))
+        base.close()
+        return out
+
+    res, recs, rows = run(None, "clean")
+    assert res == {"ok": True, "synced_to": 16384, "segments": 1,
+                   "rounds": 16384, "error": ""}
+    assert recs == [(16384, 16384)]
+    assert [(b.round, b.signature, b.previous_sig) for b in rows] == \
+        [(b.round, b.signature, b.previous_sig) for b in src.iter_range(0)]
+    bad = src.read_fields(1, 16384)
+    r, s, p = bad[8999]
+    bad[8999] = (r, s[:30] + bytes([s[30] ^ 1]) + s[31:], p)
+    res, recs, rows = run(bad, "poisoned")
+    assert (res["ok"], res["synced_to"], res["segments"]) == (False, 0, 0)
+    assert "9000" in res["error"] and recs == [(16384, 16384)]
+    assert [b.round for b in rows] == [0]
+    src.close()
 
 
 def test_g1_chain_verifier_on_card(cuda):

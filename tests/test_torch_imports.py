@@ -33,6 +33,7 @@ bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "drand_tpu"
              or k.startswith("drand_tpu."))
 print(len(names), bad)
+print(" ".join(names))
 sys.exit(1 if bad else 0)
 """
 
@@ -42,6 +43,13 @@ def test_port_imports_neither_jax_nor_drand_tpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert int(out.stdout.split()[0]) >= 15
+    names = set(out.stdout.splitlines()[1].split())
+    assert {"drand_tpu_torch.native", "drand_tpu_torch.objectsync",
+            "drand_tpu_torch.objectsync.format",
+            "drand_tpu_torch.objectsync.backends",
+            "drand_tpu_torch.objectsync.client",
+            "drand_tpu_torch.objectsync.publisher",
+            "drand_tpu_torch.chain.store", "drand_tpu_torch.cli"} <= names
 
 
 def test_chip_smoke_imports_neither():
