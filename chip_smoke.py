@@ -135,9 +135,35 @@ Phases, each printing one JSON line:
           bytes altered without re-hashing: a CorruptObjectError, the
           store holding rounds 0-16384; walls, rounds per second and the
           client's fetch, verify and commit seconds
+  follow  catch-up from a peer over gRPC on 127.0.0.1 (the port's
+          PrivateGateway serving a ServingProcess over the full store
+          stack; drand_tpu_torch.core.follow.follow_chain, its SyncManager
+          and GrpcBeaconNetwork): peer A serves the recovery phase's
+          65,536-round store (period 30 s, genesis 65,538 periods back);
+          follow_chain into an empty folder up to 65536: rows equal to
+          A's, each card segment (the pack stage's issue, counted where it
+          happens) launching exactly what one unchained batch at its
+          bucket launches; `python -m drand_tpu_torch.cli sync --follow`
+          into a second folder in a fresh process: exit 0, ok, synced_to
+          65536, rows equal; peer B, a copy with round 40000's signature
+          flipped: given [B, A] (B tried first) the follower renews
+          against A and ends at 65536 with A's rows, given [B] alone it
+          stops at the verified prefix below 40000 with "follow stalled";
+          round 50000 flipped in the first follower's store:
+          check_past_beacons reports exactly [50000] and
+          correct_past_beacons from A repairs it, the rows equal A's
+          again; the chained fixture from a peer C: one card segment
+          (round 1 on the genesis anchor in a bucket of 8, rounds 2-65 in
+          one of 64) launching what the slice phase's chained segment
+          launched, all true, rows equal; C with round 30 flipped: the
+          segment's card verdicts equal verify_beacon's on the host
+          (false at 30 and 31), nothing stored, "follow stalled"; walls,
+          rounds per second, the manager's stage seconds, each segment's
+          start, rounds and bucket, the card records and the peers
+          opened in order
 
-Each run of the slice, trio, g1, recovery, partials, native and catchup
-phases must launch every kernel of its path and no other, and never call
+Each run of the slice, trio, g1, recovery, partials, native, catchup and
+follow phases must launch every kernel of its path and no other, and never call
 the plain limb convolution `_poly_mul_var`: the default batch all but the
 trio kernels (flat_sqr,
 g2_dbl_line, g2_add_line) and those off the G2 paths (mont_sqr,
@@ -152,9 +178,9 @@ the default batch's kernels (the G1 store's, the G1 batch's); a partials
 verify the default batch's (with mont_sqr where the keys are evaluated in
 the batch), and signing and recovery mont_mul, sqr_chain_mul,
 fp2_products, fp2_sqrs, fp2_sqr_chain_mul, g2_point_dbl and g2_point_add;
-a catch-up sync the default batch's kernels; and whatever the host tier
-answers (the chained store's scan, recover of one round, every
-verify_beacon and HostBackend call of the native phase) no kernel.
+a catch-up sync and a follow the default batch's kernels; and whatever
+the host tier answers (the chained store's scan, recover of one round,
+every verify_beacon and HostBackend call of the native phase) no kernel.
 
   parity  every kernel against its plain PyTorch version on the card, bit
           for bit, at every call the batches above made, the G1,
@@ -545,13 +571,22 @@ def kernel_of(device_name: str):
     return "sqr_chain_mul" if base == "fp_pow_chain" else base
 
 
+DEVICE_KERNELS_NOTE = (
+    "device kernel totals are lower bounds: a profiler session may lose "
+    "events of torch's own kernels, whose number the script does not "
+    "know; the port kernels' launches are counted exactly and checked")
+
+
 def profile_kernels(fn, want: dict, tries: int = 4):
     """(kernels, complete): (name, seconds) of every device kernel that
     fn() launches (torch.profiler), and the set of the port's kernels
     whose every launch the session saw, `want` holding the launches fn()
     makes of each.  A session now and then loses events, so one is taken
-    again while any kernel falls short, up to `tries`; the session with
-    the most complete kernels, then the most events, counts."""
+    again while any port kernel falls short, up to `tries`; the session
+    with the most complete kernels, then the most events, counts.  The
+    number of torch's own kernels is known to nothing here, so a session
+    that lost some of them stands: a total of device kernels is a lower
+    bound (DEVICE_KERNELS_NOTE), the port kernels' counts are exact."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1071,6 +1106,7 @@ def partials_phase(default_path):
         "partials_per_s": R * n / rounds_next_s,
         "recoveries_per_s": R / recover_next_s,
         "rounds_verify_device_kernels": rounds_dev,
+        "device_kernels_note": DEVICE_KERNELS_NOTE,
         "rounds_verify_busy_s": rounds_busy,
         "rounds_verify_idle_share": 1.0 - rounds_busy / rounds_next_s,
         "rounds_verify_kernels": rounds_rows,
@@ -1464,6 +1500,352 @@ def catchup_phase(work_dir, default_path, launches, pk_bytes, seed):
     return out, all_calls
 
 
+FOLLOW_PERIOD = 30
+FOLLOW_FLIP = 40000         # round flipped on the damaged peer
+FOLLOW_CHECK = 50000        # round flipped for check-and-repair
+
+
+def follow_phase(work_dir, default_path, launches, chain_launches,
+                 bucket_launches, pk_bytes, seed, sigs_c):
+    """The `follow` phase: catch-up from a peer over gRPC on 127.0.0.1
+    through the port's SyncManager, follow_chain, SyncChain server and
+    `cli sync --follow`, over the 65,536-round unchained store the
+    recovery phase built in `work_dir`.  `bucket_launches(b)` gives what
+    one unchained batch at bucket b launches.  Returns (its report line,
+    the calls by kernel of each driven run)."""
+    import asyncio
+    import sqlite3
+
+    import torch
+
+    from drand_tpu_torch import dispatch as DSP
+    from drand_tpu_torch import verify as V
+    from drand_tpu_torch.chain.beacon import Beacon
+    from drand_tpu_torch.chain.info import Info
+    from drand_tpu_torch.chain.scheme import scheme_by_id
+    from drand_tpu_torch.chain.store import SqliteStore, new_chain_store
+    from drand_tpu_torch.chain.verify import ChainVerifier
+    from drand_tpu_torch.core import follow as FW
+    from drand_tpu_torch.core import services as SVC
+    from drand_tpu_torch.core.process import ServingProcess
+    from drand_tpu_torch.net.client import PeerClients
+    from drand_tpu_torch.net.gateway import PrivateGateway
+    from drand_tpu_torch.ops import kernels as K
+
+    out, all_calls = {"phase": "follow"}, []
+    genesis = int(time.time()) - FOLLOW_PERIOD * STORE_ROUNDS - 60
+    info_u = Info(pk_bytes, FOLLOW_PERIOD, genesis, seed,
+                  scheme_id="pedersen-bls-unchained")
+    info_c = Info(pk_bytes, FOLLOW_PERIOD, genesis, seed)
+
+    class Clock:
+        @staticmethod
+        def now():
+            return time.time()
+
+    def group(info):
+        return type("Group", (), {"period": info.period,
+                                  "genesis_time": info.genesis_time,
+                                  "scheme_id": info.scheme_id})
+
+    def table(path):
+        con = sqlite3.connect(path)
+        try:
+            return con.execute("SELECT round, data FROM beacons "
+                               "ORDER BY round").fetchall()
+        finally:
+            con.close()
+
+    def flip_row(path, round_):
+        con = sqlite3.connect(path)
+        with con:
+            blob = bytearray(con.execute(
+                "SELECT data FROM beacons WHERE round = ?",
+                (round_,)).fetchone()[0])
+            blob[13 + 40] ^= 0x01
+            con.execute("UPDATE beacons SET data = ? WHERE round = ?",
+                        (bytes(blob), round_))
+        con.close()
+
+    # the peers' stores: A the recovery phase's chain, B a copy with round
+    # FOLLOW_FLIP's signature flipped, C the chained fixture
+    path_a = os.path.join(work_dir, "unchained.db")
+    path_b = os.path.join(work_dir, "follow-b.db")
+    SqliteStore(path_a).save_to(path_b)
+    flip_row(path_b, FOLLOW_FLIP)
+    path_c = os.path.join(work_dir, "follow-c.db")
+    chained_rows = [Beacon(0, seed)] + [
+        Beacon(r, sigs_c[r - 1].tobytes(),
+               seed if r == 1 else sigs_c[r - 2].tobytes())
+        for r in range(1, sigs_c.shape[0] + 1)]
+    store = SqliteStore(path_c)
+    store.put_many(chained_rows)
+    store.close()
+    want_a, want_c = table(path_a), table(path_c)
+    peers_of = {"A": (path_a, info_u), "B": (path_b, info_u),
+                "C": (path_c, info_c)}
+    def keeps_order(k):
+        order = [0, 1]
+        random.Random(k).shuffle(order)
+        return order == [0, 1]
+    # a seed under which the manager's shuffle keeps two peers in order
+    keep_order = next(k for k in range(100) if keeps_order(k))
+
+    async def serving(names):
+        """A gateway a peer on 127.0.0.1 (port 0: a free one), started;
+        returns (addresses, a coroutine that stops them and closes the
+        stores)."""
+        gws, stores = [], []
+        for name in names:
+            path, info = peers_of[name]
+            st = new_chain_store(path, group(info), workers=2)
+            procs = {"default": ServingProcess(st, info)}
+            gw = PrivateGateway("127.0.0.1:0", SVC.ProtocolService(procs),
+                                SVC.PublicService(procs))
+            await gw.start()
+            gws.append(gw)
+            stores.append(st)
+
+        async def stop():
+            for gw in gws:
+                await gw.stop()
+            for st in stores:
+                st.close()
+        return [f"127.0.0.1:{gw.port}" for gw in gws], stop
+
+    def follow(what, names, up_to=STORE_ROUNDS, path=default_path):
+        """follow_chain into a fresh folder from the named peers, driven
+        once: (progress or the stall message, the manager's stats,
+        seconds, segments [start, rounds, the buckets of the batches it
+        issued, launches], the card records, the peers opened in order,
+        the db path, each segment's verdicts)."""
+        folder = os.path.join(work_dir, f"follow-{what}")
+        segs, opened, verdicts, issued = [], [], [], []
+        mgr = {}
+
+        def on_manager(sm):
+            mgr["sm"] = sm
+            inner = sm.verifier.verify_packed_segment_async
+            batch = sm.verifier._verifier.verify_batch_async
+
+            def batch_bucket(rounds, sigs, prev_sigs=None):
+                issued.append(V.bucket(len(rounds)))
+                return batch(rounds, sigs, prev_sigs)
+            sm.verifier._verifier.verify_batch_async = batch_bucket
+
+            def counted(packed, anchor):
+                # only the pack stage issues, so `issued` and the counts
+                # grow here by this segment's batches alone
+                first = len(issued)
+                before = K.launch_counts()
+                pending = inner(packed, anchor)
+                after = K.launch_counts()
+                segs.append([packed.start_round, len(packed), issued[first:],
+                             {n: after[n] - before[n] for n in after}])
+
+                def resolve():
+                    ok = pending()
+                    verdicts.append(ok)
+                    return ok
+                return resolve
+            sm.verifier.verify_packed_segment_async = counted
+            sync_chain = sm.net.sync_chain
+
+            def opening(node, from_round):
+                opened.append((node.address, from_round))
+                return sync_chain(node, from_round)
+            sm.net.sync_chain = opening
+            random.seed(keep_order)
+
+        async def main():
+            addrs, stop = await serving(names)
+            clients = PeerClients()
+            try:
+                progress = []
+                async for p in FW.follow_chain(
+                        clients, addrs, folder, Clock(),
+                        chain_hash=peers_of[names[0]][1].hash(),
+                        up_to=up_to, on_manager=on_manager):
+                    progress.append(p)
+                return progress, addrs
+            except FW.FollowStalled as exc:
+                return str(exc), addrs
+            finally:
+                await clients.close()
+                await stop()
+        DSP.DISPATCH.clear()
+        (progress, addrs), secs, counts, calls, n_conv = drive(
+            lambda: asyncio.run(asyncio.wait_for(main(), 900)))
+        check_path(f"follow {what}", counts, n_conv, path)
+        all_calls.append(calls)
+        recs = [[r.n, r.bucket] for r in DSP.DISPATCH.records("verify")]
+        names_of = dict(zip(addrs, names))
+        return (progress, dict(mgr["sm"].stats), secs, segs, recs,
+                [(names_of[a], r) for a, r in opened],
+                os.path.join(folder, FW.DB_NAME), verdicts)
+
+    def check_segments(what, segs):
+        """Every unchained card segment issued one batch and launched
+        exactly what one batch at its bucket launches."""
+        bad = [s[:3] for s in segs
+               if len(s[2]) != 1 or s[3] != bucket_launches(s[2][0])]
+        if bad:
+            fail(f"follow {what}: segments {bad} launched other counts than "
+                 f"one batch at their bucket")
+        return [s[:3] for s in segs]
+
+    def report(res, rounds):
+        progress, stats, secs, segs, recs, opened, _, _ = res
+        return {"result": progress if isinstance(progress, str)
+                else progress[-1], "wall_s": secs,
+                "rounds_per_s": rounds / secs, "stats": stats,
+                "segments": [s[:3] for s in segs], "dispatch": recs,
+                "peers_opened": opened}
+
+    # 1. the whole chain in process from A: rows equal to the source's
+    res = follow("A", ["A"])
+    progress, stats, secs, segs, recs, opened, db, _ = res
+    if progress[-1] != (STORE_ROUNDS, STORE_ROUNDS) or \
+            stats["rounds"] != STORE_ROUNDS or table(db) != want_a:
+        fail(f"follow from A: {progress[-3:]}, stats {stats}, rows equal "
+             f"{table(db) == want_a}")
+    out["follow"] = {**report(res, STORE_ROUNDS),
+                     "segments": check_segments("A", segs),
+                     "segment_launches_equal_batch_at_bucket": True,
+                     "rows_equal_source": True}
+
+    # 2. the same through the CLI in a fresh process
+    async def cli_run():
+        addrs, stop = await serving(["A"])
+        try:
+            proc = await asyncio.create_subprocess_exec(
+                sys.executable, "-m", "drand_tpu_torch.cli", "sync",
+                "--follow", "--sync-nodes", addrs[0], "--db",
+                os.path.join(work_dir, "follow-cli"), "--up-to",
+                str(STORE_ROUNDS), "--chain-hash", info_u.hash().hex(),
+                cwd=HERE, stdout=asyncio.subprocess.PIPE,
+                stderr=asyncio.subprocess.PIPE)
+            try:
+                stdout, stderr = await asyncio.wait_for(proc.communicate(),
+                                                        600)
+            except asyncio.TimeoutError:
+                proc.kill()
+                await proc.wait()
+                raise
+            return proc.returncode, stdout.decode(), stderr.decode()
+        finally:
+            await stop()
+    t0 = time.perf_counter()
+    rc, stdout, stderr = asyncio.run(cli_run())
+    cli_s = time.perf_counter() - t0
+    try:
+        cli_out = json.loads(stdout)
+    except ValueError:
+        cli_out = {}
+    cli_db = os.path.join(work_dir, "follow-cli", FW.DB_NAME)
+    if rc or cli_out.get("ok") is not True or \
+            cli_out.get("synced_to") != STORE_ROUNDS or \
+            table(cli_db) != want_a:
+        fail(f"follow CLI: exit {rc}, {stdout.strip()[-600:]} "
+             f"{stderr.strip()[-600:]}")
+    out["cli"] = {"exit": rc, "wall_s": cli_s, "result": {
+        k: cli_out[k] for k in ("ok", "synced_to", "target")},
+        "stats": cli_out["stats"], "rows_equal_source": True}
+
+    # 3. the damaged peer B first, then A: the follower renews against A
+    # and ends with A's rows; B alone stops at the verified prefix
+    res = follow("BA", ["B", "A"])
+    progress, stats, secs, segs, recs, opened, db, _ = res
+    if progress[-1] != (STORE_ROUNDS, STORE_ROUNDS) or \
+            [o[0] for o in opened] != ["B", "A"] or table(db) != want_a:
+        fail(f"follow from [B, A]: {progress[-3:]}, opened {opened}, rows "
+             f"equal {table(db) == want_a}")
+    out["damaged_then_good"] = {**report(res, STORE_ROUNDS),
+                                "segments": check_segments("BA", segs),
+                                "rows_equal_a": True}
+    res = follow("B", ["B"])
+    progress, stats, secs, segs, recs, opened, db, _ = res
+    rows_b = table(db)
+    prefix = rows_b[-1][0]
+    if not isinstance(progress, str) or "follow stalled" not in progress or \
+            f"round {prefix}/" not in progress or prefix >= FOLLOW_FLIP or \
+            rows_b != want_a[:prefix + 1]:
+        fail(f"follow from [B]: {progress}, stored to {prefix}")
+    out["damaged_alone"] = {**report(res, prefix),
+                            "segments": check_segments("B", segs),
+                            "stopped_at": prefix,
+                            "store_holds_verified_prefix": True}
+
+    # 4. check and repair: round FOLLOW_CHECK flipped in the follower's
+    # store, found by check_past_beacons, repaired from A (what `cli sync`
+    # without --follow runs)
+    folder = os.path.join(work_dir, "follow-A")
+    db = os.path.join(folder, FW.DB_NAME)
+    flip_row(db, FOLLOW_CHECK)
+
+    async def check_repair():
+        addrs, stop = await serving(["A"])
+        clients = PeerClients()
+        try:
+            return await FW.check_chain(clients, addrs, folder, Clock(),
+                                        chain_hash=info_u.hash())
+        finally:
+            await clients.close()
+            await stop()
+    DSP.DISPATCH.clear()
+    res, secs, counts, calls, n_conv = drive(
+        lambda: asyncio.run(asyncio.wait_for(check_repair(), 900)))
+    check_path("follow check_past_beacons", counts, n_conv, default_path)
+    all_calls.append(calls)
+    recs = collections.Counter((r.n, r.bucket)
+                               for r in DSP.DISPATCH.records("verify"))
+    if (res["faulty"], res["fixed"], res["ok"]) != ([FOLLOW_CHECK], 1, True) \
+            or table(db) != want_a:
+        fail(f"follow check and repair: {res}, rows equal "
+             f"{table(db) == want_a}")
+    out["check_repair"] = {**res, "wall_s": secs, "dispatch": sorted(
+        [list(k) + [n] for k, n in recs.items()]), "rows_equal_source": True}
+
+    # 5. the chained fixture from peer C: one card segment (round 1 on the
+    # genesis anchor, rounds 2-65 in a batch of 64) launching what the
+    # slice phase's chained segment launched, its verdicts equal to the
+    # native tier's; then a copy with round 30 flipped
+    res = follow("C", ["C"], up_to=sigs_c.shape[0])
+    progress, stats, secs, segs, recs, opened, db, verdicts = res
+    if progress[-1] != (65, 65) or table(db) != want_c or \
+            recs != [[1, V.bucket(1)], [64, V.bucket(64)]] or \
+            [s[2] for s in segs] != [[V.bucket(1), V.bucket(64)]] or \
+            [s[3] for s in segs] != [chain_launches] or \
+            [v.tolist() for v in verdicts] != [[True] * 65]:
+        fail(f"follow chained: {progress[-2:]}, records {recs}, segments "
+             f"{[s[:3] for s in segs]}, rows equal {table(db) == want_c}")
+    out["chained"] = {**report(res, 65), "rows_equal_source": True,
+                      "segment_launches_equal_slice_chained": True}
+    flip_row(path_c, 30)
+    # the follower links each row to the one before it as served, so
+    # round 31 links to the flipped round 30, as the native phase's
+    bad_c = sigs_c.copy()
+    bad_c[29, 40] ^= 0x01
+    cv = ChainVerifier(scheme_by_id(info_c.scheme_id), pk_bytes)
+    host = [cv.verify_beacon(Beacon(r, bad_c[r - 1].tobytes(),
+                                    seed if r == 1 else
+                                    bad_c[r - 2].tobytes()))
+            for r in range(1, sigs_c.shape[0] + 1)]
+    res = follow("C-flipped", ["C"], up_to=sigs_c.shape[0])
+    progress, stats, secs, segs, recs, opened, db, verdicts = res
+    if progress != "follow stalled at round 0/65" or \
+            [v.tolist() for v in verdicts] != [host] or \
+            host.count(False) != 2 or host[29] or host[30]:
+        fail(f"follow chained, round 30 flipped: {progress}, card "
+             f"{[v.tolist() for v in verdicts]}, host {host}")
+    out["chained_flipped"] = {**report(res, 65),
+                              "verdicts_equal_native": True,
+                              "false_rounds": [i + 1 for i, ok in
+                                               enumerate(host) if not ok]}
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    return out, all_calls
+
+
 # the plain limb convolution, counted wherever the port calls it while
 # `drive` runs
 _CONV = {"calls": 0, "plain": None}
@@ -1698,6 +2080,7 @@ def main() -> int:
         "flipped_batch_wall_s": t_bad, "chained_65_wall_s": t_chain,
         "launches": launches,
         "batch_device_kernels": len(batch_kernels),
+        "device_kernels_note": DEVICE_KERNELS_NOTE,
         "batch_busy_s": sum(d for _, d in batch_kernels),
         "batch_profile_short": sorted(set(K.KERNELS) - set(TRIO)
                                       - batch_complete),
@@ -1770,6 +2153,7 @@ def main() -> int:
         "batch_wall_s": t_trio, "flipped_batch_wall_s": t_trio_bad,
         "launches": trio_launches,
         "batch_device_kernels": len(trio_kernels),
+        "device_kernels_note": DEVICE_KERNELS_NOTE,
         "batch_busy_s": sum(d for _, d in trio_kernels),
         "batch_profile_short": sorted(set(TRIO) - trio_complete),
         "pairing_checks": golden,
@@ -1879,6 +2263,7 @@ def main() -> int:
         "flipped_batch_wall_s": t_g1_bad, "trio_batch_wall_s": t_g1_trio,
         "launches": g1_launches, "trio_launches": g1_trio_launches,
         "batch_device_kernels": len(g1_kernels), "batch_busy_s": g1_busy,
+        "device_kernels_note": DEVICE_KERNELS_NOTE,
         "idle_share": 1.0 - g1_busy / t_g1_next,
         "ours_s": sum(g1_ms.values()) / 1e3,
         "batch_profile_short": sorted(set(G1_PATH) - g1_complete),
@@ -1921,6 +2306,24 @@ def main() -> int:
         report["catchup"], catchup_calls = catchup_phase(
             rec_dir, default_path, launches, pk_bytes, seed)
         emit(report["catchup"])
+
+        # -- follow ----------------------------------------------------------
+        at_bucket = {BATCH: launches}
+
+        def bucket_launches(b):
+            """What one unchained batch at bucket b launches."""
+            if b not in at_bucket:
+                _, _, counts, calls, _ = drive(lambda: verifier.verify_batch(
+                    rounds[:b], sigs[:b]))
+                follow_refs.append(calls)
+                at_bucket[b] = counts
+            return at_bucket[b]
+        follow_refs = []
+        report["follow"], follow_calls = follow_phase(
+            rec_dir, default_path, launches, chain_launches, bucket_launches,
+            pk_bytes, seed, sigs_c)
+        follow_calls += follow_refs
+        emit(report["follow"])
     finally:
         shutil.rmtree(rec_dir, ignore_errors=True)
 
@@ -1932,6 +2335,7 @@ def main() -> int:
                  | set().union(*(c[name] for c in partials_calls))
                  | set().union(*(c[name] for c in native_calls))
                  | set().union(*(c[name] for c in catchup_calls))
+                 | set().union(*(c[name] for c in follow_calls))
                  for name in K.KERNELS}
 
     # -- parity --------------------------------------------------------------

@@ -1,6 +1,7 @@
 """The chain store: sqlite, its read-and-repair side, and the decorators a
 sync commits through (counterpart of `drand_tpu/chain/store.py`
-`SqliteStore`, `StoreDecorator`, `AppendStore`, `SchemeStore`).
+`SqliteStore`, `StoreDecorator`, `AppendStore`, `SchemeStore`,
+`DiscrepancyStore`, `CallbackStore` and `new_chain_store`).
 
 The same two tables as `drand_tpu`'s store,
 
@@ -20,10 +21,13 @@ from __future__ import annotations
 import os
 import sqlite3
 import threading
-from typing import Iterator, Optional
+import time as _time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Iterator, Optional
 
 from drand_tpu_torch.chain import codec as row_codec
 from drand_tpu_torch.chain.beacon import Beacon
+from drand_tpu_torch.chain.time import time_of_round
 
 # rows fetched per sqlite call on a deep scan (iter_range)
 _FETCH_BATCH = 1024
@@ -425,3 +429,136 @@ class SchemeStore(StoreDecorator):
                     f"round {b.round} previous-sig does not link to chain")
             prev = b
         self.inner.put_many(beacons)
+
+
+class DiscrepancyStore(StoreDecorator):
+    """Reports a beacon's latency, now less the round's expected time, in
+    milliseconds, through `on_latency(round, ms)` on every put (drand
+    `chain/store.go` discrepancyStore); a segment's `put_many` reports its
+    head only, and its size through `on_segment(n)`."""
+
+    def __init__(self, inner: Store, group, clock=None, on_latency=None,
+                 on_segment=None):
+        super().__init__(inner)
+        self.group = group
+        self.clock = clock or _time.time
+        self.on_latency = on_latency
+        self.on_segment = on_segment
+
+    def _latency(self, beacon: Beacon) -> None:
+        expected = time_of_round(self.group.period, self.group.genesis_time,
+                                 beacon.round)
+        self.on_latency(beacon.round, (self.clock() - expected) * 1000.0)
+
+    def put(self, beacon: Beacon) -> None:
+        self.inner.put(beacon)
+        if self.on_latency is not None:
+            self._latency(beacon)
+
+    def put_many(self, beacons) -> None:
+        beacons = list(beacons)
+        self.inner.put_many(beacons)
+        if self.on_segment is not None and beacons:
+            self.on_segment(len(beacons))
+        if self.on_latency is not None and beacons:
+            self._latency(beacons[-1])
+
+
+class CallbackStore(StoreDecorator):
+    """Hands every stored beacon to registered callbacks on a worker pool
+    (drand `chain/store.go` callbackStore), so a callback never blocks the
+    append path.  Two kinds:
+
+      - `add_callback`: each beacon, in round order of submission (a
+        segment's beacons as FANOUT_CHUNK-sized slices, one pool task a
+        slice);
+      - `add_tail_callback`: the last beacon of each commit, called on the
+        committing thread (cheap bookkeeping such as a tip).
+
+    A callback that raises is ignored.  drand_tpu's segment callbacks
+    (`add_segment_callback`) have no caller in the port."""
+
+    FANOUT_CHUNK = 512
+
+    def __init__(self, inner: Store, workers: int | None = None):
+        super().__init__(inner)
+        self._cbs: dict[str, Callable[[Beacon], None]] = {}
+        self._tail_cbs: dict[str, Callable[[Beacon], None]] = {}
+        self._lock = threading.Lock()
+        self._pool = ThreadPoolExecutor(
+            max_workers=workers or min(8, (os.cpu_count() or 2)))
+
+    def add_callback(self, cb_id: str, cb: Callable[[Beacon], None]) -> None:
+        with self._lock:
+            self._cbs[cb_id] = cb
+
+    def add_tail_callback(self, cb_id: str,
+                          cb: Callable[[Beacon], None]) -> None:
+        with self._lock:
+            self._tail_cbs[cb_id] = cb
+
+    def remove_callback(self, cb_id: str) -> None:
+        with self._lock:
+            self._cbs.pop(cb_id, None)
+            self._tail_cbs.pop(cb_id, None)
+
+    def _registered(self):
+        with self._lock:
+            return list(self._cbs.values()), list(self._tail_cbs.values())
+
+    def put(self, beacon: Beacon) -> None:
+        self.inner.put(beacon)
+        cbs, tails = self._registered()
+        for cb in cbs:
+            self._pool.submit(self._safe, cb, beacon)
+        for cb in tails:
+            self._safe(cb, beacon)
+
+    def put_many(self, beacons) -> None:
+        beacons = list(beacons)
+        self.inner.put_many(beacons)
+        if not beacons:
+            return
+        cbs, tails = self._registered()
+        for cb in cbs:
+            for i in range(0, len(beacons), self.FANOUT_CHUNK):
+                self._pool.submit(self._safe_many, cb,
+                                  beacons[i:i + self.FANOUT_CHUNK])
+        for cb in tails:
+            self._safe(cb, beacons[-1])
+
+    @staticmethod
+    def _safe(cb, arg) -> None:
+        try:
+            cb(arg)
+        except Exception:
+            pass
+
+    @staticmethod
+    def _safe_many(cb, beacons) -> None:
+        for b in beacons:
+            try:
+                cb(b)
+            except Exception:
+                pass
+
+    def close(self) -> None:
+        self._pool.shutdown(wait=False)
+        self.inner.close()
+
+
+def new_chain_store(db_path: str, group, workers=None) -> CallbackStore:
+    """The full stack CallbackStore(DiscrepancyStore(SchemeStore(
+    AppendStore(SqliteStore)))) (drand `chain/beacon/chain.go`).  `group`
+    gives `period`, `genesis_time` and `scheme_id`.  `.insecure` on the
+    result is the bare SqliteStore, which repairs write through.  The
+    DiscrepancyStore reports nothing: the latency and segment metrics it
+    feeds in drand_tpu are not ported."""
+    from drand_tpu_torch.chain.scheme import scheme_by_id
+    scheme = scheme_by_id(group.scheme_id)
+    base = SqliteStore(db_path)
+    stack = SchemeStore(AppendStore(base), scheme.decouple_prev_sig)
+    stack = DiscrepancyStore(stack, group)
+    out = CallbackStore(stack, workers=workers)
+    out.insecure = base
+    return out

@@ -7,6 +7,9 @@
         [--db DB] [--chain-hash HEX] [--scheme ID] [--public-key HEX]
         [--segment-rounds N] [--up-to ROUND] [--genesis-seed HEX]
         [--device cpu]
+    python -m drand_tpu_torch.cli sync --sync-nodes HOST:PORT[,...] --db DIR
+        [--follow] [--up-to ROUND] [--chain-hash HEX] [--id BEACON_ID]
+        [--device cpu]
 
 `util fsck` is the offline integrity check of a chain database: the
 structural scan of `chain/recovery.py` (each row decoded, round
@@ -25,6 +28,20 @@ through `SchemeStore(AppendStore(SqliteStore))`, anchored on
 `--device cpu` is given; `status` prints the manifest's summary.  Each
 prints one JSON object; exit 1 when a publish or a sync stopped on an
 error.  drand_tpu's `--url` (an HTTP object store) is not ported.
+
+`sync` catches up from peers over gRPC, in this process (drand_tpu's CLI
+asks a running daemon through its control port; the port has no daemon
+yet).  With `--follow` it runs `core.follow.follow_chain` into the chain
+store `DIR/drand.db` (the full decorator stack, genesis seeded when
+empty) up to `--up-to` (default: the current round by the clock), the
+chain info fetched from the peers and checked against `--chain-hash`;
+without it, drand's check-chain: `SyncManager.check_past_beacons` on
+that store, then `correct_past_beacons` of the faulty rounds from the
+peers.  It verifies on the card unless `--device cpu` is given, writes
+progress to stderr and prints one JSON object (`ok`, `synced_to`,
+`target`, the manager's `stats`; check-chain also `faulty` and
+`fixed`); exit 1 when the follow stalled short of its target or a faulty
+round stayed unrepaired.  Only `sync` needs `grpc`.
 """
 
 from __future__ import annotations
@@ -34,6 +51,7 @@ import asyncio
 import json
 import os
 import sys
+import time
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -78,7 +96,70 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--device", default=None,
                     help="sync: the verifier's device (default: the "
                     "current CUDA device; 'cpu' for the plain path)")
+
+    sp = sub.add_parser("sync", help="catch up a chain store from peers "
+                        "over gRPC (follow, or check and repair)")
+    sp.add_argument("--sync-nodes", required=True,
+                    help="comma-separated peer addresses (host:port)")
+    sp.add_argument("--db", required=True,
+                    help="the chain store's folder (drand.db in it)")
+    sp.add_argument("--up-to", type=int, default=0,
+                    help="target round (0: the current round)")
+    sp.add_argument("--follow", action="store_true",
+                    help="follow the chain; without it, check the "
+                    "stored chain and repair faulty rounds from the peers")
+    sp.add_argument("--chain-hash", default="",
+                    help="hex chain hash the peers' chain info must match")
+    sp.add_argument("--id", default="default", dest="beacon_id",
+                    help="beacon id")
+    sp.add_argument("--device", default=None,
+                    help="the verifier's device (default: the current "
+                    "CUDA device; 'cpu' for the plain path)")
     return p
+
+
+class _WallClock:
+    @staticmethod
+    def now() -> float:
+        return time.time()
+
+
+def _progress(cur: int, target: int) -> None:
+    print(f"sync {cur}/{target}", file=sys.stderr, flush=True)
+
+
+async def cmd_sync(args) -> int:
+    """Follow a chain from peers, or check the stored one and repair its
+    faulty rounds from them; prints one JSON object."""
+    from drand_tpu_torch.core import follow as FW
+    from drand_tpu_torch.net.client import PeerClients
+    addresses = [a for a in args.sync_nodes.split(",") if a]
+    kw = dict(beacon_id=args.beacon_id, up_to=args.up_to, device=args.device,
+              chain_hash=bytes.fromhex(args.chain_hash)
+              if args.chain_hash else b"")
+    peers, managers = PeerClients(), []
+    try:
+        if args.follow:
+            out = {"ok": True, "synced_to": 0, "target": args.up_to,
+                   "error": ""}
+            try:
+                async for cur, target in FW.follow_chain(
+                        peers, addresses, args.db, _WallClock(),
+                        on_manager=managers.append, **kw):
+                    out.update(synced_to=cur, target=target)
+                    _progress(cur, target)
+            except FW.FollowStalled as exc:
+                out.update(ok=False, error=str(exc))
+        else:
+            out = await FW.check_chain(peers, addresses, args.db,
+                                       _WallClock(),
+                                       on_manager=managers.append, **kw)
+            _progress(out["synced_to"], out["target"])
+    finally:
+        await peers.close()
+    out["stats"] = dict(managers[0].stats) if managers else {}
+    print(json.dumps(out, indent=1))
+    return 0 if out["ok"] else 1
 
 
 async def cmd_fsck(args) -> int:
@@ -201,6 +282,8 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "objectsync":
         return asyncio.run(cmd_objectsync(args))
+    if args.command == "sync":
+        return asyncio.run(cmd_sync(args))
     return asyncio.run(cmd_fsck(args))
 
 

@@ -8,11 +8,11 @@ exists past the last published one), so every object is immutable.
 
 `publish_sealed` is the one-shot drive (the CLI's `objectsync publish`):
 rows are read with ``read_fields`` (no Beacon made) in a worker thread,
-objects written through the async ObjectStore seam.  drand_tpu's live
-drive (a tail callback on each commit waking a publish loop) needs its
-CallbackStore, which the port does not have yet, so it is not ported:
-`attach` skips a store without ``add_tail_callback``, as the reference
-does, and refuses one with it.
+objects written through the async ObjectStore seam.  The live drive,
+`start`/`stop`, registers a tail callback on a `chain.store.CallbackStore`
+(called on the committing thread: it notes the tip and wakes the loop)
+and runs a publish loop on the event loop; a store without the callback
+seam is published on demand only.
 
 Restart is idempotent: the manifest is the durable cursor.  The publisher
 reads it back, checks the chain's identity and resumes at ``tip + 1``; a
@@ -32,6 +32,8 @@ from drand_tpu_torch.objectsync import format as ofmt
 from drand_tpu_torch.objectsync.backends import ObjectNotFound, ObjectStore
 
 log = logging.getLogger("drand_tpu_torch.objectsync")
+
+_CB_ID = "objectsync-pub"
 
 
 class PublisherError(Exception):
@@ -53,15 +55,74 @@ class ObjectPublisher:
         self.segment_rounds = segment_rounds
         self.manifest: ofmt.Manifest | None = None
         self.last_error: str = ""
+        self._tip = 0                 # the freshest committed round seen
+        self._wake = asyncio.Event()
+        self._task: asyncio.Task | None = None
+        self._attached = False
+
+    # -- store hook (committing thread; stays O(1)) -------------------------
 
     def attach(self) -> None:
-        """A store without the tail-callback seam (a bare or decorated
-        SqliteStore) is skipped: ``publish_sealed`` publishes on demand.
-        A store with the seam would want the live drive, which is not
-        ported: raises rather than publish nothing quietly."""
-        if hasattr(self.store, "add_tail_callback"):
-            raise PublisherError("the live publish drive is not ported; "
-                                 "call publish_sealed")
+        """Register the tail callback; a store without the callback seam
+        (a bare or decorated SqliteStore) is skipped: ``publish_sealed``
+        publishes it on demand."""
+        if self._attached or not hasattr(self.store, "add_tail_callback"):
+            return
+        loop = asyncio.get_running_loop()
+
+        def note_tail(beacon) -> None:
+            self._tip = max(self._tip, beacon.round)
+            try:
+                loop.call_soon_threadsafe(self._wake.set)
+            except RuntimeError:
+                pass                     # the loop closed at shutdown
+        self.store.add_tail_callback(_CB_ID, note_tail)
+        self._attached = True
+
+    def detach(self) -> None:
+        if self._attached:
+            self.store.remove_callback(_CB_ID)
+            self._attached = False
+
+    # -- live drive ---------------------------------------------------------
+
+    async def start(self) -> None:
+        """Attach, read the manifest back and start the publish loop: it
+        publishes what is sealed, then waits for the next commit."""
+        self.attach()
+        await self.load_manifest()
+        if self._task is None:
+            self._task = asyncio.get_running_loop().create_task(self._run())
+
+    def cancel(self) -> None:
+        """Detach and cancel the loop without waiting for it."""
+        self.detach()
+        if self._task is not None:
+            self._task.cancel()
+            self._task = None
+
+    async def stop(self) -> None:
+        task = self._task
+        self.cancel()
+        if task is not None:
+            try:
+                await task
+            except (asyncio.CancelledError, Exception):
+                pass
+
+    async def _run(self) -> None:
+        while True:
+            try:
+                await self.publish_sealed()
+            except asyncio.CancelledError:
+                raise
+            except Exception as exc:
+                # a failed backend write is retried at the next commit;
+                # the snapshot shows the error until then
+                self.last_error = str(exc)
+                log.warning("objectsync publish failed: %s", exc)
+            await self._wake.wait()
+            self._wake.clear()
 
     # -- manifest cursor ----------------------------------------------------
 
@@ -131,15 +192,20 @@ class ObjectPublisher:
                      start, m.tip, name)
         return published
 
+    def _store_tip(self) -> int:
+        if self._tip:
+            return self._tip
+        try:
+            return self.store.last().round
+        except Exception:
+            return 0
+
     # -- observability ------------------------------------------------------
 
     def snapshot(self) -> dict:
         """Point-in-time publisher state (the CLI's `publish` output)."""
         m = self.manifest
-        try:
-            tip = self.store.last().round
-        except Exception:
-            tip = 0
+        tip = self._store_tip()
         published_tip = m.tip if m else 0
         return {
             "backend": self.backend.describe(),
@@ -148,6 +214,6 @@ class ObjectPublisher:
             "published_tip": published_tip,
             "store_tip": tip,
             "lag_rounds": max(tip - published_tip, 0),
-            "attached": False,          # no live drive (see attach)
+            "attached": self._attached,
             "last_error": self.last_error,
         }

@@ -1035,3 +1035,105 @@ def test_recover_rounds_equals_secret_signatures_on_card(cuda):
     ok = V.Verifier(pub.commits[0], V.SHAPE_UNCHAINED).verify_batch(
         rounds, np.stack([np.frombuffer(s, np.uint8) for s in want]))
     assert ok.all()
+
+
+def test_follow_chained_over_grpc_on_card(cuda, tmp_path):
+    """The committed 65-round chained fixture served by the port's gateway
+    on localhost and followed by `core.follow.follow_chain` on the card:
+    one segment, round 1 alone on the genesis anchor (bucket 8) and
+    rounds 2-65 in one batch of 64, rows equal to the source's; from a
+    peer whose round 30 is flipped, the card's verdicts of that segment
+    equal the native tier's (false at 30 and 31) and nothing is
+    stored."""
+    pytest.importorskip("grpc")
+    import asyncio
+
+    from drand_tpu_torch import dispatch as D
+    from drand_tpu_torch import fixtures as FX
+    from drand_tpu_torch.chain.beacon import Beacon
+    from drand_tpu_torch.chain.info import Info
+    from drand_tpu_torch.chain.scheme import scheme_by_id
+    from drand_tpu_torch.chain.store import new_chain_store
+    from drand_tpu_torch.chain.verify import ChainVerifier
+    from drand_tpu_torch.core import follow as FW
+    from drand_tpu_torch.core import services as SV
+    from drand_tpu_torch.core.process import ServingProcess
+    from drand_tpu_torch.net.client import PeerClients
+    from drand_tpu_torch.net.gateway import PrivateGateway
+    sigs, pk, seed = FX.load_chained_fixture()
+    info = Info(pk, 30, 1_600_000_000, seed)
+    group = type("G", (), {"period": 30, "genesis_time": 1_600_000_000,
+                           "scheme_id": info.scheme_id})
+    cv = ChainVerifier(scheme_by_id(info.scheme_id), pk, device="cpu")
+
+    class Clock:
+        def now(self):
+            return 1_600_000_000 + 30 * 100
+
+    def serve(name, flip=None):
+        bad = sigs.copy()
+        if flip is not None:
+            bad[flip - 1, 40] ^= 0x01
+        store = new_chain_store(str(tmp_path / name), group, workers=1)
+        store.put(Beacon(0, seed))
+        beacons = [Beacon(r, bytes(bad[r - 1]),
+                          seed if r == 1 else bytes(bad[r - 2]))
+                   for r in range(1, 66)]
+        store.insecure.put_many(beacons)
+        return store, beacons
+
+    def follow(store, folder):
+        verdicts = []
+
+        def on_manager(sm):
+            inner = sm.verifier.verify_packed_segment_async
+
+            def packed(seg, anchor):
+                pending = inner(seg, anchor)
+
+                def resolve():
+                    ok = pending()
+                    verdicts.append(ok.tolist())
+                    return ok
+                return resolve
+            sm.verifier.verify_packed_segment_async = packed
+
+        async def main():
+            procs = {"default": ServingProcess(store, info)}
+            gw = PrivateGateway("127.0.0.1:0", SV.ProtocolService(procs),
+                                SV.PublicService(procs))
+            await gw.start()
+            peers = PeerClients()
+            try:
+                return [p async for p in FW.follow_chain(
+                    peers, [f"127.0.0.1:{gw.port}"], str(folder), Clock(),
+                    chain_hash=info.hash(), up_to=65,
+                    on_manager=on_manager)]
+            finally:
+                await peers.close()
+                await gw.stop()
+        D.DISPATCH.clear()
+        try:
+            progress = asyncio.run(asyncio.wait_for(main(), 300))
+        except FW.FollowStalled as exc:
+            progress = str(exc)
+        return (progress, verdicts,
+                [(r.n, r.bucket) for r in D.DISPATCH.records("verify")])
+
+    src, beacons = serve("src.db")
+    progress, verdicts, recs = follow(src, tmp_path / "f")
+    assert progress[-1] == (65, 65)
+    assert verdicts == [[True] * 65] and recs == [(1, 8), (64, 64)]
+    got = new_chain_store(str(tmp_path / "f" / FW.DB_NAME), group)
+    assert [(b.round, b.signature, b.previous_sig)
+            for b in got.iter_range(0)] == \
+        [(b.round, b.signature, b.previous_sig) for b in src.iter_range(0)]
+    got.close()
+    src.close()
+
+    bad, beacons = serve("bad.db", flip=30)
+    progress, verdicts, recs = follow(bad, tmp_path / "g")
+    host = [cv.verify_beacon(b) for b in beacons]
+    assert progress == "follow stalled at round 0/65"
+    assert verdicts == [host] and host.count(False) == 2 and not host[29]
+    bad.close()

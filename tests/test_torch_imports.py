@@ -52,6 +52,81 @@ def test_port_imports_neither_jax_nor_drand_tpu():
             "drand_tpu_torch.chain.store", "drand_tpu_torch.cli"} <= names
 
 
+_WIRE_PURITY = r"""
+import importlib, pkgutil, sys
+import drand_tpu_torch
+names = []
+for m in pkgutil.walk_packages(drand_tpu_torch.__path__, "drand_tpu_torch."):
+    importlib.import_module(m.name)
+    names.append(m.name)
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "drand_tpu", "common", "crypto",
+                                    "drand"))
+print(bad)
+print(" ".join(names))
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_wire_modules_import_as_package_modules():
+    """Every port module, net/, core/ and protogen/ included, loads no
+    drand_tpu or jax module and no top-level `common`, `crypto` or
+    `drand` module (drand_tpu's protogen puts its own directory on
+    sys.path; the port's copy does not)."""
+    before = list(sys.path)
+    out = subprocess.run([sys.executable, "-c", _WIRE_PURITY], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    names = set(out.stdout.splitlines()[1].split())
+    assert {"drand_tpu_torch.protogen", "drand_tpu_torch.protogen.drand.drand_pb2",
+            "drand_tpu_torch.protogen.common.common_pb2",
+            "drand_tpu_torch.protogen.crypto.dkg.dkg_pb2",
+            "drand_tpu_torch.net.rpc", "drand_tpu_torch.net.client",
+            "drand_tpu_torch.net.gateway", "drand_tpu_torch.core.convert",
+            "drand_tpu_torch.core.process", "drand_tpu_torch.core.services",
+            "drand_tpu_torch.core.follow", "drand_tpu_torch.chain.info",
+            "drand_tpu_torch.chain.time", "drand_tpu_torch.common",
+            "drand_tpu_torch.beacon.sync_manager"} <= names
+    assert sys.path == before
+    src = (ROOT / "drand_tpu_torch" / "protogen").rglob("*.py")
+    assert not any("import sys" in p.read_text()
+                   or "sys.path.insert" in p.read_text() for p in src)
+
+
+_NO_GRPC = r"""
+import sys
+for name in ("grpc", "grpc.aio", "google.protobuf"):
+    sys.modules[name] = None
+import drand_tpu_torch
+import drand_tpu_torch.beacon.sync_manager
+import drand_tpu_torch.chain.store
+import drand_tpu_torch.chain.info
+from drand_tpu_torch import cli
+args = cli.build_parser().parse_args(["sync", "--sync-nodes", "x:1",
+                                      "--db", "d", "--follow"])
+assert args.follow and args.sync_nodes == "x:1"
+bad = sorted(k for k in sys.modules if k.startswith("drand_tpu_torch.net")
+             or k.startswith("drand_tpu_torch.protogen")
+             or k.startswith("drand_tpu_torch.core"))
+print(bad)
+try:
+    import drand_tpu_torch.net.client
+except ImportError:
+    print("net needs grpc")
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_imports_without_grpc():
+    """With grpc and protobuf hidden, the package, its CLI (every
+    subcommand's parser) and the sync manager import; only net/ and
+    protogen/ need the wire, and nothing loads them until `sync` runs."""
+    out = subprocess.run([sys.executable, "-c", _NO_GRPC], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.splitlines() == ["[]", "net needs grpc"]
+
+
 def test_chip_smoke_imports_neither():
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
     mods = set()

@@ -279,15 +279,11 @@ def test_publisher_resumes_from_manifest(tmp_path):
 
 def test_publisher_live_drive_and_attach(tmp_path):
     """attach skips a store without the tail-callback seam, as drand_tpu's
-    does, and publish_sealed still publishes on demand; a store with the
-    seam is refused (the live drive is not ported), never quietly left
-    unpublished."""
+    does, and publish_sealed still publishes on demand; on a
+    CallbackStore it registers the live drive's tail callback (attached
+    in the snapshot), and detach removes it."""
     rows = seeded_rows(7, 1, 16)
     base = source_store(tmp_path / "db.sqlite", rows)
-
-    class Callbacks(ST.StoreDecorator):
-        def add_tail_callback(self, key, fn):
-            raise AssertionError("no callback is registered")
 
     async def main():
         bare = OS.ObjectPublisher(base, OS.FilesystemBackend(
@@ -296,10 +292,15 @@ def test_publisher_live_drive_and_attach(tmp_path):
         assert await bare.publish_sealed() == 1
         snap = bare.snapshot()
         assert snap["attached"] is False and snap["published_tip"] == 16
-        live = OS.ObjectPublisher(Callbacks(base), OS.FilesystemBackend(
+        cbs = ST.CallbackStore(base, workers=1)
+        live = OS.ObjectPublisher(cbs, OS.FilesystemBackend(
             str(tmp_path / "live")), CHAIN_HASH, CHAINED, segment_rounds=16)
-        with pytest.raises(OS.PublisherError, match="not ported"):
-            live.attach()
+        live.attach()
+        assert live.snapshot()["attached"] is True
+        assert list(cbs._tail_cbs) == ["objectsync-pub"]
+        live.detach()
+        assert live.snapshot()["attached"] is False and not cbs._tail_cbs
+        cbs._pool.shutdown(wait=True)
     asyncio.run(main())
     base.close()
 
