@@ -161,9 +161,43 @@ Phases, each printing one JSON line:
           rounds per second, the manager's stage seconds, each segment's
           start, rounds and bucket, the card records and the peers
           opened in order
+  beacon  the port's beacon engine (drand_tpu_torch.beacon.node Handler,
+          beacon.chain ChainStore, core.daemon DrandDaemon) on a group of
+          n = 16, t = 9, pedersen-bls-chained, period 3 s, catch-up period
+          1 s, the secret polynomial and each node's key pair from fixed
+          seeds, key pair, group and share written through key.store
+          FileStore; (a) clockwork: 16 DrandDaemons in this process, each
+          with its gateway on 127.0.0.1, node 0 checking partials on the
+          card (DeviceBackend), nodes 1-15 on the host tier, one
+          FakeClock: genesis, then rounds 1-8, each advance of one period
+          waited for until all 16 stores hold the round (60 s a round);
+          signer 5's round-4 partial with one byte flipped sent to node
+          0's PartialBeacon before that advance: the 16 stores byte-equal,
+          each round the dealt secret's signature, the ChainVerifier
+          accepting the chain, PublicRand of node 0 giving round 8 and its
+          PublicRandStream rounds 1-8 in order, node 0's verdict on the
+          flipped partial false, each of node 0's verify_partials calls
+          giving HostBackend's verdicts, and its first call launching
+          exactly what the partials phase's 16-partial burst launched;
+          each call's size, rounds and wall, and each round's wall from
+          the advance until every store holds it; (b) live: a second group
+          of the same keys and shares on free ports, genesis 30 s ahead
+          rounded up to the period, every node `python -m
+          drand_tpu_torch.cli start` in a process of its own on the wall
+          clock (node 0 on the card, nodes 1-15 with --device cpu and no
+          CUDA device visible), PublicRandStream of nodes 0 and 1 watched
+          until node 1 holds round 10 (node 0 given two periods more),
+          then SIGTERM to every node: each exits 0, node 0's store (tip at
+          least 9) a prefix of node 1's, node 0 made a card call in
+          rounds 2 to its tip and none of its card calls raised; each
+          round's lateness on both streams and node 0's card calls
+          (count, sizes, walls, starts) from its dispatch records,
+          recorded and not asserted; and, after the parity phase, the
+          number of parity checks at the clockwork run's calls
 
-Each run of the slice, trio, g1, recovery, partials, native, catchup and
-follow phases must launch every kernel of its path and no other, and never call
+Each run of the slice, trio, g1, recovery, partials, native, catchup,
+follow and beacon (clockwork) phases must launch every kernel of its path
+and no other, and never call
 the plain limb convolution `_poly_mul_var`: the default batch all but the
 trio kernels (flat_sqr,
 g2_dbl_line, g2_add_line) and those off the G2 paths (mont_sqr,
@@ -178,13 +212,14 @@ the default batch's kernels (the G1 store's, the G1 batch's); a partials
 verify the default batch's (with mont_sqr where the keys are evaluated in
 the batch), and signing and recovery mont_mul, sqr_chain_mul,
 fp2_products, fp2_sqrs, fp2_sqr_chain_mul, g2_point_dbl and g2_point_add;
-a catch-up sync and a follow the default batch's kernels; and whatever
+a catch-up sync, a follow and the beacon clockwork the default batch's
+kernels; and whatever
 the host tier answers (the chained store's scan, recover of one round,
 every verify_beacon and HostBackend call of the native phase) no kernel.
 
   parity  every kernel against its plain PyTorch version on the card, bit
           for bit, at every call the batches above made, the G1,
-          recovery, partials, native and catchup ones included
+          recovery, partials, native, catchup, follow and beacon ones included
           (g2_point_dbl
           and cyclo_sqr at each of their chain lengths) and at fixed
           cases: 16384 rows for Fp and Fr (sqr_chain_mul, whose path
@@ -1848,6 +1883,445 @@ def follow_phase(work_dir, default_path, launches, chain_launches,
 
 # the plain limb convolution, counted wherever the port calls it while
 # `drive` runs
+# the beacon phase's group: n = 16, t = 9 = minimum_threshold(16), as the
+# partials phase's; period 3 s, catch-up period 1 s; the secret
+# polynomial and the nodes' key pairs from fixed seeds
+BEACON_N, BEACON_T, BEACON_PERIOD = 16, 9, 3
+BEACON_SEED = b"drand_tpu_torch beacon group"
+BEACON_ROUNDS = 8               # clockwork: rounds 1-8
+BEACON_BAD_ROUND = 4            # the flipped partial: signer 5's, round 4
+BEACON_LIVE_TARGET = 10         # live: stop once node 1 holds round 10
+BEACON_LIVE_LEAD_S = 30         # live: genesis this far ahead, rounded up
+
+
+def beacon_group(folders, addresses, genesis):
+    """The beacon phase's group over `addresses` (node i's key pair from
+    the seed "beacon node i"), each node's key pair, group and share
+    written through the port's FileStore into folders[i].  Returns (the
+    group, the polynomial, each node's share index)."""
+    from drand_tpu_torch.crypto.bls12381 import curve as GC
+    from drand_tpu_torch.crypto.poly import PriPoly
+    from drand_tpu_torch.key.group import Group, minimum_threshold
+    from drand_tpu_torch.key.keys import DistPublic, Pair, Share
+    from drand_tpu_torch.key.store import FileStore
+    assert BEACON_T == minimum_threshold(BEACON_N)
+    poly = PriPoly.random(BEACON_T, rand=sha512_stream(BEACON_SEED))
+    commits = [GC.g1_to_bytes(c) for c in poly.commit().commits]
+    pairs = [Pair.generate(a, seed=b"beacon node %d" % i)
+             for i, a in enumerate(addresses)]
+    group = Group(threshold=BEACON_T, period=BEACON_PERIOD,
+                  nodes=Group.sort_nodes([p.public for p in pairs]),
+                  genesis_time=int(genesis), catchup_period=1,
+                  scheme_id="pedersen-bls-chained",
+                  public_key=DistPublic(commits))
+    group.get_genesis_seed()
+    index = [group.find(p.public).index for p in pairs]
+    for folder, pair, idx in zip(folders, pairs, index):
+        ks = FileStore(folder)
+        ks.save_key_pair(pair)
+        ks.save_group(group)
+        ks.save_share(Share(commits, poly.eval(idx)))
+    return group, poly, index
+
+
+def beacon_rows(folder):
+    """(round, stored bytes) of a node's chain database."""
+    import sqlite3
+    con = sqlite3.connect(os.path.join(folder, "multibeacon", "default",
+                                       "db", "drand.db"))
+    try:
+        return con.execute("SELECT round, data FROM beacons "
+                           "ORDER BY round").fetchall()
+    finally:
+        con.close()
+
+
+def beacon_clockwork(work_dir, default_path, burst_launches):
+    """Part (a) of the beacon phase: 16 port DrandDaemons in this process
+    under one FakeClock, node 0 on the card, nodes 1-15 on the host
+    tier; genesis, then rounds 1-8, one period a step, each waited for
+    on all 16 stores.  Returns (its report, the calls by kernel of the
+    driven run)."""
+    import asyncio
+
+    from drand_tpu_torch.beacon.clock import FakeClock
+    from drand_tpu_torch.beacon.crypto_backend import HostBackend
+    from drand_tpu_torch.chain.beacon import Beacon
+    from drand_tpu_torch.chain.scheme import scheme_by_id
+    from drand_tpu_torch.chain.verify import ChainVerifier
+    from drand_tpu_torch.core.config import Config
+    from drand_tpu_torch.core.daemon import DrandDaemon
+    from drand_tpu_torch.crypto import sign as SG
+    from drand_tpu_torch.crypto import tbls
+    from drand_tpu_torch.crypto.poly import PriShare
+    from drand_tpu_torch.net.client import PeerClients, make_metadata
+    from drand_tpu_torch.ops import kernels as K
+    from drand_tpu_torch.protogen import drand_pb2
+
+    n, period, start = BEACON_N, BEACON_PERIOD, 1_700_000_000.0
+    folders = [os.path.join(work_dir, f"clockwork-{i}") for i in range(n)]
+    node0_calls, per_round, streamed, state = [], [], [], {}
+
+    def record_calls(be):
+        """Wrap node 0's DeviceBackend.verify_partials: each call's
+        inputs, verdicts, wall and launches (only node 0 launches port
+        kernels in this run; its calls run one at a time in the crypto
+        thread)."""
+        inner = be.verify_partials
+
+        def recorded(msgs, parts):
+            before = K.launch_counts()
+            t0 = time.perf_counter()
+            out = inner(msgs, parts)
+            wall = time.perf_counter() - t0
+            after = K.launch_counts()
+            node0_calls.append({
+                "msgs": list(msgs), "parts": list(parts), "verdicts": out,
+                "wall_s": wall, "at": time.time(),
+                "launches": {k: after[k] - before[k] for k in after
+                             if after[k] != before[k]}})
+            return out
+        be.verify_partials = recorded
+
+    async def clockwork():
+        clock = FakeClock(start)
+        daemons, peers, reader = [], PeerClients(), None
+        try:
+            for i in range(n):
+                d = DrandDaemon(Config(folder=folders[i],
+                                       private_listen="127.0.0.1:0",
+                                       clock=clock,
+                                       device=None if i == 0 else "cpu"))
+                await d.start()
+                daemons.append(d)
+            group, poly, index = beacon_group(
+                folders, [d.private_addr() for d in daemons],
+                start + period)
+            state.update(group=group, poly=poly, index=index)
+            for d in daemons:
+                if await d.load_beacons_from_disk() != ["default"]:
+                    fail(f"beacon: {d.private_addr()} loaded no beacon")
+            procs = [d.processes["default"] for d in daemons]
+            be = procs[0].handler.partials.backend
+            if be.name != "device" or be.device.type != "cuda":
+                fail(f"beacon: node 0's backend is {be.name} on "
+                     f"{getattr(be, 'device', None)}")
+            record_calls(be)
+            addr0 = daemons[0].private_addr()
+            md = make_metadata("default")
+            stream = peers.public(addr0).PublicRandStream(
+                drand_pb2.PublicRandRequest(round=0, metadata=md))
+
+            async def read_stream():
+                async for resp in stream:
+                    streamed.append((resp.round, resp.signature))
+            reader = asyncio.ensure_future(read_stream())
+            for _ in range(20):
+                await asyncio.sleep(0)      # tickers register sleepers
+            shares = {i: PriShare(i, poly.eval(i).value)
+                      for i in range(n)}
+            for r in range(1, BEACON_ROUNDS + 1):
+                bad = None
+                if r == BEACON_BAD_ROUND:
+                    # signer 5's partial for this round, one byte flipped,
+                    # to node 0's PartialBeacon before the advance
+                    last = procs[0].chain_store.last()
+                    msg = procs[0].verifier.digest_message(r, last.signature)
+                    good = tbls.sign_partial(shares[5], msg)
+                    bad = good[:40] + bytes([good[40] ^ 1]) + good[41:]
+                    await asyncio.wait_for(
+                        peers.protocol(addr0).PartialBeacon(
+                            drand_pb2.PartialBeaconPacket(
+                                round=r, previous_sig=last.signature,
+                                partial_sig=bad, metadata=md)), 120)
+                    state["bad"] = bad
+                calls_before = len(node0_calls)
+                t0 = time.perf_counter()
+                await clock.set_time(group.genesis_time + (r - 1) * period)
+                limit = time.monotonic() + 60
+                while min(p.chain_store.tip_round() for p in procs) < r:
+                    if time.monotonic() > limit:
+                        fail(f"beacon clockwork: round {r} not stored on "
+                             f"every node within 60 s: tips "
+                             f"{[p.chain_store.tip_round() for p in procs]}")
+                    await asyncio.sleep(0.005)
+                wall = time.perf_counter() - t0
+                per_round.append({"round": r, "all_stored_wall_s": wall,
+                                  "node0_calls_since_advance":
+                                      len(node0_calls) - calls_before})
+            limit = time.monotonic() + 30
+            while len(streamed) < BEACON_ROUNDS and time.monotonic() < limit:
+                await asyncio.sleep(0.01)
+            tip = await asyncio.wait_for(peers.public(addr0).PublicRand(
+                drand_pb2.PublicRandRequest(round=0, metadata=md)), 30)
+            state["public_rand"] = (tip.round, tip.signature)
+        finally:
+            if reader is not None:
+                reader.cancel()
+                await asyncio.gather(reader, return_exceptions=True)
+            await peers.close()
+            for d in daemons:
+                await d.stop()
+
+    from drand_tpu_torch.beacon import crypto_backend as CB
+
+    def run_clockwork():
+        asyncio.run(clockwork())
+        # a stopped engine leaves its last calls in the crypto thread:
+        # wait for them, so every launch is counted within the run
+        CB._EXECUTOR.submit(lambda: None).result()
+    _, run_s, counts, calls, n_conv = drive(run_clockwork)
+    check_path("beacon clockwork", counts, n_conv, default_path)
+    group, poly = state["group"], state["poly"]
+    rows = [beacon_rows(f) for f in folders]
+    if any(r != rows[0] for r in rows) or \
+            [r for r, _ in rows[0]] != list(range(BEACON_ROUNDS + 1)):
+        fail("beacon clockwork: the 16 stores differ or lack rounds 0-8")
+    cv = ChainVerifier(scheme_by_id(group.scheme_id),
+                       group.public_key.key_bytes())
+    from drand_tpu_torch.chain.codec import decode_beacon
+    stored = [decode_beacon(data) for _, data in rows[0]]
+    prev, want = group.genesis_seed, []
+    for r in range(1, BEACON_ROUNDS + 1):
+        sig = SG.bls_sign(poly.secret(), cv.digest_message(r, prev))
+        want.append(Beacon(r, sig, prev))
+        prev = sig
+    if [(b.signature, b.previous_sig) for b in stored[1:]] != \
+            [(b.signature, b.previous_sig) for b in want] or \
+            stored[0].signature != group.genesis_seed:
+        fail("beacon clockwork: stored signatures differ from the dealt "
+             "secret's")
+    if not cv.verify_chain_segment(stored[1:], group.genesis_seed).all():
+        fail("beacon clockwork: the ChainVerifier rejects the chain")
+    if state["public_rand"] != (BEACON_ROUNDS, want[-1].signature):
+        fail(f"beacon clockwork: PublicRand gave round "
+             f"{state['public_rand'][0]}")
+    if streamed[:BEACON_ROUNDS] != [(b.round, b.signature) for b in want]:
+        fail(f"beacon clockwork: PublicRandStream gave rounds "
+             f"{[r for r, _ in streamed]}")
+    bad_verdicts = [v for c in node0_calls
+                    for p, v in zip(c["parts"], c["verdicts"])
+                    if p == state["bad"]]
+    if bad_verdicts != [False]:
+        fail(f"beacon clockwork: node 0's verdicts on the flipped partial "
+             f"{bad_verdicts}")
+    host = HostBackend(poly.commit(), BEACON_T, BEACON_N)
+    for c in node0_calls:
+        if list(c["verdicts"]) != host.verify_partials(c["msgs"], c["parts"]):
+            fail("beacon clockwork: a card call's verdicts differ from "
+                 "HostBackend's")
+    first = node0_calls[0]["launches"]
+    if first != burst_launches:
+        fail(f"beacon clockwork: node 0's first call launched {first}, the "
+             f"partials phase's burst {burst_launches}")
+    round_of = {}
+    prev = group.genesis_seed
+    for b in want:
+        round_of[cv.digest_message(b.round, prev)] = b.round
+        prev = b.signature
+    for c in node0_calls:
+        c["rounds"] = sorted({round_of.get(m, -1) for m in c["msgs"]})
+    by_round = collections.defaultdict(list)
+    for c in node0_calls:
+        by_round[c["rounds"][0]].append(c)
+    for pr in per_round:
+        cs = by_round.get(pr["round"], [])
+        pr.update(node0_calls=len(cs), node0_sizes=[len(c["msgs"])
+                                                    for c in cs],
+                  node0_walls_s=[c["wall_s"] for c in cs])
+    return {
+        "phase": "beacon", "part": "clockwork", "card": nvidia_smi(),
+        "n": BEACON_N,
+        "t": BEACON_T, "period_s": BEACON_PERIOD,
+        "scheme": group.scheme_id, "rounds": BEACON_ROUNDS,
+        "node0": "card (DeviceBackend)", "nodes_1_15": "host tier",
+        "stores_byte_equal": True, "equal_dealt_signatures": True,
+        "chain_verifier_accepts": True, "public_rand_round": BEACON_ROUNDS,
+        "stream_rounds": [r for r, _ in streamed],
+        "bad_partial": {"signer_index": 5, "round": BEACON_BAD_ROUND,
+                        "verdict": False},
+        "card_verdicts_equal_host": True,
+        "first_call_launches_equal_burst": True,
+        "run_s": run_s, "per_round": per_round,
+        "node0_calls": [{"n": len(c["msgs"]), "rounds": c["rounds"],
+                         "wall_s": c["wall_s"]} for c in node0_calls],
+        "launches": {k: v for k, v in counts.items() if v},
+        "first_call_launches": first}, [calls]
+
+
+def beacon_live(work_dir):
+    """Part (b) of the beacon phase: the same keys and shares in fresh
+    folders on free ports, genesis BEACON_LIVE_LEAD_S ahead rounded up to
+    the period, each of the 16 nodes `python -m drand_tpu_torch.cli
+    start` in a process of its own on the wall clock (node 0 on the
+    card, nodes 1-15 with --device cpu and no CUDA device visible); this
+    process watches PublicRandStream of nodes 0 and 1, stops every node
+    with SIGTERM once node 1 holds round 10 (node 0 given up to two
+    periods more), and reads the stores and node 0's dispatch records;
+    fails unless node 0 made a card call in rounds 2 to its tip and no
+    card call of node 0 raised."""
+    import asyncio
+    import signal
+    import socket
+
+    from drand_tpu_torch.chain.time import time_of_round
+    from drand_tpu_torch.net.client import PeerClients, make_metadata
+    from drand_tpu_torch.protogen import drand_pb2
+
+    n, period = BEACON_N, BEACON_PERIOD
+    socks = []
+    for _ in range(n):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+    addrs = [f"127.0.0.1:{s.getsockname()[1]}" for s in socks]
+    for s in socks:
+        s.close()
+    folders = [os.path.join(work_dir, f"live-{i}") for i in range(n)]
+    genesis = -(-(int(time.time()) + BEACON_LIVE_LEAD_S) // period) * period
+    group, _, _ = beacon_group(folders, addrs, genesis)
+    outs = [os.path.join(f, "stdout.txt") for f in folders]
+    procs, arrivals, rcs = [], {0: {}, 1: {}}, []
+    t_start = time.time()
+    try:
+        for i in range(n):
+            cmd = [sys.executable, "-m", "drand_tpu_torch.cli", "start",
+                   "--folder", folders[i], "--private-listen", addrs[i],
+                   "--tls-disable"]
+            env = dict(os.environ)
+            if i:
+                cmd += ["--device", "cpu"]
+                env["CUDA_VISIBLE_DEVICES"] = ""
+            with open(outs[i], "w") as out, \
+                    open(os.path.join(folders[i], "stderr.txt"), "w") as err:
+                procs.append(subprocess.Popen(cmd, cwd=HERE, stdout=out,
+                                              stderr=err, env=env))
+        up = [False] * n
+        while not all(up):
+            for i in range(n):
+                if not up[i] and procs[i].poll() is not None:
+                    fail(f"beacon live: node {i} exited "
+                         f"{procs[i].returncode} before serving")
+                with open(outs[i]) as f:
+                    up[i] = f.read().startswith("daemon running: ")
+            if time.time() > genesis:
+                fail(f"beacon live: nodes {[i for i in range(n) if not up[i]]}"
+                     " not serving by genesis")
+            time.sleep(0.1)
+        up_s = time.time() - t_start
+
+        async def watch():
+            peers = PeerClients()
+            md = make_metadata("default")
+
+            async def follow(i):
+                stream = peers.public(addrs[i]).PublicRandStream(
+                    drand_pb2.PublicRandRequest(round=0, metadata=md))
+                async for resp in stream:
+                    arrivals[i].setdefault(resp.round, time.time())
+                    if i == 1 and resp.round >= BEACON_LIVE_TARGET:
+                        return
+            tasks = [asyncio.ensure_future(follow(i)) for i in (0, 1)]
+            try:
+                limit = genesis + (BEACON_LIVE_TARGET + 10) * period - \
+                    time.time()
+                await asyncio.wait_for(asyncio.shield(tasks[1]), limit)
+                settle = time.time() + 2 * period
+                while max(arrivals[0], default=0) < BEACON_LIVE_TARGET and \
+                        time.time() < settle:
+                    await asyncio.sleep(0.05)
+            finally:
+                for task in tasks:
+                    task.cancel()
+                await asyncio.gather(*tasks, return_exceptions=True)
+                await peers.close()
+        try:
+            asyncio.run(watch())
+        except asyncio.TimeoutError:
+            fail(f"beacon live: node 1 did not reach round "
+                 f"{BEACON_LIVE_TARGET}: {sorted(arrivals[1])}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        for p in procs:
+            try:
+                rcs.append(p.wait(timeout=60))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+                rcs.append("killed")
+    if rcs != [0] * n:
+        fail(f"beacon live: exit codes on SIGTERM {rcs}")
+    rows0, rows1 = beacon_rows(folders[0]), beacon_rows(folders[1])
+    tip0 = rows0[-1][0] if rows0 else -1
+    if tip0 < BEACON_LIVE_TARGET - 1 or rows0 != rows1[:len(rows0)] or \
+            [r for r, _ in rows0] != list(range(tip0 + 1)):
+        fail(f"beacon live: node 0's store (tip {tip0}) is not node 1's "
+             f"prefix (tip {rows1[-1][0] if rows1 else -1})")
+    records = []
+    with open(outs[0]) as f:
+        for line in f:
+            if line.startswith('{"dispatch"'):
+                records.append(json.loads(line)["dispatch"])
+    card = [r for r in records if r["seam"] == "partials"]
+    # node 0's card path ran: a card call that raised is logged and
+    # fails its partials closed (the store then fills from the peers)
+    with open(os.path.join(folders[0], "stderr.txt")) as f:
+        if "partial-verify backend error" in f.read():
+            fail("beacon live: a card call of node 0 raised "
+                 "(partial-verify backend error in its stderr)")
+    t_from = time_of_round(period, genesis, 2)
+    t_to = time_of_round(period, genesis, tip0) + period
+    if not any(t_from <= c["wall"] - c["device_s"] < t_to for c in card):
+        fail(f"beacon live: node 0 made no card call in rounds 2-{tip0}")
+    table = []
+    for r in range(1, max(max(arrivals[1], default=0), tip0) + 1):
+        t_r = time_of_round(period, genesis, r)
+        # a record is stamped when its call returns: a call belongs to
+        # the round in whose period it started
+        calls = [c for c in card
+                 if t_r <= c["wall"] - c["device_s"] < t_r + period]
+        late = {i: (arrivals[i][r] - t_r if r in arrivals[i] else None)
+                for i in (0, 1)}
+        table.append({"round": r, "node0_late_s": late[0],
+                      "node1_late_s": late[1], "node0_calls": len(calls),
+                      "node0_sizes": [c["n"] for c in calls],
+                      "node0_walls_s": [c["device_s"] for c in calls],
+                      "node0_starts_s": [c["wall"] - c["device_s"] - t_r
+                                         for c in calls]})
+    kept = all(row["node0_late_s"] is not None
+               and row["node0_late_s"] < period for row in table
+               if row["round"] <= tip0)
+    return {
+        "phase": "beacon", "part": "live", "n": n, "t": BEACON_T,
+        "period_s": period, "genesis_lead_s": genesis - t_start,
+        "nodes_serving_after_s": up_s, "exit_codes_all_zero": True,
+        "node0_tip": tip0, "node1_tip": rows1[-1][0],
+        "node0_store_prefix_of_node1": True,
+        "node0_kept_period": kept,
+        "node0_partials_records": len(card),
+        "node0_other_records": collections.Counter(
+            r["seam"] for r in records if r["seam"] != "partials"),
+        "table": table}
+
+
+def beacon_phase(work_dir, default_path, burst_launches):
+    """The `beacon` phase: (a) the clockwork group in this process, then
+    (b) the live group through `cli start`.  Returns ((a)'s report, (b)'s
+    report, the calls by kernel of (a)'s driven run)."""
+    clockwork, calls = beacon_clockwork(work_dir, default_path,
+                                        burst_launches)
+    emit({k: v for k, v in clockwork.items() if k != "per_round"})
+    for row in clockwork["per_round"]:
+        emit({"phase": "beacon", "part": "clockwork round", **row})
+    live = beacon_live(work_dir)
+    emit({k: v for k, v in live.items() if k != "table"})
+    for row in live["table"]:
+        emit({"phase": "beacon", "part": "live round", **row})
+    return clockwork, live, calls
+
+
 _CONV = {"calls": 0, "plain": None}
 
 
@@ -2327,6 +2801,15 @@ def main() -> int:
     finally:
         shutil.rmtree(rec_dir, ignore_errors=True)
 
+    # -- beacon --------------------------------------------------------------
+    beacon_dir = tempfile.mkdtemp(prefix="beacon-",
+                                  dir=os.path.join(HERE, "build"))
+    try:
+        report["beacon"], report["beacon_live"], beacon_calls = beacon_phase(
+            beacon_dir, default_path, report["partials"]["launches"]["burst"])
+    finally:
+        shutil.rmtree(beacon_dir, ignore_errors=True)
+
     # every call the runs made, for the parity phase
     all_calls = {name: set(path_calls[name]) | set(chain_calls[name])
                  | set(trio_calls[name]) | set(pairing_calls[name])
@@ -2336,6 +2819,7 @@ def main() -> int:
                  | set().union(*(c[name] for c in native_calls))
                  | set().union(*(c[name] for c in catchup_calls))
                  | set().union(*(c[name] for c in follow_calls))
+                 | set().union(*(c[name] for c in beacon_calls))
                  for name in K.KERNELS}
 
     # -- parity --------------------------------------------------------------
@@ -2860,6 +3344,13 @@ def main() -> int:
         timings.append(tm)
         per_kernel.setdefault(name, tm)
         del args
+    beacon_rows_ = [r for r in rows
+                    if any(r["call"] in c[r["kernel"]] for c in beacon_calls)]
+    report["beacon_parity"] = {
+        "phase": "beacon", "part": "parity", "checks": len(beacon_rows_),
+        "kernels": sorted({r["kernel"] for r in beacon_rows_}),
+        "all_bit_equal": all(r["bit_equal"] for r in beacon_rows_)}
+    emit(report["beacon_parity"])
     report["parity"] = {"phase": "parity", "checks": len(rows),
                         "on_path": sum(r["on_path"] for r in rows),
                         "all_bit_equal": all(r["bit_equal"] for r in rows),

@@ -25,10 +25,13 @@ threshold, recovers the round's group signature:
   - `AsyncPartialVerifier`: coalesces the partials that arrive within one
     window into one `verify_partials` call, run in a worker thread.
 
-Unlike drand_tpu's module there is no switch between backends
-(`make_backend`) and no environment, no golden-model verify (a native
-library that cannot be built raises), no compiled-program cache or mesh
-sharding, and no metrics.  Each batched device call records one dispatch
+`make_backend(pub_poly, threshold, n, device)` picks the backend of a
+beacon engine from the device it is given, through `device.resolve`: a
+CUDA device gives `DeviceBackend` on it, "cpu" `HostBackend` (drand_tpu
+picks by its environment and JAX's backend; the port reads no
+environment, and with no CUDA and no device named it raises).  There is
+no golden-model verify (a native library that cannot be built raises),
+no compiled-program cache or mesh sharding, and no metrics.  Each batched device call records one dispatch
 (`dispatch.py`): "partials" for `verify_partials`, "rounds" for
 `verify_partials_rounds`; each native check records a "native" one.
 """
@@ -73,22 +76,20 @@ def dedup_messages(msgs: Sequence[bytes]):
 
 
 def _threshold_points(partials: Sequence[bytes], threshold: int, n: int,
-                      decode, skip=(), overwrite: bool = False,
-                      what: str = ""):
+                      skip=(), what: str = ""):
     """The first t distinct in-group signers of `partials` in arrival
-    order: (their indices sorted, {index: decode(signature)}, {index: its
+    order: (their indices sorted, {index: signature}, {index: its
     Lagrange basis at 0}); ValueError (led by `what`) when fewer than t.
-    A partial whose parse or decode raises one of `skip` is passed over
-    (any other error propagates); `overwrite` keeps an index's latest
-    value rather than its first, as drand_tpu's `tbls.recover` does."""
+    A partial whose parse raises one of `skip` is passed over (any other
+    error propagates)."""
     pts: dict = {}
     for p in partials:
         try:
-            idx, val = tbls.index_of(p), decode(tbls.sig_of(p))
+            idx, sig = tbls.index_of(p), bytes(tbls.sig_of(p))
         except skip:
             continue
-        if idx < n and (overwrite or idx not in pts):
-            pts[idx] = val
+        if idx < n and idx not in pts:
+            pts[idx] = sig
         if len(pts) >= threshold:
             break
     if len(pts) < threshold:
@@ -107,26 +108,11 @@ def _native_recover(partials: Sequence[bytes], threshold: int,
     result); a library that cannot be built raises."""
     try:
         indices, pts, basis = _threshold_points(partials, threshold, n,
-                                                bytes, skip=Exception)
+                                                skip=Exception)
     except ValueError:
         return None     # too few partials parse
     return native.g2_lincomb([pts[i] for i in indices],
                              [basis[i].to_bytes(32, "big") for i in indices])
-
-
-def _golden_recover(partials: Sequence[bytes], threshold: int,
-                    n: int) -> bytes:
-    """drand_tpu's `tbls.recover(..., verified=True)` on the port's golden
-    model: the first t in-group partials whose signature decodes,
-    combined at 0.  Raises ValueError when fewer than t decode."""
-    indices, points, basis = _threshold_points(
-        partials, threshold, n, GC.g2_from_bytes, skip=ValueError,
-        overwrite=True)
-    acc = GC.G2_INF
-    for i in indices:
-        acc = GC.point_add(acc, GC.point_mul(points[i], basis[i],
-                                             GC.FP2_OPS), GC.FP2_OPS)
-    return GC.g2_to_bytes(acc)
 
 
 class HostBackend:
@@ -134,7 +120,8 @@ class HostBackend:
     tier: each partial one native check against the commitments (the
     library evaluates the public polynomial at the partial's index), and
     recovery through `_native_recover`, then, where that gives nothing,
-    the golden-model combination drand_tpu's host backend falls back to.
+    `tbls.recover` of the partials taken as verified, which drand_tpu's
+    host backend falls back to.
     A partial that is not bytes-like raises TypeError, as in drand_tpu's
     host backend."""
 
@@ -160,7 +147,8 @@ class HostBackend:
         out = _native_recover(partials, self.threshold, self.n)
         if out is not None:
             return out
-        return _golden_recover(partials, self.threshold, self.n)
+        return tbls.recover(self.pub_poly, msg, partials, self.threshold,
+                            self.n, verified=True)
 
 
 def _pad(k: int, buckets) -> int:
@@ -338,7 +326,7 @@ class DeviceBackend:
         """The first t distinct in-group signers' signatures of a round, by
         index, and their Lagrange bases at 0."""
         indices, pts, basis = _threshold_points(
-            parts, self.threshold, self.n, bytes, what=what)
+            parts, self.threshold, self.n, what=what)
         return ([np.frombuffer(pts[i], dtype=np.uint8) for i in indices],
                 [basis[i] for i in indices])
 
@@ -432,6 +420,15 @@ class DeviceBackend:
         sig_rows, basis = self._round_points(partials, "")
         return self._compressed(*self._recover_msm(np.stack(sig_rows)[None],
                                                    [basis]), "")[0]
+
+
+def make_backend(pub_poly, threshold: int, n: int, device=None):
+    """The threshold backend of one group on `device.resolve(device)`:
+    `DeviceBackend` on a CUDA device, `HostBackend` on the CPU."""
+    dev = resolve(device)
+    if dev.type == "cuda":
+        return DeviceBackend(pub_poly, threshold, n, device=dev)
+    return HostBackend(pub_poly, threshold, n)
 
 
 class AsyncPartialVerifier:

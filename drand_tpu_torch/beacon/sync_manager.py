@@ -20,12 +20,15 @@ round verified in segments, the faulty rounds returned) and
 and written through the store's undecorated base), and the serving side,
 `serve_sync_chain`.
 
+A beacon engine drives the manager through its request queue:
+`request_sync(from_round)` (the handler's gap callback) queues a
+request without blocking, and the task `start` launches runs each in
+turn through `sync`; a follower awaits `sync` itself.
+
 drand_tpu's breaker-ranked, hedged peer order (its `resilience` hub), its
-chaos failpoints and its stage metrics are not ported: peers are tried in
-plain shuffled order.  Nor is its request queue (`request_sync`,
-`start`, `stop`, `snapshot`), which a daemon drives: callers await
-`sync`.  The port reads no environment: the pipeline depth is the
-constant PIPELINE_DEPTH.
+chaos failpoints, its stage metrics and `snapshot` are not ported: peers
+are tried in plain shuffled order.  The port reads no environment: the
+pipeline depth is the constant PIPELINE_DEPTH.
 """
 
 from __future__ import annotations
@@ -275,6 +278,33 @@ class SyncManager:
         # host seconds of each stage, and what was committed
         self.stats = {"fetch_s": 0.0, "pack_s": 0.0, "verify_s": 0.0,
                       "commit_s": 0.0, "segments": 0, "rounds": 0}
+        # sync requests are hints (each sync reads the live tip), so a
+        # backlog past this bound is dropped
+        self._queue: asyncio.Queue[SyncRequest] = asyncio.Queue(maxsize=64)
+        self._task: asyncio.Task | None = None
+
+    def start(self) -> None:
+        if self._task is None:
+            self._task = asyncio.get_running_loop().create_task(self._loop())
+
+    def stop(self) -> None:
+        if self._task is not None:
+            self._task.cancel()
+            self._task = None
+
+    def request_sync(self, from_round: int, up_to: int = 0) -> None:
+        try:
+            self._queue.put_nowait(SyncRequest(from_round, up_to))
+        except asyncio.QueueFull:
+            pass
+
+    async def _loop(self) -> None:
+        while True:
+            req = await self._queue.get()
+            try:
+                await self.sync(req)
+            except Exception as exc:
+                log.warning("sync failed: %s", exc)
 
     async def sync(self, req: SyncRequest) -> bool:
         """Try the peers in shuffled order until one stream commits

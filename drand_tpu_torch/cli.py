@@ -10,6 +10,8 @@
     python -m drand_tpu_torch.cli sync --sync-nodes HOST:PORT[,...] --db DIR
         [--follow] [--up-to ROUND] [--chain-hash HEX] [--id BEACON_ID]
         [--device cpu]
+    python -m drand_tpu_torch.cli start --folder DIR --private-listen
+        HOST:PORT --tls-disable [--device cpu]
 
 `util fsck` is the offline integrity check of a chain database: the
 structural scan of `chain/recovery.py` (each row decoded, round
@@ -41,7 +43,20 @@ peers.  It verifies on the card unless `--device cpu` is given, writes
 progress to stderr and prints one JSON object (`ok`, `synced_to`,
 `target`, the manager's `stats`; check-chain also `faulty` and
 `fixed`); exit 1 when the follow stalled short of its target or a faulty
-round stayed unrepaired.  Only `sync` needs `grpc`.
+round stayed unrepaired.
+
+`start` runs a beacon node: a `core.daemon.DrandDaemon` on
+`--private-listen` that loads every beacon folder under
+`--folder`/multibeacon holding a key pair, a group and a share, and
+produces the chain with its group's other nodes (a catch-up start, as
+drand_tpu's).  It checks partials on the card unless `--device cpu` is
+given (then on the native host tier).  It prints drand_tpu's "daemon
+running: ..." line (without a control port: the port has none) and
+runs until SIGINT or SIGTERM; it then stops the daemon, prints each
+dispatch record of the process (`dispatch.py`) as a JSON line
+{"dispatch": {...}} and exits 0.  TLS is not ported: without
+`--tls-disable` it exits with drand_tpu's message.  Only `sync` and
+`start` need `grpc`.
 """
 
 from __future__ import annotations
@@ -115,7 +130,54 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--device", default=None,
                     help="the verifier's device (default: the current "
                     "CUDA device; 'cpu' for the plain path)")
+
+    sp = sub.add_parser("start", help="run a beacon node (the daemon)")
+    sp.add_argument("--folder", default=os.path.expanduser("~/.drand"),
+                    help="the node's base folder (multibeacon/ in it)")
+    sp.add_argument("--private-listen", default="0.0.0.0:4444",
+                    help="node-to-node gRPC listen address")
+    sp.add_argument("--tls-disable", "--insecure", dest="tls_disable",
+                    action="store_true",
+                    help="serve and dial plain TCP (TLS is not ported)")
+    sp.add_argument("--device", default=None,
+                    help="where partials are checked (default: the current "
+                    "CUDA device; 'cpu' for the native host tier)")
     return p
+
+
+TLS_REQUIRED = (
+    "TLS is the default: provide --tls-cert and --tls-key, or explicitly "
+    "opt out with --tls-disable (cmd/drand-cli/cli.go:62-119 enforces the "
+    "same either/or)")
+
+
+async def cmd_start(args) -> int:
+    """Run the daemon until SIGINT or SIGTERM."""
+    if not args.tls_disable:
+        raise SystemExit(TLS_REQUIRED)
+    import signal
+
+    from drand_tpu_torch.core.config import Config
+    from drand_tpu_torch.core.daemon import DrandDaemon
+    from drand_tpu_torch.dispatch import DISPATCH
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(sig, stop.set)
+    daemon = DrandDaemon(Config(folder=args.folder,
+                                private_listen=args.private_listen,
+                                device=args.device))
+    await daemon.start()
+    try:
+        loaded = await daemon.load_beacons_from_disk()
+        print(f"daemon running: private={daemon.private_addr()} "
+              f"beacons={loaded}", flush=True)
+        await stop.wait()
+    finally:
+        await daemon.stop()
+    for rec in DISPATCH.records():
+        print(json.dumps({"dispatch": rec.to_dict()}), flush=True)
+    return 0
 
 
 class _WallClock:
@@ -284,6 +346,8 @@ def main(argv=None) -> int:
         return asyncio.run(cmd_objectsync(args))
     if args.command == "sync":
         return asyncio.run(cmd_sync(args))
+    if args.command == "start":
+        return asyncio.run(cmd_start(args))
     return asyncio.run(cmd_fsck(args))
 
 

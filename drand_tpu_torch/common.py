@@ -1,12 +1,14 @@
 """Beacon ids and the node version the wire metadata carries (the port's
 copy of what it needs of `drand_tpu/common/__init__.py`, drand
-`common/beacon.go`, `common/version.go`)."""
+`common/beacon.go`, `common/version.go`), and the folder that holds one
+subfolder a beacon id under a node's base folder."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 DEFAULT_BEACON_ID = "default"
+MULTIBEACON_FOLDER = "multibeacon"
 
 
 def canonical_beacon_id(beacon_id: str | None) -> str:

@@ -1,12 +1,14 @@
-"""Serving and following a chain over drand's gRPC wire (counterpart of
-the parts of `drand_tpu/core/` a follower and the peer it follows need):
+"""A node's chains over drand's gRPC wire (counterpart of the parts of
+`drand_tpu/core/` a beacon node and a follower need):
 
+  config.py    `Config`, a daemon's folder, listen address, clock, device
+  daemon.py    `DrandDaemon`, the private gateway and the beacons on disk
+  process.py   `ServingProcess` (one chain store served) and
+               `BeaconProcess` (its key material and beacon engine)
+  services.py  the Protocol and Public services over the processes
   convert.py   wire <-> model converters (chain info, beacons, chunks)
-  process.py   `ServingProcess`, one chain store and its `Info` served
-  services.py  the Protocol (SyncChain, Status) and Public (ChainInfo)
-               services over serving processes
-  follow.py    `chain_info_from_peers` and `follow_chain`
+  follow.py    `chain_info_from_peers`, `follow_chain`, `check_chain`
 
-These modules need `grpc` and `protobuf`; nothing imports them when the
-package loads.
+These modules need `grpc` and `protobuf` (config.py excepted); nothing
+imports them when the package loads.
 """

@@ -2,11 +2,13 @@
 `net/client_grpc.go`): request metadata, one cached channel a peer, and
 the SyncChain/Status transport a SyncManager streams from.
 
-Plain TCP channels only (drand_tpu's TLS trust pools wait for its
-`net/certs.py`); no retry hub, breakers, chaos failpoints, metrics or
-trace context.  drand_tpu's `send_partial` and `ControlClient` belong to
-a daemon, which the port does not have yet.  A grpc.aio channel is bound
-to the event loop it was first used in: build, use and close a
+`GrpcBeaconNetwork` is also the beacon Handler's transport
+(`send_partial`: one attempt under the call timeout) and asks a peer for
+its identity (`get_identity`).  Plain TCP channels only (drand_tpu's TLS
+trust pools wait for its `net/certs.py`); no retry hub, breakers,
+deadline stamp, chaos failpoints, metrics or trace context, and no
+`ControlClient` (the port has no control port).  A grpc.aio channel is
+bound to the event loop it was first used in: build, use and close a
 PeerClients inside one loop.
 """
 
@@ -30,13 +32,14 @@ class Peer:
     address: str
 
 
-def make_metadata(beacon_id: str) -> common_pb2.Metadata:
-    """The Metadata every request carries: this node's version and the
-    beacon id."""
+def make_metadata(beacon_id: str,
+                  chain_hash: bytes = b"") -> common_pb2.Metadata:
+    """The Metadata every request and PublicRand answer carries: this
+    node's version, the beacon id and, on an answer, the chain hash."""
     return common_pb2.Metadata(
         node_version=common_pb2.NodeVersion(
             major=VERSION.major, minor=VERSION.minor, patch=VERSION.patch),
-        beaconID=beacon_id)
+        beaconID=beacon_id, chain_hash=chain_hash)
 
 
 class PeerClients:
@@ -64,8 +67,9 @@ class PeerClients:
 
 
 class GrpcBeaconNetwork:
-    """The Protocol service as a SyncManager's network: `sync_chain` and
-    `status` of a peer (anything with an `address`)."""
+    """The Protocol service as a Handler's and a SyncManager's network:
+    `send_partial`, `sync_chain`, `status` and `get_identity` of a peer
+    (anything with an `address`)."""
 
     def __init__(self, peers: PeerClients,
                  beacon_id: str = DEFAULT_BEACON_ID):
@@ -96,3 +100,18 @@ class GrpcBeaconNetwork:
                             "length": resp.chain_store.length,
                             "is_empty": resp.chain_store.is_empty},
         }
+
+    async def send_partial(self, node, packet) -> None:
+        """One PartialBeacon call carrying `packet` (a beacon.chain
+        PartialPacket), under the call timeout."""
+        req = drand_pb2.PartialBeaconPacket(
+            round=packet.round, previous_sig=packet.previous_signature,
+            partial_sig=packet.partial_sig,
+            metadata=make_metadata(packet.beacon_id))
+        await self.peers.protocol(node.address).PartialBeacon(
+            req, timeout=self.peers.timeout_s)
+
+    async def get_identity(self, address: str):
+        return await self.peers.protocol(address).GetIdentity(
+            drand_pb2.IdentityRequest(metadata=make_metadata(self.beacon_id)),
+            timeout=self.peers.timeout_s)

@@ -1137,3 +1137,95 @@ def test_follow_chained_over_grpc_on_card(cuda, tmp_path):
     assert progress == "follow stalled at round 0/65"
     assert verdicts == [host] and host.count(False) == 2 and not host[29]
     bad.close()
+
+
+def test_beacon_group_with_card_node_on_card(cuda, tmp_path):
+    """A 4-node, t = 3 group of port daemons over gRPC on localhost under
+    one FakeClock, node 0 checking partials on the card (DeviceBackend)
+    and nodes 1-3 on the host tier, runs rounds 1-2: every store holds
+    the group secret's signatures, and each of node 0's verify_partials
+    calls gives HostBackend's verdicts on the same inputs."""
+    pytest.importorskip("grpc")
+    import asyncio
+    import time
+
+    from drand_tpu_torch.beacon.clock import FakeClock
+    from drand_tpu_torch.beacon.crypto_backend import HostBackend
+    from drand_tpu_torch.core.config import Config
+    from drand_tpu_torch.core.daemon import DrandDaemon
+    from drand_tpu_torch.crypto import poly as P
+    from drand_tpu_torch.crypto import sign as S
+    from drand_tpu_torch.crypto.bls12381 import curve as GC
+    from drand_tpu_torch.key.group import Group
+    from drand_tpu_torch.key.keys import DistPublic, Pair, Share
+    from drand_tpu_torch.key.store import FileStore
+    n, t, period, start = 4, 3, 3, 1_700_000_000.0
+    calls = []
+
+    async def main():
+        clock = FakeClock(start)
+        daemons, pairs = [], []
+        try:
+            for i in range(n):
+                d = DrandDaemon(Config(folder=str(tmp_path / f"n{i}"),
+                                       private_listen="127.0.0.1:0",
+                                       clock=clock,
+                                       device=None if i == 0 else "cpu"))
+                await d.start()
+                daemons.append(d)
+                pairs.append(Pair.generate(d.private_addr(),
+                                           seed=b"card%d" % i))
+            poly = P.PriPoly.random(t, secret=31337)
+            commits = [GC.g1_to_bytes(c) for c in poly.commit().commits]
+            group = Group(threshold=t, period=period,
+                          nodes=Group.sort_nodes([p.public for p in pairs]),
+                          genesis_time=int(start) + period, catchup_period=1,
+                          public_key=DistPublic(commits))
+            group.get_genesis_seed()
+            for d, p in zip(daemons, pairs):
+                ks = FileStore(d.config.folder)
+                ks.save_key_pair(p)
+                ks.save_group(group)
+                ks.save_share(Share(commits,
+                                    poly.eval(group.find(p.public).index)))
+                await d.load_beacons_from_disk()
+            be = daemons[0].processes["default"].handler.partials.backend
+            assert be.name == "device"
+            inner = be.verify_partials
+
+            def recorded(msgs, parts):
+                out = inner(msgs, parts)
+                calls.append((list(msgs), list(parts), list(out)))
+                return out
+            be.verify_partials = recorded
+            for _ in range(20):
+                await asyncio.sleep(0)
+            procs = [d.processes["default"] for d in daemons]
+            for r in (1, 2):
+                await clock.set_time(group.genesis_time + (r - 1) * period)
+                limit = time.monotonic() + 120
+                while min(p.chain_store.tip_round() for p in procs) < r:
+                    assert time.monotonic() < limit, f"round {r}"
+                    await asyncio.sleep(0.01)
+            rows = [[(b.round, b.signature, b.previous_sig)
+                     for b in p._store.iter_range(0)] for p in procs]
+            return group, poly, rows
+        finally:
+            for d in daemons:
+                await d.stop()
+
+    group, poly, rows = asyncio.run(asyncio.wait_for(main(), 600))
+    assert rows[0] == rows[1] == rows[2] == rows[3]
+    from drand_tpu_torch.chain.scheme import scheme_by_id
+    from drand_tpu_torch.chain.verify import ChainVerifier
+    cv = ChainVerifier(scheme_by_id(group.scheme_id),
+                       group.public_key.key_bytes(), device="cpu")
+    prev = group.genesis_seed
+    for rnd, sig, p in rows[0][1:]:
+        assert (p, sig) == (prev, S.bls_sign(poly.secret(),
+                                             cv.digest_message(rnd, prev)))
+        prev = sig
+    host = HostBackend(poly.commit(), t, n)
+    assert calls and sum(len(c[1]) for c in calls) >= 2 * (t - 1)
+    for msgs, parts, verdicts in calls:
+        assert verdicts == host.verify_partials(msgs, parts)

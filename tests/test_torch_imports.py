@@ -127,6 +127,75 @@ def test_port_imports_without_grpc():
     assert out.stdout.splitlines() == ["[]", "net needs grpc"]
 
 
+_ENGINE_MODULES = (
+    "drand_tpu_torch.toml_util", "drand_tpu_torch.fs",
+    "drand_tpu_torch.crypto.sign", "drand_tpu_torch.crypto.tbls",
+    "drand_tpu_torch.key", "drand_tpu_torch.key.keys",
+    "drand_tpu_torch.key.group", "drand_tpu_torch.key.store",
+    "drand_tpu_torch.beacon.clock", "drand_tpu_torch.beacon.ticker",
+    "drand_tpu_torch.beacon.cache", "drand_tpu_torch.beacon.chain",
+    "drand_tpu_torch.beacon.node", "drand_tpu_torch.core.config",
+    "drand_tpu_torch.core.process", "drand_tpu_torch.core.services",
+    "drand_tpu_torch.core.daemon")
+
+_ENGINE_PURITY = r"""
+import importlib, sys
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "drand_tpu", "common", "crypto",
+                                    "drand"))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_engine_modules_import_neither_jax_nor_drand_tpu():
+    """The beacon engine, the key store, signing and the daemon load no
+    drand_tpu or jax module."""
+    out = subprocess.run([sys.executable, "-c", _ENGINE_PURITY,
+                          *_ENGINE_MODULES], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+_NO_GRPC_ENGINE = r"""
+import sys
+for name in ("grpc", "grpc.aio", "google.protobuf"):
+    sys.modules[name] = None
+import drand_tpu_torch.key
+import drand_tpu_torch.key.store
+import drand_tpu_torch.beacon.node
+import drand_tpu_torch.core.config
+from drand_tpu_torch import cli
+args = cli.build_parser().parse_args(["start", "--folder", "f",
+                                      "--private-listen", "127.0.0.1:1",
+                                      "--tls-disable", "--device", "cpu"])
+assert args.tls_disable and args.device == "cpu"
+bad = sorted(k for k in sys.modules if k.startswith("drand_tpu_torch.net")
+             or k.startswith("drand_tpu_torch.protogen")
+             or k.startswith("drand_tpu_torch.core.")
+             and k != "drand_tpu_torch.core.config")
+print(bad)
+try:
+    import drand_tpu_torch.core.daemon
+except ImportError:
+    print("daemon needs grpc")
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_engine_imports_without_grpc():
+    """With grpc and protobuf hidden, the key store, the beacon engine,
+    the daemon's config and the CLI (its `start` parser too) import; the
+    daemon itself needs the wire."""
+    out = subprocess.run([sys.executable, "-c", _NO_GRPC_ENGINE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.splitlines() == ["[]", "daemon needs grpc"]
+
+
 def test_chip_smoke_imports_neither():
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
     mods = set()
