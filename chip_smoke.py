@@ -149,8 +149,9 @@ Phases, each printing one JSON line:
           flipped: given [B, A] (B tried first) the follower renews
           against A and ends at 65536 with A's rows, given [B] alone it
           stops at the verified prefix below 40000 with "follow stalled";
-          round 50000 flipped in the first follower's store:
-          check_past_beacons reports exactly [50000] and
+          round 6000 flipped in the first follower's store:
+          check_past_beacons over rounds 1-8192 reports exactly [6000]
+          and
           correct_past_beacons from A repairs it, the rows equal A's
           again; the chained fixture from a peer C: one card segment
           (round 1 on the genesis anchor in a bucket of 8, rounds 2-65 in
@@ -169,34 +170,63 @@ Phases, each printing one JSON line:
           FileStore; (a) clockwork: 16 DrandDaemons in this process, each
           with its gateway on 127.0.0.1, node 0 checking partials on the
           card (DeviceBackend), nodes 1-15 on the host tier, one
-          FakeClock: genesis, then rounds 1-8, each advance of one period
+          FakeClock: genesis, then rounds 1-6, each advance of one period
           waited for until all 16 stores hold the round (60 s a round);
           signer 5's round-4 partial with one byte flipped sent to node
           0's PartialBeacon before that advance: the 16 stores byte-equal,
           each round the dealt secret's signature, the ChainVerifier
-          accepting the chain, PublicRand of node 0 giving round 8 and its
-          PublicRandStream rounds 1-8 in order, node 0's verdict on the
+          accepting the chain, PublicRand of node 0 giving round 6 and its
+          PublicRandStream rounds 1-6 in order, node 0's verdict on the
           flipped partial false, each of node 0's verify_partials calls
           giving HostBackend's verdicts, and its first call launching
           exactly what the partials phase's 16-partial burst launched;
           each call's size, rounds and wall, and each round's wall from
-          the advance until every store holds it; (b) live: a second group
-          of the same keys and shares on free ports, genesis 30 s ahead
-          rounded up to the period, every node `python -m
-          drand_tpu_torch.cli start` in a process of its own on the wall
-          clock (node 0 on the card, nodes 1-15 with --device cpu and no
-          CUDA device visible), PublicRandStream of nodes 0 and 1 watched
-          until node 1 holds round 10 (node 0 given two periods more),
-          then SIGTERM to every node: each exits 0, node 0's store (tip at
-          least 9) a prefix of node 1's, node 0 made a card call in
-          rounds 2 to its tip and none of its card calls raised; each
-          round's lateness on both streams and node 0's card calls
-          (count, sizes, walls, starts) from its dispatch records,
-          recorded and not asserted; and, after the parity phase, the
-          number of parity checks at the clockwork run's calls
+          the advance until every store holds it; (b) live: run by the
+          dkg phase on the ceremony's group (below); and, after the
+          parity phase, the number of parity checks at the clockwork
+          run's calls
+  dkg     the fresh Pedersen DKG (drand_tpu_torch.crypto.dkg, core/
+          dkg_runner.py): (a) ops.bls.dkg_commit_checks on the card at
+          drand_tpu's stated shape, 128 polynomials of degree 64 from
+          fixed seeds committed by the golden g1_mul_gen, in the deal
+          shape (128 rows, one index; the first call) and the
+          justification shape (each row its own index; the second), row
+          17 with a
+          valid but swapped commitment and row 93 with a wrong expected
+          point: every verdict equal to the golden PubPoly.eval
+          comparison, exactly those two rows false; each call's wall and
+          launches of K1, K2 and K4 (and those read from the code), and
+          the deal-shape call's device kernels (it runs under
+          torch.profiler); (b) a ceremony of n = 16,
+          t = 9 in this process with dealer 4 sealing a wrong share to
+          nodes 8-15: all 16 nodes on the host path, nodes 0 and 8 again
+          on the card with the same bundles (one batched deal check of 16
+          rows each, dealer 4's justification of 8 rows batched in qual()
+          and in finalize()), their verdicts, complaints, QUAL and shares
+          equal to the host run's, dealer 4 in QUAL; (c) 16 nodes through
+          the CLI alone on the wall clock, every one on the card: `python
+          -m drand_tpu_torch.cli generate-keypair`, `start --control`,
+          then `share --leader --nodes 16 --threshold 9` and 15 `share
+          --connect` (period 10 s, --timeout 15): every share exits 0
+          with the same group TOML, the 16 group files and distributed
+          keys byte-equal, t shares giving the group key's secret, every
+          node's deal and response phases complete with QUAL all 16 and
+          at least one card deal check of 16 rows (its {"dkg": ...} and
+          {"dispatch": ...} lines at stop); then the beacon phase's live
+          part on that group: PublicRandStream of nodes 0 and 1 watched
+          until node 1 holds round 4, every node's tip polled to round
+          4, SIGTERM to every node: each exits 0, the 16 stores
+          byte-equal in rounds 0-4 and verifying against the DKG's group
+          key, node 0 made a card call in rounds 2-4 and no node's card
+          call raised; each round's lateness on both streams and node 0's
+          card calls (count, sizes, walls, starts) recorded, not
+          asserted; the ceremony's phase times, share walls and genesis
+          wait; and, after the parity phase, the parity checks at (a)'s
+          and (b)'s calls
 
 Each run of the slice, trio, g1, recovery, partials, native, catchup,
-follow and beacon (clockwork) phases must launch every kernel of its path
+follow, beacon (clockwork) and dkg phases must launch every kernel of its
+path
 and no other, and never call
 the plain limb convolution `_poly_mul_var`: the default batch all but the
 trio kernels (flat_sqr,
@@ -213,13 +243,15 @@ verify the default batch's (with mont_sqr where the keys are evaluated in
 the batch), and signing and recovery mont_mul, sqr_chain_mul,
 fp2_products, fp2_sqrs, fp2_sqr_chain_mul, g2_point_dbl and g2_point_add;
 a catch-up sync, a follow and the beacon clockwork the default batch's
-kernels; and whatever
+kernels; a DKG commitment check mont_mul, mont_sqr and sqr_chain_mul;
+and whatever
 the host tier answers (the chained store's scan, recover of one round,
 every verify_beacon and HostBackend call of the native phase) no kernel.
 
   parity  every kernel against its plain PyTorch version on the card, bit
           for bit, at every call the batches above made, the G1,
-          recovery, partials, native, catchup, follow and beacon ones included
+          recovery, partials, native, catchup, follow, beacon and dkg ones
+          included
           (g2_point_dbl
           and cyclo_sqr at each of their chain lengths) and at fixed
           cases: 16384 rows for Fp and Fr (sqr_chain_mul, whose path
@@ -304,6 +336,7 @@ import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+_T0 = time.perf_counter()       # the script's start, for progress on stderr
 BATCH = 16384
 FIXTURE = os.path.join(HERE, "aot", "fixtures",
                        "bench_sigs_unchained_16384_d6a762f2_ff8a2cc7.npy")
@@ -446,6 +479,9 @@ def off_subgroup_g1() -> bytes:
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+    print(f"chip_smoke: {time.perf_counter() - _T0:.1f} s: "
+          f"{obj.get('phase', '')} {obj.get('part', '')}".rstrip(),
+          file=sys.stderr, flush=True)
 
 
 def fail(msg: str) -> None:
@@ -1537,7 +1573,8 @@ def catchup_phase(work_dir, default_path, launches, pk_bytes, seed):
 
 FOLLOW_PERIOD = 30
 FOLLOW_FLIP = 40000         # round flipped on the damaged peer
-FOLLOW_CHECK = 50000        # round flipped for check-and-repair
+FOLLOW_CHECK = 6000         # round flipped for check-and-repair
+FOLLOW_CHECK_UP_TO = 8192   # the check's depth: its first 16 batches
 
 
 def follow_phase(work_dir, default_path, launches, chain_launches,
@@ -1812,8 +1849,8 @@ def follow_phase(work_dir, default_path, launches, chain_launches,
                             "store_holds_verified_prefix": True}
 
     # 4. check and repair: round FOLLOW_CHECK flipped in the follower's
-    # store, found by check_past_beacons, repaired from A (what `cli sync`
-    # without --follow runs)
+    # store, found by check_past_beacons over rounds 1-FOLLOW_CHECK_UP_TO,
+    # repaired from A (what `cli sync --up-to` without --follow runs)
     folder = os.path.join(work_dir, "follow-A")
     db = os.path.join(folder, FW.DB_NAME)
     flip_row(db, FOLLOW_CHECK)
@@ -1823,7 +1860,8 @@ def follow_phase(work_dir, default_path, launches, chain_launches,
         clients = PeerClients()
         try:
             return await FW.check_chain(clients, addrs, folder, Clock(),
-                                        chain_hash=info_u.hash())
+                                        chain_hash=info_u.hash(),
+                                        up_to=FOLLOW_CHECK_UP_TO)
         finally:
             await clients.close()
             await stop()
@@ -1888,10 +1926,13 @@ def follow_phase(work_dir, default_path, launches, chain_launches,
 # polynomial and the nodes' key pairs from fixed seeds
 BEACON_N, BEACON_T, BEACON_PERIOD = 16, 9, 3
 BEACON_SEED = b"drand_tpu_torch beacon group"
-BEACON_ROUNDS = 8               # clockwork: rounds 1-8
+BEACON_ROUNDS = 6               # clockwork: rounds 1-6
 BEACON_BAD_ROUND = 4            # the flipped partial: signer 5's, round 4
-BEACON_LIVE_TARGET = 10         # live: stop once node 1 holds round 10
-BEACON_LIVE_LEAD_S = 30         # live: genesis this far ahead, rounded up
+BEACON_LIVE_TARGET = 4          # live: stop once every node holds it
+# live: the period of the DKG's group, 16 processes checking partials on
+# one card from 8 host cores (a card call's ~1.1 s of host issue took
+# 5.5 s with all 16 at once, so a 3-s period fell behind)
+BEACON_LIVE_PERIOD = 10
 
 
 def beacon_group(folders, addresses, genesis):
@@ -1939,7 +1980,7 @@ def beacon_rows(folder):
 def beacon_clockwork(work_dir, default_path, burst_launches):
     """Part (a) of the beacon phase: 16 port DrandDaemons in this process
     under one FakeClock, node 0 on the card, nodes 1-15 on the host
-    tier; genesis, then rounds 1-8, one period a step, each waited for
+    tier; genesis, then rounds 1-6, one period a step, each waited for
     on all 16 stores.  Returns (its report, the calls by kernel of the
     driven run)."""
     import asyncio
@@ -2149,66 +2190,401 @@ def beacon_clockwork(work_dir, default_path, burst_launches):
         "first_call_launches": first}, [calls]
 
 
-def beacon_live(work_dir):
-    """Part (b) of the beacon phase: the same keys and shares in fresh
-    folders on free ports, genesis BEACON_LIVE_LEAD_S ahead rounded up to
-    the period, each of the 16 nodes `python -m drand_tpu_torch.cli
-    start` in a process of its own on the wall clock (node 0 on the
-    card, nodes 1-15 with --device cpu and no CUDA device visible); this
-    process watches PublicRandStream of nodes 0 and 1, stops every node
-    with SIGTERM once node 1 holds round 10 (node 0 given up to two
-    periods more), and reads the stores and node 0's dispatch records;
-    fails unless node 0 made a card call in rounds 2 to its tip and no
-    card call of node 0 raised."""
+def beacon_phase(work_dir, default_path, burst_launches):
+    """The `beacon` phase's clockwork group in this process (its live part
+    runs in the `dkg` phase, on the ceremony's group).  Returns (its
+    report, the calls by kernel of its driven run)."""
+    clockwork, calls = beacon_clockwork(work_dir, default_path,
+                                        burst_launches)
+    emit({k: v for k, v in clockwork.items() if k != "per_round"})
+    for row in clockwork["per_round"]:
+        emit({"phase": "beacon", "part": "clockwork round", **row})
+    return clockwork, calls
+
+
+# the dkg phase: the batched commitment check at the reference's stated
+# shape (n = 128 dealers, t = 65: `pubpoly_eval_g1_stacked`'s docstring),
+# a faulty dealer's ceremony in this process and the ceremony through the
+# CLI, both at the beacon phase's n = 16, t = 9
+DKG_WIDE_N, DKG_WIDE_T = 128, 65
+DKG_WIDE_INDEX = 5              # the deal shape's one index
+DKG_WIDE_SWAPPED = 17           # this row's commitment 1 is its commitment 0
+DKG_WIDE_WRONG = 93             # this row's expected point is one G1 off
+DKG_PATH = ("mont_mul", "mont_sqr", "sqr_chain_mul")
+DKG_FAULTY_DEALER = 4           # seals a wrong share to nodes 8-15
+DKG_FAULTY_TO = tuple(range(8, 16))
+DKG_CARD_NODES = (0, 8)         # their twins check on the card
+DKG_TIMEOUT = 15                # `cli share --timeout`: a phase's limit
+DKG_SECRET = b"drand_tpu_torch chip_smoke dkg"
+
+
+def dkg_launches(t: int) -> dict:
+    """K1, K2 and K4 launches of one `dkg_commit_checks` call at threshold
+    t, read from the code (ops/bls.py, ops/curve.py): t - 1 Horner steps,
+    each a 16-bit ladder (a bit: a doubling, 3 K1 and 1 K2, and an
+    addition without its doubling case, 5 K1) then an addition with it
+    (8 K1, 1 K2); then the affine map (one K4 inversion, 1 K2, 3 K1)."""
+    return {"mont_mul": 136 * (t - 1) + 3, "mont_sqr": 17 * (t - 1) + 1,
+            "sqr_chain_mul": 1}
+
+
+def dkg_bounds(calls) -> dict:
+    """Each DKG kernel's bound summed over a run's calls."""
+    return {name: sum(n * bound_ms(*work(name, call))[0]
+                      for call, n in calls[name].items())
+            for name in DKG_PATH}
+
+
+def dkg_wide():
+    """Part (a) of the dkg phase: 128 polynomials of degree 64 from fixed
+    seeds, committed by the golden `g1_mul_gen`; `dkg_commit_checks` on
+    the card in the deal shape (128 rows, one index; the process's first
+    call) and the justification shape (each row its own index; the
+    second), row 17 with a valid but swapped commitment and row 93 with
+    a wrong expected point: every verdict equal to the golden
+    PubPoly.eval comparison, exactly those two rows false; each call's
+    wall and launches, and the deal-shape call's device kernels (it runs
+    under the profiler, so its wall includes the profiler's cost).
+    Returns (its report, the calls by kernel of its driven
+    runs)."""
+    import numpy as np
+
+    from drand_tpu_torch.crypto.bls12381 import curve as GC
+    from drand_tpu_torch.crypto.poly import PriPoly, PubPoly
+    from drand_tpu_torch.ops import bls as BLS
+
+    n, t = DKG_WIDE_N, DKG_WIDE_T
+    t0 = time.perf_counter()
+    polys = [PriPoly.random(t, rand=sha512_stream(b"dkg wide %d" % i))
+             for i in range(n)]
+    commits = [[GC.g1_mul_gen(c) for c in p.coeffs] for p in polys]
+    commit_s = time.perf_counter() - t0
+    commits[DKG_WIDE_SWAPPED][1] = commits[DKG_WIDE_SWAPPED][0]
+    limbs = [BLS.g1_rows_to_limbs(c) for c in commits]
+    ctx = np.stack([x for x, _, _ in limbs])
+    cty = np.stack([y for _, y, _ in limbs])
+    cases = {}
+    for shape, idx in (("deal", [DKG_WIDE_INDEX] * n),
+                       ("justification", [(37 * r + 11) % n
+                                          for r in range(n)])):
+        values = [p.eval(i).value for p, i in zip(polys, idx)]
+        values[DKG_WIDE_WRONG] += 1
+        expected = [GC.g1_mul_gen(v) for v in values]
+        golden = [GC.g1_eq(PubPoly(c).eval(i), e)
+                  for c, i, e in zip(commits, idx, expected)]
+        cases[shape] = (np.asarray(idx, dtype=np.int32),
+                        *BLS.g1_rows_to_limbs(expected), golden)
+    host_s = time.perf_counter() - t0
+    want = dkg_launches(t)
+    bad = sorted((DKG_WIDE_SWAPPED, DKG_WIDE_WRONG))
+    out = {"phase": "dkg", "part": "wide", "card": nvidia_smi(), "rows": n,
+           "t": t, "commit_host_s": commit_s, "inputs_host_s": host_s,
+           "launches_predicted": want}
+    all_calls, kern, complete = [], [], set()
+    for shape in ("deal", "justification"):
+        idx, ex, ey, einf, golden = cases[shape]
+
+        def call():
+            return drive(
+                lambda: BLS.dkg_commit_checks(ctx, cty, idx, ex, ey, einf))
+        if shape == "deal":
+            got = []
+            t0 = time.perf_counter()
+            kern, complete = profile_kernels(lambda: got.append(call()),
+                                             want, tries=1)
+            out["profile_s"] = time.perf_counter() - t0
+            ok, secs, counts, calls, n_conv = got[0]
+        else:
+            ok, secs, counts, calls, n_conv = call()
+        check_path(f"dkg wide, {shape} shape", counts, n_conv, DKG_PATH)
+        all_calls.append(calls)
+        if ok.tolist() != golden or \
+                [r for r in range(n) if not ok[r]] != bad:
+            fail(f"dkg wide, {shape} shape: false rows "
+                 f"{[r for r in range(n) if not ok[r]]}, golden "
+                 f"{[r for r in range(n) if not golden[r]]}")
+        out[shape] = {"wall_s": secs, "profiled": shape == "deal",
+                      "launches": {k: counts[k] for k in DKG_PATH},
+                      "launches_as_predicted": all(counts[k] == want[k]
+                                                   for k in DKG_PATH),
+                      "bound_ms": dkg_bounds(calls),
+                      "false_rows": bad, "verdicts_equal_golden": True}
+    ms = collections.Counter()
+    for dev_name, d in kern:
+        name = kernel_of(dev_name)
+        if name is not None:
+            ms[name] += d * 1e3
+    out["deal"].update(
+        device_kernels=len(kern), busy_s=sum(d for _, d in kern),
+        device_kernels_note=DEVICE_KERNELS_NOTE,
+        path_ms={k: (ms[k] if k in complete else None) for k in DKG_PATH})
+    return out, all_calls
+
+
+def dkg_faulty():
+    """Part (b) of the dkg phase: a ceremony of n = 16, t = 9 in this
+    process, dealer 4 sealing a wrong share to nodes 8-15.  Every node
+    runs on the host path (the golden model); nodes 0 and 8 run again on
+    the card with the same bundles: their deal verdicts (16 rows, one
+    batched call each), complaints, QUAL (dealer 4's justification, 8
+    rows, batched in qual() and again in finalize()) and shares equal
+    the host run's; dealer 4 stays in QUAL, and t shares give the group
+    key's secret.  Returns (its report, the calls by kernel of the card
+    run)."""
+    import hashlib
+
+    from drand_tpu_torch import dispatch as DSP
+    from drand_tpu_torch.crypto import dkg as DKG
+    from drand_tpu_torch.crypto import ecies
+    from drand_tpu_torch.crypto import sign as SG
+    from drand_tpu_torch.crypto.bls12381 import curve as GC
+    from drand_tpu_torch.crypto.poly import recover_secret
+
+    n, t, bad = BEACON_N, BEACON_T, DKG_FAULTY_DEALER
+    keys = [SG.keygen(b"dkg faulty node %d" % i) for i in range(n)]
+    nodes = [DKG.DkgNode(i, pk) for i, (_, pk) in enumerate(keys)]
+    nonce = hashlib.sha256(b"chip_smoke dkg faulty dealer").digest()
+
+    def conf(i):
+        return DKG.DkgConfig(longterm=keys[i][0], new_nodes=nodes,
+                             threshold=t, nonce=nonce)
+    t0 = time.perf_counter()
+    host = [DKG.DkgProtocol(conf(i), device="cpu") for i in range(n)]
+    deals = [p.make_deal_bundle() for p in host]
+    poly = host[bad]._poly
+    deals[bad].deals = [DKG.Deal(node.index, ecies.seal(
+        node.public, ((poly.eval(node.index).value
+                       + (node.index in DKG_FAULTY_TO)) % GC.R)
+        .to_bytes(32, "big"))) for node in nodes]
+    deals[bad].signature = SG.schnorr_sign(keys[bad][0], deals[bad].hash())
+    for p in host:
+        if not all(p.receive_deal_bundle(d) for d in deals):
+            fail("dkg faulty dealer: a deal bundle refused")
+    host_checked = [p._check_deals() for p in host]
+    resps = [p.make_response_bundle() for p in host]
+    for p in host:
+        for rb in resps:
+            p.receive_response_bundle(rb)
+    just = host[bad].make_justification_bundle()
+    for p in host:
+        p.receive_justification_bundle(just)
+    host_qual = [p.qual() for p in host]
+    host_shares = [p.finalize() for p in host]
+    host_s = time.perf_counter() - t0
+    complaints = host[0].complaints()
+    if complaints != {bad: set(DKG_FAULTY_TO)} or \
+            len(just.justifications) != len(DKG_FAULTY_TO) or \
+            any(q != list(range(n)) for q in host_qual):
+        fail(f"dkg faulty dealer (host): complaints {complaints}, "
+             f"QUAL {host_qual[0]}")
+
+    def card_run():
+        out = {}
+        for i in DKG_CARD_NODES:
+            c = DKG.DkgProtocol(conf(i))
+            for d in deals:
+                c.receive_deal_bundle(d)
+            checked = c._check_deals()
+            for rb in resps:
+                c.receive_response_bundle(rb)
+            c.receive_justification_bundle(just)
+            out[i] = (checked, c.complaints(), c.qual(), c.finalize())
+        return out
+    before = len(DSP.DISPATCH)
+    res, card_s, counts, calls, n_conv = drive(card_run)
+    check_path("dkg faulty dealer (card)", counts, n_conv, DKG_PATH)
+    records = [(r.seam, r.n) for r in DSP.DISPATCH.records()[before:]]
+    want_records = [("dkg_deals", n), ("dkg_justifications", 8),
+                    ("dkg_justifications", 8)] * len(DKG_CARD_NODES)
+
+    def share_bytes(dks):
+        return ([GC.g1_to_bytes(c) for c in dks.commits],
+                dks.pri_share.index, dks.pri_share.value)
+    for i, (checked, comp, qual, dks) in res.items():
+        if checked != host_checked[i] or comp != complaints or \
+                qual != host_qual[i] or \
+                share_bytes(dks) != share_bytes(host_shares[i]):
+            fail(f"dkg faulty dealer: node {i}'s card run differs from the "
+                 f"host run: verdicts {checked} / {host_checked[i]}, QUAL "
+                 f"{qual}")
+    if records != want_records:
+        fail(f"dkg faulty dealer: card calls {records}, want {want_records}")
+    if res[DKG_FAULTY_TO[0]][0][bad] or not res[0][0][bad]:
+        fail("dkg faulty dealer: the deal verdicts on dealer 4")
+    key = host_shares[0].commits[0]
+    secret = recover_secret([s.pri_share for s in host_shares[3:3 + t]], t)
+    if not GC.g1_eq(GC.g1_mul_gen(secret), key) or any(
+            share_bytes(s)[0] != share_bytes(host_shares[0])[0]
+            for s in host_shares):
+        fail("dkg faulty dealer: the shares do not give the group key")
+    return {"phase": "dkg", "part": "faulty dealer", "n": n, "t": t,
+            "dealer": bad, "wrong_shares_to": list(DKG_FAULTY_TO),
+            "complaints": len(complaints[bad]),
+            "justification_rows": len(just.justifications),
+            "qual": host_qual[0], "card_nodes": list(DKG_CARD_NODES),
+            "card_equal_host": True, "card_records": records,
+            "host_run_s": host_s, "card_run_s": card_s,
+            "launches": {k: counts[k] for k in DKG_PATH},
+            "bound_ms": dkg_bounds(calls)}, [calls]
+
+
+async def _wait_leader(addr: str, limit: float) -> None:
+    """Until the leader's InitDKG has begun: its SignalDKGParticipant
+    answers "no DKG setup in progress" before, and refuses an empty
+    secret ("wrong setup secret") after."""
+    import asyncio
+
+    import grpc
+
+    from drand_tpu_torch.net.client import PeerClients, make_metadata
+    from drand_tpu_torch.protogen import drand_pb2
+    peers = PeerClients()
+    deadline = time.monotonic() + limit
+    try:
+        while True:
+            try:
+                await peers.protocol(addr).SignalDKGParticipant(
+                    drand_pb2.SignalDKGPacket(
+                        metadata=make_metadata("default")), timeout=10)
+            except grpc.aio.AioRpcError as exc:
+                # the leader's manager refuses the empty secret; any
+                # other answer (no setup yet, a deadline, no connection)
+                # says nothing of it
+                if "wrong setup secret" in (exc.details() or ""):
+                    return
+            if time.monotonic() > deadline:
+                fail(f"dkg ceremony: the leader {addr} did not start its "
+                     f"setup within {limit} s")
+            await asyncio.sleep(0.2)
+    finally:
+        await peers.close()
+
+
+def dkg_live(work_dir):
+    """Part (c) of the dkg phase, and the beacon phase's live part: 16
+    nodes through the CLI alone, on the wall clock, every one on the
+    card: `cli generate-keypair`, `cli start --control`, then `cli share
+    --leader --nodes 16 --threshold 9` and 15 `cli share --connect`
+    (period BEACON_LIVE_PERIOD, catch-up period 1 s, --timeout
+    DKG_TIMEOUT);
+    then the ceremony's group produces the chain until every node holds
+    round BEACON_LIVE_TARGET, and SIGTERM stops every node.  Fails unless
+    every share exits 0 with the same TOML, the 16 group files and the
+    16 distributed keys are byte-equal, t shares give the group key's
+    secret, every node's phases closed complete with QUAL all 16 and it
+    made a card deal check ({"dkg": ...} and {"dispatch": ...} lines of
+    `cli start` at stop), every node exits 0, the 16 stores are
+    byte-equal to the target and verify against the group key, node 0
+    made a card call in rounds 2 to the target and no card call of any
+    node raised.  Returns (the ceremony's report, the live report)."""
     import asyncio
     import signal
     import socket
 
+    from drand_tpu_torch.chain.codec import decode_beacon
+    from drand_tpu_torch.chain.scheme import scheme_by_id
     from drand_tpu_torch.chain.time import time_of_round
+    from drand_tpu_torch.chain.verify import ChainVerifier
+    from drand_tpu_torch.crypto.bls12381 import curve as GC
+    from drand_tpu_torch.crypto.poly import recover_secret
+    from drand_tpu_torch.key.group import Group
+    from drand_tpu_torch.key.store import FileStore
     from drand_tpu_torch.net.client import PeerClients, make_metadata
     from drand_tpu_torch.protogen import drand_pb2
 
-    n, period = BEACON_N, BEACON_PERIOD
+    n, t, period = BEACON_N, BEACON_T, BEACON_LIVE_PERIOD
+    target = BEACON_LIVE_TARGET
     socks = []
-    for _ in range(n):
+    for _ in range(2 * n):
         s = socket.socket()
         s.bind(("127.0.0.1", 0))
         socks.append(s)
-    addrs = [f"127.0.0.1:{s.getsockname()[1]}" for s in socks]
+    ports = [s.getsockname()[1] for s in socks]
     for s in socks:
         s.close()
+    addrs = [f"127.0.0.1:{p}" for p in ports[:n]]
+    controls = [str(p) for p in ports[n:]]
     folders = [os.path.join(work_dir, f"live-{i}") for i in range(n)]
-    genesis = -(-(int(time.time()) + BEACON_LIVE_LEAD_S) // period) * period
-    group, _, _ = beacon_group(folders, addrs, genesis)
-    outs = [os.path.join(f, "stdout.txt") for f in folders]
-    procs, arrivals, rcs = [], {0: {}, 1: {}}, []
+    cli = [sys.executable, "-m", "drand_tpu_torch.cli"]
     t_start = time.time()
+    gens = [subprocess.Popen(cli + ["generate-keypair", "--folder", f, a],
+                             cwd=HERE, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+            for f, a in zip(folders, addrs)]
+    for i, g in enumerate(gens):
+        out, err = g.communicate(timeout=300)
+        if g.returncode:
+            fail(f"dkg ceremony: generate-keypair of node {i} exited "
+                 f"{g.returncode}: {err[-2000:]}")
+    keys_s = time.time() - t_start
+    outs = [os.path.join(f, "stdout.txt") for f in folders]
+    errs = [os.path.join(f, "stderr.txt") for f in folders]
+    procs, shares, arrivals, rcs = [], [], {0: {}, 1: {}}, []
+    secret = os.path.join(work_dir, "dkg-secret")
+    with open(secret, "wb") as f:
+        f.write(DKG_SECRET)
+    share = cli + ["share", "--secret-file", secret, "--period", str(period),
+                   "--catchup-period", "1", "--timeout", str(DKG_TIMEOUT)]
     try:
         for i in range(n):
-            cmd = [sys.executable, "-m", "drand_tpu_torch.cli", "start",
-                   "--folder", folders[i], "--private-listen", addrs[i],
-                   "--tls-disable"]
-            env = dict(os.environ)
-            if i:
-                cmd += ["--device", "cpu"]
-                env["CUDA_VISIBLE_DEVICES"] = ""
-            with open(outs[i], "w") as out, \
-                    open(os.path.join(folders[i], "stderr.txt"), "w") as err:
-                procs.append(subprocess.Popen(cmd, cwd=HERE, stdout=out,
-                                              stderr=err, env=env))
-        up = [False] * n
+            with open(outs[i], "w") as out, open(errs[i], "w") as err:
+                procs.append(subprocess.Popen(
+                    cli + ["start", "--folder", folders[i],
+                           "--private-listen", addrs[i], "--tls-disable",
+                           "--control", controls[i]],
+                    cwd=HERE, stdout=out, stderr=err))
+        up, limit = [False] * n, time.time() + 300
         while not all(up):
             for i in range(n):
                 if not up[i] and procs[i].poll() is not None:
-                    fail(f"beacon live: node {i} exited "
+                    fail(f"dkg ceremony: node {i} exited "
                          f"{procs[i].returncode} before serving")
                 with open(outs[i]) as f:
                     up[i] = f.read().startswith("daemon running: ")
-            if time.time() > genesis:
-                fail(f"beacon live: nodes {[i for i in range(n) if not up[i]]}"
-                     " not serving by genesis")
+            if time.time() > limit:
+                fail(f"dkg ceremony: nodes {[i for i in range(n) if not up[i]]}"
+                     " not serving within 300 s")
             time.sleep(0.1)
         up_s = time.time() - t_start
+        t_share = time.time()
+        shares.append(subprocess.Popen(
+            share + ["--control", controls[0], "--leader", "--nodes", str(n),
+                     "--threshold", str(t)], cwd=HERE,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        asyncio.run(_wait_leader(addrs[0], 120))
+        shares += [subprocess.Popen(
+            share + ["--control", controls[i], "--connect", addrs[0]],
+            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for i in range(1, n)]
+        results, share_walls = [], []
+        for i, sp in enumerate(shares):
+            results.append(sp.communicate(timeout=6 * DKG_TIMEOUT + 300))
+            share_walls.append(time.time() - t_share)
+            if sp.returncode:
+                fail(f"dkg ceremony: share of node {i} exited "
+                     f"{sp.returncode}: {results[-1][1][-2000:]}")
+        if any(out != results[0][0] for out, _ in results):
+            fail("dkg ceremony: the share commands printed different groups")
+        group = Group.from_toml(results[0][0])
+        files = []
+        for f in folders:
+            with open(os.path.join(f, "multibeacon", "default", "groups",
+                                   "drand_group.toml"), "rb") as fh:
+                files.append(fh.read())
+        node_shares = [FileStore(f).load_share() for f in folders]
+        key = group.public_key.key_bytes()
+        if any(x != files[0] for x in files) or \
+                files[0].decode() != results[0][0] or \
+                any(s.commits != group.public_key.coefficients
+                    for s in node_shares) or \
+                sorted(s.share_index() for s in node_shares) != list(range(n)):
+            fail("dkg ceremony: the group files or the distributed keys "
+                 "differ between nodes")
+        secret_s = recover_secret([s.pri_share for s in node_shares[:t]], t)
+        if GC.g1_to_bytes(GC.g1_mul_gen(secret_s)) != key:
+            fail("dkg ceremony: t shares do not give the group key's secret")
+        genesis = group.genesis_time
+        done_at = time.time()
 
         async def watch():
             peers = PeerClients()
@@ -2219,17 +2595,26 @@ def beacon_live(work_dir):
                     drand_pb2.PublicRandRequest(round=0, metadata=md))
                 async for resp in stream:
                     arrivals[i].setdefault(resp.round, time.time())
-                    if i == 1 and resp.round >= BEACON_LIVE_TARGET:
+                    if i == 1 and resp.round >= target:
                         return
+
+            async def tip(i):
+                resp = await peers.public(addrs[i]).PublicRand(
+                    drand_pb2.PublicRandRequest(round=0, metadata=md),
+                    timeout=30)
+                return resp.round
             tasks = [asyncio.ensure_future(follow(i)) for i in (0, 1)]
             try:
-                limit = genesis + (BEACON_LIVE_TARGET + 10) * period - \
-                    time.time()
+                limit = genesis + (target + 10) * period - time.time()
                 await asyncio.wait_for(asyncio.shield(tasks[1]), limit)
-                settle = time.time() + 2 * period
-                while max(arrivals[0], default=0) < BEACON_LIVE_TARGET and \
-                        time.time() < settle:
-                    await asyncio.sleep(0.05)
+                settle = time.time() + 10 * period
+                while min(await asyncio.gather(*(tip(i) for i in range(n)))) \
+                        < target:
+                    if time.time() > settle:
+                        fail(f"beacon live: tips "
+                             f"{await asyncio.gather(*(tip(i) for i in range(n)))}"
+                             f" short of round {target}")
+                    await asyncio.sleep(0.2)
             finally:
                 for task in tasks:
                     task.cancel()
@@ -2238,9 +2623,13 @@ def beacon_live(work_dir):
         try:
             asyncio.run(watch())
         except asyncio.TimeoutError:
-            fail(f"beacon live: node 1 did not reach round "
-                 f"{BEACON_LIVE_TARGET}: {sorted(arrivals[1])}")
+            fail(f"beacon live: node 1 did not reach round {target}: "
+                 f"{sorted(arrivals[1])}")
     finally:
+        for sp in shares:
+            if sp.poll() is None:
+                sp.kill()
+                sp.communicate()
         for p in procs:
             if p.poll() is None:
                 p.send_signal(signal.SIGTERM)
@@ -2253,30 +2642,48 @@ def beacon_live(work_dir):
                 rcs.append("killed")
     if rcs != [0] * n:
         fail(f"beacon live: exit codes on SIGTERM {rcs}")
-    rows0, rows1 = beacon_rows(folders[0]), beacon_rows(folders[1])
-    tip0 = rows0[-1][0] if rows0 else -1
-    if tip0 < BEACON_LIVE_TARGET - 1 or rows0 != rows1[:len(rows0)] or \
-            [r for r, _ in rows0] != list(range(tip0 + 1)):
-        fail(f"beacon live: node 0's store (tip {tip0}) is not node 1's "
-             f"prefix (tip {rows1[-1][0] if rows1 else -1})")
-    records = []
-    with open(outs[0]) as f:
-        for line in f:
-            if line.startswith('{"dispatch"'):
-                records.append(json.loads(line)["dispatch"])
-    card = [r for r in records if r["seam"] == "partials"]
-    # node 0's card path ran: a card call that raised is logged and
-    # fails its partials closed (the store then fills from the peers)
-    with open(os.path.join(folders[0], "stderr.txt")) as f:
-        if "partial-verify backend error" in f.read():
-            fail("beacon live: a card call of node 0 raised "
+    records, statuses = [], []
+    for i in range(n):
+        recs, st = [], None
+        with open(outs[i]) as f:
+            for line in f:
+                if line.startswith('{"dispatch"'):
+                    recs.append(json.loads(line)["dispatch"])
+                elif line.startswith('{"dkg"'):
+                    st = json.loads(line)["dkg"]
+        records.append(recs)
+        statuses.append(st)
+        with open(errs[i]) as f:
+            err = f.read()
+        if "partial-verify backend error" in err:
+            fail(f"beacon live: a card call of node {i} raised "
                  "(partial-verify backend error in its stderr)")
+        if st is None or st["state"] != "done" or \
+                st["qual"] != list(range(n)) or \
+                [(p["phase"], p["outcome"]) for p in st["phases"]] != \
+                [("deal", "complete"), ("response", "complete")]:
+            fail(f"dkg ceremony: node {i}'s ceremony {st}")
+        deal_checks = [r for r in recs if r["seam"] == "dkg_deals"]
+        if not deal_checks or any(r["n"] != n for r in deal_checks):
+            fail(f"dkg ceremony: node {i}'s card deal checks {deal_checks}")
+    rows = [beacon_rows(f) for f in folders]
+    if any(r[:target + 1] != rows[0][:target + 1] for r in rows) or \
+            [r for r, _ in rows[0][:target + 1]] != list(range(target + 1)):
+        fail(f"beacon live: the 16 stores differ in rounds 0-{target}: "
+             f"tips {[r[-1][0] for r in rows]}")
+    stored = [decode_beacon(data) for _, data in rows[0][:target + 1]]
+    cv = ChainVerifier(scheme_by_id(group.scheme_id), key)
+    if stored[0].signature != group.genesis_seed or not \
+            cv.verify_chain_segment(stored[1:], group.genesis_seed).all():
+        fail("beacon live: the chain does not verify against the DKG's "
+             "group key")
+    card = [r for r in records[0] if r["seam"] == "partials"]
     t_from = time_of_round(period, genesis, 2)
-    t_to = time_of_round(period, genesis, tip0) + period
+    t_to = time_of_round(period, genesis, target) + period
     if not any(t_from <= c["wall"] - c["device_s"] < t_to for c in card):
-        fail(f"beacon live: node 0 made no card call in rounds 2-{tip0}")
+        fail(f"beacon live: node 0 made no card call in rounds 2-{target}")
     table = []
-    for r in range(1, max(max(arrivals[1], default=0), tip0) + 1):
+    for r in range(1, target + 1):
         t_r = time_of_round(period, genesis, r)
         # a record is stamped when its call returns: a call belongs to
         # the round in whose period it started
@@ -2290,36 +2697,59 @@ def beacon_live(work_dir):
                       "node0_walls_s": [c["device_s"] for c in calls],
                       "node0_starts_s": [c["wall"] - c["device_s"] - t_r
                                          for c in calls]})
-    kept = all(row["node0_late_s"] is not None
-               and row["node0_late_s"] < period for row in table
-               if row["round"] <= tip0)
-    return {
-        "phase": "beacon", "part": "live", "n": n, "t": BEACON_T,
-        "period_s": period, "genesis_lead_s": genesis - t_start,
-        "nodes_serving_after_s": up_s, "exit_codes_all_zero": True,
-        "node0_tip": tip0, "node1_tip": rows1[-1][0],
-        "node0_store_prefix_of_node1": True,
-        "node0_kept_period": kept,
+    deal_walls = [[r["device_s"] for r in recs if r["seam"] == "dkg_deals"]
+                  for recs in records]
+    ceremony = {
+        "phase": "dkg", "part": "ceremony", "n": n, "t": t,
+        "timeout_s": DKG_TIMEOUT, "period_s": period,
+        "keypairs_s": keys_s, "nodes_serving_after_s": up_s,
+        "share_walls_s": share_walls, "genesis_after_share_s":
+            genesis - t_share, "genesis_wait_s": genesis - done_at,
+        "group_hash": group.hash().hex(), "group_key": key.hex(),
+        "groups_byte_equal": True, "dist_keys_byte_equal": True,
+        "shares_give_group_key": True, "qual_all": True,
+        "phases": [[p["duration_s"] for p in st["phases"]]
+                   for st in statuses],
+        "card_deal_checks": [len(w) for w in deal_walls],
+        "card_deal_check_walls_s": deal_walls}
+    live = {
+        "phase": "beacon", "part": "live", "n": n, "t": t,
+        "period_s": period, "group": "the dkg ceremony's",
+        "exit_codes_all_zero": True, "target": target,
+        "tips": [r[-1][0] for r in rows], "stores_byte_equal_to_target": True,
+        "chain_verifies_against_dkg_key": True,
         "node0_partials_records": len(card),
+        "nodes_partials_records": [sum(r["seam"] == "partials" for r in recs)
+                                   for recs in records],
         "node0_other_records": collections.Counter(
-            r["seam"] for r in records if r["seam"] != "partials"),
+            r["seam"] for r in records[0] if r["seam"] != "partials"),
         "table": table}
+    return ceremony, live
 
 
-def beacon_phase(work_dir, default_path, burst_launches):
-    """The `beacon` phase: (a) the clockwork group in this process, then
-    (b) the live group through `cli start`.  Returns ((a)'s report, (b)'s
-    report, the calls by kernel of (a)'s driven run)."""
-    clockwork, calls = beacon_clockwork(work_dir, default_path,
-                                        burst_launches)
-    emit({k: v for k, v in clockwork.items() if k != "per_round"})
-    for row in clockwork["per_round"]:
-        emit({"phase": "beacon", "part": "clockwork round", **row})
-    live = beacon_live(work_dir)
+def dkg_phase(work_dir):
+    """The `dkg` phase: (a) the batched check at n = 128, t = 65, (b) the
+    faulty dealer's ceremony in this process, (c) the ceremony through
+    the CLI and the chain from its group (the beacon phase's live part).
+    Returns (the reports, the calls by kernel of (a)'s and (b)'s driven
+    runs)."""
+    t0 = time.perf_counter()
+    wide, wide_calls = dkg_wide()
+    wide["part_s"] = time.perf_counter() - t0
+    emit(wide)
+    t0 = time.perf_counter()
+    faulty, faulty_calls = dkg_faulty()
+    faulty["part_s"] = time.perf_counter() - t0
+    emit(faulty)
+    t0 = time.perf_counter()
+    ceremony, live = dkg_live(work_dir)
+    ceremony["part_s"] = time.perf_counter() - t0
+    emit(ceremony)
     emit({k: v for k, v in live.items() if k != "table"})
     for row in live["table"]:
         emit({"phase": "beacon", "part": "live round", **row})
-    return clockwork, live, calls
+    return {"wide": wide, "faulty": faulty, "ceremony": ceremony,
+            "live": live}, wide_calls + faulty_calls
 
 
 _CONV = {"calls": 0, "plain": None}
@@ -2801,12 +3231,13 @@ def main() -> int:
     finally:
         shutil.rmtree(rec_dir, ignore_errors=True)
 
-    # -- beacon --------------------------------------------------------------
+    # -- beacon, dkg ---------------------------------------------------------
     beacon_dir = tempfile.mkdtemp(prefix="beacon-",
                                   dir=os.path.join(HERE, "build"))
     try:
-        report["beacon"], report["beacon_live"], beacon_calls = beacon_phase(
+        report["beacon"], beacon_calls = beacon_phase(
             beacon_dir, default_path, report["partials"]["launches"]["burst"])
+        report["dkg"], dkg_calls = dkg_phase(beacon_dir)
     finally:
         shutil.rmtree(beacon_dir, ignore_errors=True)
 
@@ -2820,6 +3251,7 @@ def main() -> int:
                  | set().union(*(c[name] for c in catchup_calls))
                  | set().union(*(c[name] for c in follow_calls))
                  | set().union(*(c[name] for c in beacon_calls))
+                 | set().union(*(c[name] for c in dkg_calls))
                  for name in K.KERNELS}
 
     # -- parity --------------------------------------------------------------
@@ -3351,6 +3783,17 @@ def main() -> int:
         "kernels": sorted({r["kernel"] for r in beacon_rows_}),
         "all_bit_equal": all(r["bit_equal"] for r in beacon_rows_)}
     emit(report["beacon_parity"])
+    dkg_rows = [r for r in rows
+                if any(r["call"] in c[r["kernel"]] for c in dkg_calls)]
+    if {r["kernel"] for r in dkg_rows} != set(DKG_PATH):
+        fail(f"dkg: parity checks at its calls cover "
+             f"{sorted({r['kernel'] for r in dkg_rows})}")
+    report["dkg_parity"] = {
+        "phase": "dkg", "part": "parity", "checks": len(dkg_rows),
+        "kernels": sorted({r["kernel"] for r in dkg_rows}),
+        "calls": sorted({str(r["call"]) for r in dkg_rows}),
+        "all_bit_equal": all(r["bit_equal"] for r in dkg_rows)}
+    emit(report["dkg_parity"])
     report["parity"] = {"phase": "parity", "checks": len(rows),
                         "on_path": sum(r["on_path"] for r in rows),
                         "all_bit_equal": all(r["bit_equal"] for r in rows),

@@ -4,13 +4,15 @@
 Its hash is the root of trust a follower pins (`--chain-hash`): sha256
 over the period (BE32), the genesis time (BE64), the group public key
 and the genesis seed, then the beacon id when it is not the default one.
-The scheme id is not hashed, as in drand.  drand_tpu's JSON form (its
-HTTP `/info`) is not ported: the port serves no HTTP.
+The scheme id is not hashed, as in drand.  `to_json` is drand_tpu's JSON
+form (its HTTP `/info`, here what `cli show chain-info` prints); the
+port serves no HTTP and reads no JSON form.
 """
 
 from __future__ import annotations
 
 import hashlib
+import json
 import struct
 from dataclasses import dataclass
 
@@ -39,3 +41,14 @@ class Info:
 
     def hash_hex(self) -> str:
         return self.hash().hex()
+
+    def to_json(self) -> bytes:
+        return json.dumps({
+            "public_key": self.public_key.hex(),
+            "period": self.period,
+            "genesis_time": self.genesis_time,
+            "hash": self.hash_hex(),
+            "groupHash": self.genesis_seed.hex(),
+            "schemeID": self.scheme_id,
+            "metadata": {"beaconID": self.beacon_id},
+        }, sort_keys=True).encode()

@@ -1,14 +1,32 @@
 """Beacon scheme registry (counterpart of `drand_tpu/chain/scheme.py`,
 drand `common/scheme/scheme.go`): each scheme carries the port's
 `SchemeShape`, which fixes the digest rule, the signature group and the
-DST of its batched check."""
+DST of its batched check (`verify.Verifier`).  It imports no torch, so
+the key files, groups and the CLI's control-port commands load without
+it."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-from drand_tpu_torch.verify import (SHAPE_CHAINED, SHAPE_UNCHAINED,
-                                    SHAPE_UNCHAINED_G1, SchemeShape)
+from drand_tpu_torch.crypto.bls12381.constants import DST_G1, DST_G2
+
+
+@dataclass(frozen=True)
+class SchemeShape:
+    """Static wire shape of a scheme."""
+    chained: bool          # prev_sig part of the digest
+    sig_on_g1: bool        # short signatures on G1, the key on G2
+    dst: bytes
+
+    @property
+    def sig_len(self) -> int:
+        return 48 if self.sig_on_g1 else 96
+
+
+SHAPE_CHAINED = SchemeShape(chained=True, sig_on_g1=False, dst=DST_G2)
+SHAPE_UNCHAINED = SchemeShape(chained=False, sig_on_g1=False, dst=DST_G2)
+SHAPE_UNCHAINED_G1 = SchemeShape(chained=False, sig_on_g1=True, dst=DST_G1)
 
 DEFAULT_SCHEME_ID = "pedersen-bls-chained"
 UNCHAINED_SCHEME_ID = "pedersen-bls-unchained"

@@ -11,7 +11,15 @@
         [--follow] [--up-to ROUND] [--chain-hash HEX] [--id BEACON_ID]
         [--device cpu]
     python -m drand_tpu_torch.cli start --folder DIR --private-listen
-        HOST:PORT --tls-disable [--device cpu]
+        HOST:PORT --tls-disable [--control PORT] [--device cpu]
+    python -m drand_tpu_torch.cli generate-keypair ADDRESS [--folder DIR]
+        [--id BEACON_ID]
+    python -m drand_tpu_torch.cli share (--leader --nodes N --threshold T
+        | --connect HOST:PORT) --secret-file FILE --control PORT
+        [--id BEACON_ID] [--period S] [--catchup-period S] [--scheme ID]
+        [--timeout S] [--source EXE] [--user-source-only]
+    python -m drand_tpu_torch.cli show share|group|chain-info
+        --control PORT [--id BEACON_ID]
 
 `util fsck` is the offline integrity check of a chain database: the
 structural scan of `chain/recovery.py` (each row decoded, round
@@ -49,14 +57,34 @@ round stayed unrepaired.
 `--private-listen` that loads every beacon folder under
 `--folder`/multibeacon holding a key pair, a group and a share, and
 produces the chain with its group's other nodes (a catch-up start, as
-drand_tpu's).  It checks partials on the card unless `--device cpu` is
-given (then on the native host tier).  It prints drand_tpu's "daemon
-running: ..." line (without a control port: the port has none) and
-runs until SIGINT or SIGTERM; it then stops the daemon, prints each
-dispatch record of the process (`dispatch.py`) as a JSON line
-{"dispatch": {...}} and exits 0.  TLS is not ported: without
-`--tls-disable` it exits with drand_tpu's message.  Only `sync` and
-`start` need `grpc`.
+drand_tpu's); a folder with a key pair alone waits for a DKG.  With
+`--control PORT` it also serves the Control service on 127.0.0.1:PORT
+(without it, none: drand_tpu's default port 8888 is not assumed).  It
+checks partials and a DKG's commitments on the card unless `--device
+cpu` is given (then on the native host tier and the golden model).  It
+prints drand_tpu's "daemon running: ..." line and runs until SIGINT or
+SIGTERM; it then stops the daemon, prints each dispatch record of the
+process (`dispatch.py`) as a JSON line {"dispatch": {...}}, and each
+beacon's last DKG (its phases, QUAL and state) as {"dkg": {...}}, and
+exits 0.  TLS is not ported: without `--tls-disable` it exits with
+drand_tpu's message.
+
+`generate-keypair` writes a node's long-term key pair for ADDRESS into
+`--folder`, with an identity that dials plain TCP (TLS is not ported),
+and prints it as JSON.  `share` asks the daemon on `--control` (a
+required flag, since `start` serves no control port unless given one)
+to run a fresh DKG (the Control
+service's InitDKG): `--leader` collects `--nodes` participants and sets
+the group's threshold, period, catch-up period and scheme; `--connect`
+joins the leader at its private address.  The setup secret is read
+from `--secret-file` (the port reads no environment, so not from
+DRAND_SHARE_SECRET); each phase closes after `--timeout` seconds at
+the latest, and genesis is 3 x timeout after the group is made.  It
+blocks until the ceremony ends and prints the group's TOML.  Reshare
+(`--transition`, `--from`) is not ported: it is refused.  `show` reads
+the node's share (its index and the group key), group TOML or chain
+info over the control port.  Only `sync`, `start`, `share` and `show`
+need `grpc`.
 """
 
 from __future__ import annotations
@@ -67,6 +95,21 @@ import json
 import os
 import sys
 import time
+
+
+# how long `share` waits for the ceremony (drand_tpu's)
+SHARE_TIMEOUT_S = 600
+RESHARE_NOT_PORTED = (
+    "share --transition/--from: reshare is not ported (drand_tpu's "
+    "InitReshare, Handler.transition and the in-place group swap); only "
+    "a fresh DKG runs")
+
+
+def _control_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--control", type=int, required=True,
+                   help="the daemon's control port (`start --control`)")
+    p.add_argument("--id", default="default", dest="beacon_id",
+                   help="beacon id")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -139,9 +182,49 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--tls-disable", "--insecure", dest="tls_disable",
                     action="store_true",
                     help="serve and dial plain TCP (TLS is not ported)")
+    sp.add_argument("--control", type=int, default=None,
+                    help="serve the Control service on 127.0.0.1:PORT "
+                    "(default: none)")
     sp.add_argument("--device", default=None,
-                    help="where partials are checked (default: the current "
-                    "CUDA device; 'cpu' for the native host tier)")
+                    help="where partials and a DKG's commitments are "
+                    "checked (default: the current CUDA device; 'cpu' for "
+                    "the native host tier and the golden model)")
+
+    sp = sub.add_parser("generate-keypair",
+                        help="create a node's long-term key pair")
+    sp.add_argument("--folder", default=os.path.expanduser("~/.drand"),
+                    help="the node's base folder")
+    sp.add_argument("--id", default="default", dest="beacon_id",
+                    help="beacon id")
+    sp.add_argument("address", help="the node's public address host:port")
+
+    sp = sub.add_parser("share", help="run a fresh DKG through the daemon")
+    _control_flags(sp)
+    sp.add_argument("--leader", action="store_true")
+    sp.add_argument("--connect", default="", help="the leader's address")
+    sp.add_argument("--nodes", type=int, default=0)
+    sp.add_argument("--threshold", type=int, default=0)
+    sp.add_argument("--period", type=int, default=30)
+    sp.add_argument("--catchup-period", type=int, default=0)
+    sp.add_argument("--scheme", default="pedersen-bls-chained")
+    sp.add_argument("--timeout", type=int, default=10,
+                    help="each phase's timeout, seconds")
+    sp.add_argument("--secret-file", default="",
+                    help="file holding the setup secret")
+    sp.add_argument("--source", default="",
+                    help="executable whose stdout supplies the DKG's "
+                    "entropy, XOR-mixed with the OS CSPRNG")
+    sp.add_argument("--user-source-only", action="store_true",
+                    help="use only --source's entropy")
+    sp.add_argument("--transition", action="store_true",
+                    help="reshare from the existing group (not ported)")
+    sp.add_argument("--from", dest="old_group_path", default="",
+                    help="previous group TOML of a reshare (not ported)")
+
+    sp = sub.add_parser("show", help="the daemon's share, group or chain "
+                        "info, over the control port")
+    _control_flags(sp)
+    sp.add_argument("what", choices=["share", "group", "chain-info"])
     return p
 
 
@@ -166,17 +249,92 @@ async def cmd_start(args) -> int:
         loop.add_signal_handler(sig, stop.set)
     daemon = DrandDaemon(Config(folder=args.folder,
                                 private_listen=args.private_listen,
+                                control_port=args.control,
                                 device=args.device))
     await daemon.start()
     try:
         loaded = await daemon.load_beacons_from_disk()
+        control = "" if daemon.control_listener is None else \
+            f"control={daemon.control_listener.port} "
         print(f"daemon running: private={daemon.private_addr()} "
-              f"beacons={loaded}", flush=True)
+              f"{control}beacons={loaded}", flush=True)
         await stop.wait()
     finally:
         await daemon.stop()
     for rec in DISPATCH.records():
         print(json.dumps({"dispatch": rec.to_dict()}), flush=True)
+    for bp in daemon.processes.values():
+        if bp.dkg_status is not None:
+            print(json.dumps({"dkg": bp.dkg_status.to_dict()}), flush=True)
+    return 0
+
+
+async def cmd_generate_keypair(args) -> int:
+    from drand_tpu_torch.key.keys import Pair
+    from drand_tpu_torch.key.store import FileStore
+    pair = Pair.generate(args.address)
+    FileStore(args.folder, args.beacon_id).save_key_pair(pair)
+    print(json.dumps({"address": args.address,
+                      "public_key": pair.public.key.hex(),
+                      "folder": args.folder, "beacon": args.beacon_id}))
+    return 0
+
+
+def _secret(args) -> bytes:
+    if not args.secret_file:
+        raise SystemExit("missing DKG secret: pass --secret-file")
+    with open(args.secret_file, "rb") as f:
+        return f.read().strip()
+
+
+async def cmd_share(args) -> int:
+    """A fresh DKG through the daemon's InitDKG; prints the group TOML."""
+    if args.transition or args.old_group_path:
+        raise SystemExit(RESHARE_NOT_PORTED)
+    secret = _secret(args)
+    from drand_tpu_torch.core import convert
+    from drand_tpu_torch.net.client import ControlClient, make_metadata
+    from drand_tpu_torch.protogen import drand_pb2
+    req = drand_pb2.InitDKGPacket(
+        info=drand_pb2.SetupInfoPacket(
+            leader=args.leader, leader_address=args.connect,
+            nodes=args.nodes, threshold=args.threshold,
+            timeout=args.timeout, secret=secret),
+        beacon_period=args.period, catchup_period=args.catchup_period,
+        schemeID=args.scheme, metadata=make_metadata(args.beacon_id))
+    if args.source:
+        req.entropy.script = args.source
+        req.entropy.userOnly = args.user_source_only
+    cc = ControlClient(args.control)
+    try:
+        group = await cc.stub.InitDKG(req, timeout=SHARE_TIMEOUT_S)
+    finally:
+        await cc.close()
+    print(convert.group_from_proto(group).to_toml(), end="")
+    return 0
+
+
+async def cmd_show(args) -> int:
+    from drand_tpu_torch.core import convert
+    from drand_tpu_torch.net.client import ControlClient, make_metadata
+    from drand_tpu_torch.protogen import drand_pb2
+    md = make_metadata(args.beacon_id)
+    cc = ControlClient(args.control)
+    try:
+        if args.what == "share":
+            r = await cc.stub.Share(drand_pb2.ShareRequest(metadata=md),
+                                    timeout=10)
+            print(json.dumps({"index": r.index, "public": r.share.hex()}))
+        elif args.what == "group":
+            r = await cc.stub.GroupFile(drand_pb2.GroupRequest(metadata=md),
+                                        timeout=10)
+            print(convert.group_from_proto(r).to_toml(), end="")
+        else:
+            r = await cc.stub.ChainInfo(
+                drand_pb2.ChainInfoRequest(metadata=md), timeout=10)
+            print(convert.info_from_proto(r).to_json().decode())
+    finally:
+        await cc.close()
     return 0
 
 
@@ -342,13 +500,10 @@ async def cmd_objectsync(args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.command == "objectsync":
-        return asyncio.run(cmd_objectsync(args))
-    if args.command == "sync":
-        return asyncio.run(cmd_sync(args))
-    if args.command == "start":
-        return asyncio.run(cmd_start(args))
-    return asyncio.run(cmd_fsck(args))
+    commands = {"objectsync": cmd_objectsync, "sync": cmd_sync,
+                "start": cmd_start, "generate-keypair": cmd_generate_keypair,
+                "share": cmd_share, "show": cmd_show, "util": cmd_fsck}
+    return asyncio.run(commands[args.command](args))
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
-"""Wire <-> model converters (counterpart of `drand_tpu/core/convert.py`'s
-chain-info and beacon converters, drand `chain/convert.go`).
+"""Wire <-> model converters (counterpart of `drand_tpu/core/convert.py`,
+drand `key/group.go`'s proto round trip and `chain/convert.go`):
+identities, groups, chain info and beacons.
 
 Both shapes of a SyncChain stream item: a BeaconPacket a beacon (what a
 drand server sends), or a BeaconPacket carrying a SyncChunk, a run of
@@ -16,7 +17,50 @@ from drand_tpu_torch.chain.info import Info
 from drand_tpu_torch.chain.scheme import DEFAULT_SCHEME_ID
 from drand_tpu_torch.chain.segment import PackedBeacons
 from drand_tpu_torch.common import DEFAULT_BEACON_ID
+from drand_tpu_torch.key.group import Group, Node
+from drand_tpu_torch.key.keys import DistPublic, Identity
 from drand_tpu_torch.protogen import drand_pb2
+
+
+def identity_to_proto(ident: Identity) -> drand_pb2.Identity:
+    return drand_pb2.Identity(address=ident.address, key=ident.key,
+                              tls=ident.tls, signature=ident.signature)
+
+
+def identity_from_proto(p) -> Identity:
+    return Identity(key=p.key, address=p.address, tls=p.tls,
+                    signature=p.signature)
+
+
+def group_to_proto(group: Group) -> drand_pb2.GroupPacket:
+    pkt = drand_pb2.GroupPacket(
+        threshold=group.threshold, period=group.period,
+        genesis_time=group.genesis_time,
+        transition_time=group.transition_time,
+        genesis_seed=group.genesis_seed,
+        catchup_period=group.catchup_period, schemeID=group.scheme_id)
+    pkt.metadata.beaconID = group.beacon_id
+    for n in sorted(group.nodes, key=lambda x: x.index):
+        pkt.nodes.append(drand_pb2.Node(public=identity_to_proto(n),
+                                        index=n.index))
+    if group.public_key is not None:
+        pkt.dist_key.extend(group.public_key.coefficients)
+    return pkt
+
+
+def group_from_proto(pkt: drand_pb2.GroupPacket) -> Group:
+    nodes = [Node(key=n.public.key, address=n.public.address,
+                  tls=n.public.tls, signature=n.public.signature,
+                  index=n.index) for n in pkt.nodes]
+    public = DistPublic(list(pkt.dist_key)) if pkt.dist_key else None
+    return Group(
+        threshold=pkt.threshold, period=pkt.period, nodes=nodes,
+        genesis_time=pkt.genesis_time, genesis_seed=pkt.genesis_seed,
+        transition_time=pkt.transition_time,
+        catchup_period=pkt.catchup_period,
+        scheme_id=pkt.schemeID or DEFAULT_SCHEME_ID,
+        beacon_id=pkt.metadata.beaconID or DEFAULT_BEACON_ID,
+        public_key=public)
 
 
 def info_to_proto(info: Info) -> drand_pb2.ChainInfoPacket:

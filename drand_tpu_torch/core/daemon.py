@@ -1,22 +1,27 @@
 """The daemon (counterpart of `drand_tpu/core/daemon.py`, drand
 `core/drand_daemon.go`): beacon processes by beacon id, chain hashes to
-beacon ids, the private gRPC gateway (the Protocol and Public services)
-and the beacons loaded from the multibeacon folder.
+beacon ids, the private gRPC gateway (the Protocol and Public services),
+the localhost control listener (the Control service, when
+`Config.control_port` is set) and the beacons loaded from the
+multibeacon folder.
 
-drand_tpu's control listener, public HTTP, metrics, health watchdog,
-consistency prober, TLS, resilience hub and chaos arming are not ported.
+drand_tpu's public HTTP, metrics, health watchdog, consistency prober,
+TLS, resilience hub and chaos arming are not ported.
 """
 
 from __future__ import annotations
 
 import logging
 
+import torch
+
 from drand_tpu_torch.core.config import Config
 from drand_tpu_torch.core.process import BeaconProcess
 from drand_tpu_torch.core.services import ProtocolService, PublicService
+from drand_tpu_torch.device import resolve
 from drand_tpu_torch.key.store import FileStore
 from drand_tpu_torch.net.client import PeerClients
-from drand_tpu_torch.net.gateway import PrivateGateway
+from drand_tpu_torch.net.gateway import ControlListener, PrivateGateway
 
 log = logging.getLogger("drand_tpu_torch.core")
 
@@ -31,13 +36,25 @@ class DrandDaemon:
                                                 self.chain_hashes)
         self.public_service = PublicService(self.processes, self.chain_hashes)
         self.private_gateway: PrivateGateway | None = None
+        self.control_listener: ControlListener | None = None
 
     async def start(self) -> None:
-        """Bind and start the private gateway."""
+        """Take the configured device (a node without its card fails here,
+        and the card's first use is paid before any ceremony or round),
+        bind and start the private gateway, then the control listener
+        when the configuration names a control port."""
+        dev = resolve(self.config.device)
+        if dev.type == "cuda":
+            torch.zeros(1, device=dev)
         self.private_gateway = PrivateGateway(
             self.config.private_listen, self.protocol_service,
             self.public_service)
         await self.private_gateway.start()
+        if self.config.control_port is not None:
+            from drand_tpu_torch.core.control import ControlService
+            self.control_listener = ControlListener(
+                ControlService(self), self.config.control_port)
+            await self.control_listener.start()
         log.info("daemon up: private=%s", self.private_addr())
 
     def private_addr(self) -> str:
@@ -47,6 +64,9 @@ class DrandDaemon:
     async def stop(self) -> None:
         for bp in self.processes.values():
             bp.stop()
+        if self.control_listener is not None:
+            await self.control_listener.stop()
+            self.control_listener = None
         if self.private_gateway is not None:
             await self.private_gateway.stop()
             self.private_gateway = None

@@ -14,9 +14,13 @@ store under the beacon folder (genesis put when it is empty), the
 `SyncManager` over the other nodes, all on the configured device.
 `start` runs the startup integrity scan (`chain.recovery.
 startup_recovery`, full BLS through the verifier), then the sync
-manager and the handler.  drand_tpu's response cache, metrics, health
-sink, objectsync publisher, environment switches, DKG state and reshare
-`transition` are not ported.
+manager and the handler.  While a DKG runs (`core/dkg_runner.py`) it
+holds the ceremony's state: the leader's `setup_manager`, a
+participant's `setup_receiver`, the echo broadcast `dkg_board` and the
+`dkg_status` that outlives it; a process with a key pair alone waits
+for a DKG, whose `set_group` builds the engine.  drand_tpu's response
+cache, metrics, health sink, objectsync publisher, environment switches
+and reshare `transition` are not ported.
 """
 
 from __future__ import annotations
@@ -150,6 +154,11 @@ class BeaconProcess(_Serving):
         self.integrity_report = None  # the last startup scan's report
         self._pending_repair = None   # (from_round, up_to) to sync again
         self._engine_closed = False
+        # DKG state, set while a ceremony runs
+        self.setup_manager = None     # the leader's collector
+        self.setup_receiver = None    # a participant's wait for the group
+        self.dkg_board = None         # the echo broadcast
+        self.dkg_status = None        # CeremonyStatus, kept after the board
 
     # -- state from disk --------------------------------------------------------
 

@@ -1,13 +1,14 @@
 """The gRPC services of a node (counterpart of `drand_tpu/core/services.py`):
-the Protocol service (GetIdentity, PartialBeacon, SyncChain, Status) and
-the Public one (PublicRand, PublicRandStream, ChainInfo), over processes
+the Protocol service (GetIdentity, PartialBeacon, SyncChain, Status and
+the DKG's SignalDKGParticipant, PushDKGInfo, BroadcastDKG) and the
+Public one (PublicRand, PublicRandStream, ChainInfo), over processes
 keyed by beacon id (`core.process.ServingProcess` or `BeaconProcess`).
 
 A request is routed by its metadata's beacon id (empty: the default
 one), else by its chain hash through the map of chain hashes a daemon
 keeps (`DrandDaemon.register_chain_hash`); no match answers NOT_FOUND.  drand_tpu's deadline shedding of late partials
-(resilience), its DKG RPCs, PrivateRand and Home are not ported: they
-answer UNIMPLEMENTED.
+(resilience), PrivateRand and Home are not ported: they answer
+UNIMPLEMENTED.
 """
 
 from __future__ import annotations
@@ -41,6 +42,19 @@ class _Demux:
         return bp
 
 
+def status_response(bp) -> drand_pb2.StatusResponse:
+    """A process's status as the Protocol and Control services answer
+    it."""
+    st = bp.status()
+    resp = drand_pb2.StatusResponse()
+    resp.beacon.is_running = st["is_running"]
+    resp.beacon.is_serving = st["is_serving"]
+    resp.chain_store.is_empty = st["is_empty"]
+    resp.chain_store.last_round = st["last_round"]
+    resp.chain_store.length = st["length"]
+    return resp
+
+
 class ProtocolService(_Demux):
     async def GetIdentity(self, request, context):
         bp = await self._process(request, context)
@@ -68,15 +82,31 @@ class ProtocolService(_Demux):
             yield convert.item_to_packet(item)
 
     async def Status(self, request, context):
+        return status_response(await self._process(request, context))
+
+    async def SignalDKGParticipant(self, request, context):
         bp = await self._process(request, context)
-        st = bp.status()
-        resp = drand_pb2.StatusResponse()
-        resp.beacon.is_running = st["is_running"]
-        resp.beacon.is_serving = st["is_serving"]
-        resp.chain_store.is_empty = st["is_empty"]
-        resp.chain_store.last_round = st["last_round"]
-        resp.chain_store.length = st["length"]
-        return resp
+        if bp.setup_manager is None:
+            await context.abort(grpc.StatusCode.FAILED_PRECONDITION,
+                                "no DKG setup in progress")
+        await bp.setup_manager.on_signal(request)
+        return drand_pb2.Empty()
+
+    async def PushDKGInfo(self, request, context):
+        bp = await self._process(request, context)
+        if bp.setup_receiver is None:
+            await context.abort(grpc.StatusCode.FAILED_PRECONDITION,
+                                "not expecting DKG info")
+        await bp.setup_receiver.on_dkg_info(request)
+        return drand_pb2.Empty()
+
+    async def BroadcastDKG(self, request, context):
+        bp = await self._process(request, context)
+        if bp.dkg_board is None:
+            await context.abort(grpc.StatusCode.FAILED_PRECONDITION,
+                                "no DKG in progress")
+        await bp.dkg_board.on_incoming(request.dkg)
+        return drand_pb2.Empty()
 
 
 def _rand_response(bp, beacon) -> drand_pb2.PublicRandResponse:

@@ -82,6 +82,11 @@ class PubPoly:
     def threshold(self) -> int:
         return len(self.commits)
 
+    def add(self, other: "PubPoly") -> "PubPoly":
+        assert self.threshold == other.threshold
+        return PubPoly([C.point_add(a, b, C.FP_OPS)
+                        for a, b in zip(self.commits, other.commits)])
+
     def eval(self, index: int):
         """Horner evaluation in the exponent at x = index + 1."""
         x = (index + 1) % R
@@ -108,3 +113,13 @@ def _lagrange_basis_at_zero(indices: Sequence[int]) -> dict[int, int]:
             den = den * ((xj - xi) % R) % R
         lambdas[i] = num * pow(den, -1, R) % R
     return lambdas
+
+
+def recover_secret(shares: Sequence[PriShare], threshold: int) -> int:
+    """Lagrange-interpolate the secret from the first `threshold` of at
+    least as many private shares."""
+    if len(shares) < threshold:
+        raise ValueError(f"need {threshold} shares, got {len(shares)}")
+    subset = shares[:threshold]
+    lambdas = _lagrange_basis_at_zero([s.index for s in subset])
+    return sum(s.value * lambdas[s.index] for s in subset) % R

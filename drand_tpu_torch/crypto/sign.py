@@ -1,14 +1,16 @@
 """BLS signatures of the key store and the beacon engine (counterpart of
-`drand_tpu/crypto/sign.py`'s `keygen`, `public_key`, `bls_sign` and
-`bls_verify`, drand `key.AuthScheme`): keys on G1 (48 bytes
-compressed), signatures on G2 (96 bytes compressed).
+`drand_tpu/crypto/sign.py`'s `keygen`, `public_key`, `bls_sign`,
+`bls_verify`, `schnorr_sign` and `schnorr_verify`, drand
+`key.AuthScheme`): keys on G1 (48 bytes compressed), signatures on G2
+(96 bytes compressed); the DKG's bundle signatures are Schnorr over G1
+(80 bytes), on the golden model.
 
 Signing and verifying go through the native host tier
 (`drand_tpu_torch/native`): hash-to-G2, then the one-point G2 linear
 combination, and the native two-pairing check; the bytes equal
 drand_tpu's golden model.  A library that cannot be built raises
-`native.NativeBuildError`.  drand_tpu's Schnorr scheme and its
-G1-signature helpers are not ported.
+`native.NativeBuildError`.  drand_tpu's G1-signature helpers are not
+ported.
 """
 
 from __future__ import annotations
@@ -51,3 +53,35 @@ def bls_verify(pub, msg: bytes, sig: bytes) -> bool:
     """e(g1, sigma) == e(pub, H2(msg)) for pub a G1 point; a signature
     that does not decode or lies outside G2 is false."""
     return native.verify_g2(C.g1_to_bytes(pub), msg, sig, DST_G2)
+
+
+def _schnorr_challenge(r_bytes: bytes, pub_bytes: bytes, msg: bytes) -> int:
+    return int.from_bytes(hashlib.sha512(
+        b"drand-tpu-schnorr" + r_bytes + pub_bytes + msg).digest(),
+        "big") % R
+
+
+def schnorr_sign(sk: int, msg: bytes) -> bytes:
+    """sig = R compressed (48 bytes) || s (32 bytes big-endian), with
+    s = k + sk * h mod r."""
+    k = secrets.randbelow(R - 1) + 1
+    r_bytes = C.g1_to_bytes(C.g1_mul(C.G1_GEN, k))
+    pub_bytes = C.g1_to_bytes(C.g1_mul(C.G1_GEN, sk))
+    h = _schnorr_challenge(r_bytes, pub_bytes, msg)
+    return r_bytes + ((k + sk * h) % R).to_bytes(32, "big")
+
+
+def schnorr_verify(pub, msg: bytes, sig: bytes) -> bool:
+    """s * G == R + h * pub."""
+    if len(sig) != 80:
+        return False
+    try:
+        r_pt = C.g1_from_bytes(sig[:48])
+    except ValueError:
+        return False
+    s = int.from_bytes(sig[48:], "big")
+    if s >= R:
+        return False
+    h = _schnorr_challenge(sig[:48], C.g1_to_bytes(pub), msg)
+    rhs = C.point_add(r_pt, C.g1_mul(pub, h), C.FP_OPS)
+    return C.g1_eq(C.g1_mul(C.G1_GEN, s), rhs)

@@ -6,10 +6,11 @@ the SyncChain/Status transport a SyncManager streams from.
 (`send_partial`: one attempt under the call timeout) and asks a peer for
 its identity (`get_identity`).  Plain TCP channels only (drand_tpu's TLS
 trust pools wait for its `net/certs.py`); no retry hub, breakers,
-deadline stamp, chaos failpoints, metrics or trace context, and no
-`ControlClient` (the port has no control port).  A grpc.aio channel is
-bound to the event loop it was first used in: build, use and close a
-PeerClients inside one loop.
+deadline stamp, chaos failpoints, metrics or trace context.
+`ControlClient` is the CLI's client of a daemon's Control service on
+127.0.0.1.  A grpc.aio channel is bound to the event loop it was first
+used in: build, use and close a PeerClients or a ControlClient inside
+one loop.
 """
 
 from __future__ import annotations
@@ -115,3 +116,15 @@ class GrpcBeaconNetwork:
         return await self.peers.protocol(address).GetIdentity(
             drand_pb2.IdentityRequest(metadata=make_metadata(self.beacon_id)),
             timeout=self.peers.timeout_s)
+
+
+class ControlClient:
+    """The localhost Control service of a daemon, as the CLI calls it:
+    `client.stub.InitDKG(req, timeout=...)`."""
+
+    def __init__(self, port: int, host: str = "127.0.0.1"):
+        self._channel = grpc.aio.insecure_channel(f"{host}:{port}")
+        self.stub = ServiceStub(self._channel, "Control")
+
+    async def close(self):
+        await self._channel.close()

@@ -10,7 +10,9 @@ executor) and one final exponentiation per element, batched over the
 round axis.  Also its threshold half: the public polynomial evaluated in
 the exponent (`pubpoly_eval_g1`), the signer-key table
 (`signer_table_arrays`) and the batched partial-signature checks
-(`verify_partial_g2_sigs*`), every one on a 1-D batch of rows.
+(`verify_partial_g2_sigs*`), every one on a 1-D batch of rows; and the
+DKG's batched commitment checks, one polynomial a row
+(`pubpoly_eval_g1_stacked`, `g1_rows_to_limbs`, `dkg_commit_checks`).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 from drand_tpu_torch.crypto.bls12381 import curve as GC
 from drand_tpu_torch.crypto.bls12381.constants import P
+from drand_tpu_torch.device import resolve
 from drand_tpu_torch.ops import curve as DC
 from drand_tpu_torch.ops import h2c as DH
 from drand_tpu_torch.ops import pairing as DP
@@ -203,6 +206,25 @@ def pubpoly_eval_g1(commits, indices: torch.Tensor):
     return acc
 
 
+def g1_rows_to_limbs(points):
+    """Golden G1 Jacobian points -> (x [n, 32] int32, y [n, 32] int32,
+    inf [n] bool) canonical Montgomery affine numpy arrays (zeros where
+    infinite): the unique representation, so limb equality is point
+    equality."""
+    n = len(points)
+    tx = np.zeros((n, N_LIMBS), dtype=np.int32)
+    ty = np.zeros((n, N_LIMBS), dtype=np.int32)
+    tinf = np.zeros((n,), dtype=bool)
+    for i, pt in enumerate(points):
+        if GC.point_is_inf(pt, GC.FP_OPS):
+            tinf[i] = True
+            continue
+        ax, ay = GC.g1_affine(pt)
+        tx[i] = FP.to_mont_host(ax)
+        ty[i] = FP.to_mont_host(ay)
+    return tx, ty, tinf
+
+
 def signer_table_arrays(pub_poly, n: int):
     """The signer-key table of a group: the public polynomial evaluated at
     every share index 0..n-1 by the golden model, as canonical affine
@@ -210,18 +232,8 @@ def signer_table_arrays(pub_poly, n: int):
     CPU tensors).  Canonical affine limbs are unique, so a gather from
     this table gives the Miller loop the same limbs as the in-batch
     `pubpoly_eval_g1` and its affine conversion."""
-    tx = np.zeros((n, N_LIMBS), dtype=np.int32)
-    ty = np.zeros((n, N_LIMBS), dtype=np.int32)
-    tinf = np.zeros((n,), dtype=bool)
-    for i in range(n):
-        pt = pub_poly.eval(i)
-        if GC.point_is_inf(pt, GC.FP_OPS):
-            tinf[i] = True
-            continue
-        ax, ay = GC.g1_affine(pt)
-        tx[i] = FP.to_mont_host(ax)
-        ty[i] = FP.to_mont_host(ay)
-    return torch.from_numpy(tx), torch.from_numpy(ty), torch.from_numpy(tinf)
+    return tuple(torch.from_numpy(a) for a in g1_rows_to_limbs(
+        [pub_poly.eval(i) for i in range(n)]))
 
 
 def _tabled_verify_core(h_aff, h_inf, sig_bytes, indices, table):
@@ -285,3 +297,64 @@ def verify_partial_g2_sigs(msgs, sig_bytes, indices, commits, dst: bytes):
     h_aff, h_inf = _hash_rows(msgs, dst)
     ok = _g2_pairs_ok(sig_aff, s_inf, pk_aff, h_aff, h_inf | p_inf)
     return ok & s_valid & ~s_inf & in_sub & ~p_inf
+
+
+# ---------------------------------------------------------------------------
+# DKG: batched commitment checks, one polynomial a row
+# ---------------------------------------------------------------------------
+
+def pubpoly_eval_g1_stacked(ctx: torch.Tensor, cty: torch.Tensor,
+                            indices: torch.Tensor):
+    """Row-stacked Horner in the exponent: row r evaluates its own
+    polynomial (ctx[r], cty[r]) at x = indices[r] + 1, the shape of the
+    DKG's deal and justification checks, where every dealer commits to
+    a different polynomial (`pubpoly_eval_g1` evaluates one polynomial
+    at many indices).
+
+    ctx, cty: [rows, t, 32] int32 canonical Montgomery affine commitment
+    coordinates, none at infinity (callers send identity commitments to
+    the host path); indices: int32 [rows] share indices, all on one
+    device.  The t - 1 steps are 16-bit ladders over the bits of index +
+    1, taken as drand_tpu takes them (65535 + 1 keeps only its low 16
+    bits).  Returns ((ax, ay), inf): canonical Montgomery affine limbs
+    [rows, 32] and the infinity mask [rows]."""
+    rows, t = ctx.shape[0], ctx.shape[1]
+    d = ctx.device
+    x = (indices + 1).to(torch.int32)
+    bits = (x[:, None] >> torch.arange(15, -1, -1, device=d,
+                                       dtype=torch.int32)) & 1
+    one = T.fp_broadcast(T.FP_ONE, (rows,), d)
+    # coefficient-major, highest degree first: cmx[j] is row-contiguous
+    cmx = ctx.flip(1).transpose(0, 1).contiguous()
+    cmy = cty.flip(1).transpose(0, 1).contiguous()
+    acc = (cmx[0], cmy[0], one)
+    for j in range(1, t):
+        acc = DC.point_mul_bits(acc, bits, DC.FpOps)
+        acc = DC.point_add(acc, (cmx[j], cmy[j], one), DC.FpOps)
+    return DC.point_to_affine(acc, DC.FpOps)
+
+
+def dkg_commit_checks(ctx, cty, indices, ex, ey, einf, device=None):
+    """Batched DKG commitment checks: row r asserts poly_r(indices[r] +
+    1) == expected_r.
+
+    ctx, cty [rows, t, 32] int32 (see `pubpoly_eval_g1_stacked`),
+    indices int32 [rows], ex, ey [rows, 32] int32 and einf bool [rows]:
+    the expected points in the same representation; numpy arrays or
+    tensors, moved to `device` (`device.resolve`: the current CUDA device
+    unless one is named).  Returns bool [rows] numpy verdicts, read back
+    with one `.cpu()`.  Canonical affine limbs are unique, so a verdict
+    is bit-identical to the golden `g1_eq(PubPoly(commits).eval(i),
+    expected)`."""
+    dev = resolve(device)
+
+    def on(a, dtype):
+        if not torch.is_tensor(a):
+            a = torch.from_numpy(np.ascontiguousarray(a))
+        return a.to(dev, dtype)
+    (ax, ay), inf = pubpoly_eval_g1_stacked(
+        on(ctx, torch.int32), on(cty, torch.int32), on(indices, torch.int32))
+    e_inf = on(einf, torch.bool)
+    eq = FP.eq(ax, on(ex, torch.int32)) & FP.eq(ay, on(ey, torch.int32))
+    ok = (inf & e_inf) | (~inf & ~e_inf & eq)
+    return ok.cpu().numpy()

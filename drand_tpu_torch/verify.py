@@ -16,12 +16,12 @@ Digest rules (drand `chain/verify.go`):
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from drand_tpu_torch.crypto.bls12381.constants import DST_G1, DST_G2
+from drand_tpu_torch.chain.scheme import (  # noqa: F401 (re-exported)
+    SHAPE_CHAINED, SHAPE_UNCHAINED, SHAPE_UNCHAINED_G1, SchemeShape)
 from drand_tpu_torch.device import resolve
 from drand_tpu_torch.dispatch import record_dispatch
 from drand_tpu_torch.ops import bls as BLS
@@ -44,21 +44,6 @@ def rounds_be8(rounds: np.ndarray) -> np.ndarray:
     return np.asarray(rounds, dtype=">u8").view(np.uint8).reshape(-1, 8)
 
 
-@dataclass(frozen=True)
-class SchemeShape:
-    """Static wire shape of a scheme."""
-    chained: bool          # prev_sig part of the digest
-    sig_on_g1: bool        # short signatures on G1, the key on G2
-    dst: bytes
-
-    @property
-    def sig_len(self) -> int:
-        return 48 if self.sig_on_g1 else 96
-
-
-SHAPE_CHAINED = SchemeShape(chained=True, sig_on_g1=False, dst=DST_G2)
-SHAPE_UNCHAINED = SchemeShape(chained=False, sig_on_g1=False, dst=DST_G2)
-SHAPE_UNCHAINED_G1 = SchemeShape(chained=False, sig_on_g1=True, dst=DST_G1)
 
 
 class Verifier:

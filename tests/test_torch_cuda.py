@@ -1229,3 +1229,61 @@ def test_beacon_group_with_card_node_on_card(cuda, tmp_path):
     assert calls and sum(len(c[1]) for c in calls) >= 2 * (t - 1)
     for msgs, parts, verdicts in calls:
         assert verdicts == host.verify_partials(msgs, parts)
+
+
+def test_dkg_commit_checks_and_deal_checks_on_card(cuda):
+    """The DKG's batched commitment check on the card at n = 16 rows, t = 9,
+    bit-equal to the CPU's plain path and to the golden model, a swapped
+    commitment and a wrong expected point false in their rows only; a
+    DkgProtocol on the card (16 dealers, one of them sealing a wrong
+    share to us) gives the host path's deal verdicts in one batched
+    call."""
+    import hashlib
+
+    from drand_tpu_torch.crypto import dkg as DKG
+    from drand_tpu_torch.crypto import ecies
+    from drand_tpu_torch.crypto import sign as SG
+    from drand_tpu_torch.crypto.bls12381 import curve as GC
+    from drand_tpu_torch.crypto.poly import PriPoly, PubPoly
+    from drand_tpu_torch.dispatch import DISPATCH
+    from drand_tpu_torch.ops import bls as BLS
+    rng = np.random.default_rng(1609)
+    rows, t = 16, 9
+    polys = [[GC.g1_mul_gen(int(x)) for x in rng.integers(1, 2**62, t)]
+             for _ in range(rows)]
+    idx = [int(i) for i in rng.integers(0, 16, rows)]
+    exp = [PubPoly(p).eval(i) for p, i in zip(polys, idx)]
+    polys[3] = [polys[3][0]] + polys[3][:-1]
+    exp[12] = GC.g1_mul_gen(12)
+    limbs = [BLS.g1_rows_to_limbs(p) for p in polys]
+    args = (np.stack([x for x, _, _ in limbs]),
+            np.stack([y for _, y, _ in limbs]),
+            np.asarray(idx, dtype=np.int32), *BLS.g1_rows_to_limbs(exp))
+    card = BLS.dkg_commit_checks(*args)
+    assert card.tolist() == BLS.dkg_commit_checks(*args, device="cpu").tolist()
+    assert card.tolist() == [GC.g1_eq(PubPoly(p).eval(i), e)
+                             for p, i, e in zip(polys, idx, exp)]
+    assert [r for r in range(rows) if not card[r]] == [3, 12]
+
+    keys = [SG.keygen(b"card dkg %d" % i) for i in range(rows)]
+    nodes = [DKG.DkgNode(i, pk) for i, (_, pk) in enumerate(keys)]
+    nonce = hashlib.sha256(b"card dkg").digest()
+
+    def proto(i, device):
+        return DKG.DkgProtocol(DKG.DkgConfig(
+            longterm=keys[i][0], new_nodes=nodes, threshold=t, nonce=nonce),
+            device=device)
+    dealers = [proto(i, "cpu") for i in range(rows)]
+    deals = [p.make_deal_bundle() for p in dealers]
+    poly = dealers[5]._poly
+    deals[5].deals[0] = DKG.Deal(0, ecies.seal(
+        nodes[0].public, ((poly.eval(0).value + 1) % GC.R).to_bytes(32, "big")))
+    deals[5].signature = SG.schnorr_sign(keys[5][0], deals[5].hash())
+    on_card, on_host = proto(0, None), proto(0, "cpu")
+    for p in (on_card, on_host):
+        assert all(p.receive_deal_bundle(d) for d in deals)
+    before = len(DISPATCH.records("dkg_deals"))
+    got = on_card._check_deals()
+    assert [r.n for r in DISPATCH.records("dkg_deals")[before:]] == [rows]
+    assert got == on_host._check_deals()
+    assert [d for d in range(rows) if not got[d]] == [5]

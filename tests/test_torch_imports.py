@@ -196,6 +196,28 @@ def test_engine_imports_without_grpc():
     assert out.stdout.splitlines() == ["[]", "daemon needs grpc"]
 
 
+_NO_TORCH_CLI = r"""
+import sys
+from drand_tpu_torch import cli
+from drand_tpu_torch.core import convert
+from drand_tpu_torch.key.store import FileStore
+from drand_tpu_torch.net.client import ControlClient
+cli.build_parser().parse_args(["show", "group", "--control", "1"])
+print(sorted(k for k in sys.modules if k == "torch" or k.startswith("torch.")))
+"""
+
+
+def test_control_port_commands_load_no_torch():
+    """`cli generate-keypair`, `share` and `show` only write key files or
+    talk to a daemon's control port: the key store, the group converters
+    and the control client import without torch, so 16 of them start in
+    a fraction of a second."""
+    out = subprocess.run([sys.executable, "-c", _NO_TORCH_CLI], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.splitlines() == ["[]"]
+
+
 def test_chip_smoke_imports_neither():
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
     mods = set()
